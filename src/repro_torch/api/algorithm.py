@@ -1,0 +1,228 @@
+"""Sampling algorithms as ``(init, step)`` pairs over chain-batched state.
+
+Port of :mod:`repro.api.algorithm`. :func:`firefly` builds the exact-subset
+chain, :func:`regular_mcmc` the full-data baseline; both return a
+:class:`SamplingAlgorithm` whose ``step`` emits
+:class:`~repro_torch.core.flymc.StepStats`, so the driver treats them alike.
+The chain axis is explicit: ``init(keys (K, 2), positions (K, ...))`` and
+``step(keys (K, 2), state)`` advance all K chains at once — there is no
+``vmap``, and each kernel launches once per step for all chains.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.core import bounds as bounds_lib
+from repro_torch.core import flymc, samplers
+from repro_torch.core.bounds import CollapsedStats, GLMData
+from repro_torch.core.flymc import FlyMCSpec, StepStats
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingAlgorithm:
+    """init(keys, positions) -> state; step(keys, state) -> (state, stats).
+
+    ``grow``/``resize``/``init_overflow`` exist for algorithms with bounded
+    buffers (FlyMC's capacities): ``grow()`` is the same algorithm with
+    doubled capacities, ``resize(state)`` reshapes a state for them without
+    likelihood queries, ``init_overflow(state)`` flags a (K,) initial state
+    that does not fit.
+    """
+
+    init: Callable[[torch.Tensor, Any], Any]
+    step: Callable[[torch.Tensor, Any], tuple[Any, StepStats]]
+    device: torch.device
+    grow: Callable[[], "SamplingAlgorithm"] | None = None
+    resize: Callable[[Any], Any] | None = None
+    init_overflow: Callable[[Any], torch.Tensor] | None = None
+    default_position: Any = None
+    spec: Any = None
+
+    def position_of(self, state) -> torch.Tensor:
+        return state.sampler.theta
+
+
+def firefly(
+    model=None,
+    *,
+    bound=None,
+    log_prior=None,
+    data: GLMData | None = None,
+    stats: CollapsedStats | None = None,
+    kernel: str = "rwmh",
+    capacity: int = 1024,
+    cand_capacity: int = 1024,
+    q_db: float = 0.01,
+    mode: str = "implicit",
+    step_size: float = 0.1,
+    adapt_target: float | str | None = None,
+    num_warmup: int = 1000,
+    kernel_params=(),
+    backend: str = "pallas",
+    z_backend: str = "fused",
+    device="cuda",
+) -> SamplingAlgorithm:
+    """Build the FlyMC sampling algorithm (paper §2–3).
+
+    ``model`` carries ``.bound/.log_prior/.data`` (and optionally
+    ``.stats``), e.g. :class:`repro_torch.models.bayes_glm.GLMModel`. The
+    engines are the two kernels (``backend="pallas"``,
+    ``z_backend="fused"``, the defaults); the others raise
+    ``NotImplementedError`` until ported. ``adapt_target="auto"`` adapts the
+    step size toward the kernel's standard accept rate during the first
+    ``num_warmup`` iterations only.
+    """
+    dev = resolve_device(device)
+    if model is not None:
+        bound = bound if bound is not None else model.bound
+        log_prior = log_prior if log_prior is not None else model.log_prior
+        data = data if data is not None else model.data
+        stats = stats if stats is not None else getattr(model, "stats", None)
+    if data is None or log_prior is None or bound is None:
+        raise ValueError("firefly() needs a model, or explicit bound=, log_prior=, data=")
+    if data.x.device != dev:
+        raise ValueError(f"data is on {data.x.device}, but device={dev}")
+    bound = bounds_lib.get_bound(bound)
+    if bounds_lib.fused_family_of(bound) is None:
+        raise ValueError(
+            f"the kernel engine needs a FusedBound; {type(bound).__name__} "
+            "has no usable fused_family hook"
+        )
+    if stats is None:
+        stats = bound.suffstats(data)
+    ks = samplers.get_kernel(kernel)
+    if adapt_target == "auto":
+        adapt_target = None if ks.target_accept >= 1.0 else ks.target_accept
+    n = data.x.shape[0]
+    spec = FlyMCSpec(
+        bound=bound, log_prior=log_prior, kernel=kernel,
+        capacity=min(int(capacity), n), cand_capacity=min(int(cand_capacity), n),
+        q_db=q_db, mode=mode, kernel_kwargs=tuple(kernel_params),
+        adapt_target=adapt_target, backend=backend, z_backend=z_backend,
+        num_warmup=int(num_warmup),
+    )
+    return _firefly_from_spec(spec, data, stats, step_size)
+
+
+def _firefly_from_spec(spec: FlyMCSpec, data: GLMData, stats: CollapsedStats,
+                       step_size: float) -> SamplingAlgorithm:
+    n = data.x.shape[0]
+
+    def init(keys, positions):
+        return flymc.init_chain_state(spec, data, stats, positions, keys,
+                                      step_size=step_size)
+
+    def step(keys, state):
+        # The chain state's rng slot is overwritten with the driver's keys so
+        # the step is a pure function of (keys, state).
+        return flymc.flymc_step(spec, data, stats, state._replace(rng=keys))
+
+    grown = []
+
+    def grow():
+        if not grown:
+            grown.append(_firefly_from_spec(flymc._grow(spec, n), data, stats,
+                                            step_size))
+        return grown[0]
+
+    def resize(state):
+        return flymc.resize_state(spec, state)
+
+    def init_overflow(state):
+        return state.bright.num > spec.capacity
+
+    d = data.x.shape[-1]
+    dev = data.x.device
+    if isinstance(spec.bound, bounds_lib.SoftmaxBound):
+        default_position = torch.zeros(data.xi.shape[-1], d, device=dev)
+    else:
+        default_position = torch.zeros(d, device=dev)
+    can_grow = spec.capacity < n or spec.cand_capacity < n
+    return SamplingAlgorithm(
+        init=init, step=step, device=dev, grow=grow if can_grow else None,
+        resize=resize, init_overflow=init_overflow,
+        default_position=default_position, spec=spec,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Full-data baseline
+# ---------------------------------------------------------------------------
+
+
+class MCMCState(NamedTuple):
+    sampler: samplers.SamplerState
+    log_step: torch.Tensor  # (K,)
+    iteration: torch.Tensor  # (K,) int64
+
+
+def regular_mcmc(
+    model=None,
+    *,
+    logdensity_fn=None,
+    n_data: int | None = None,
+    kernel: str = "rwmh",
+    step_size: float = 0.1,
+    adapt_target: float | str | None = None,
+    num_warmup: int = 1000,
+    kernel_params=(),
+    theta_shape=None,
+    device="cuda",
+) -> SamplingAlgorithm:
+    """Full-data MCMC baseline: every density evaluation costs N queries.
+
+    ``model`` supplies the exact log posterior, or pass ``logdensity_fn``
+    (θ (K, ...) -> (lp (K,), aux)) and ``n_data``. Emits the same StepStats
+    as :func:`firefly` (``overflow`` always False, ``n_bright`` = N).
+    """
+    dev = resolve_device(device)
+    if model is not None:
+        logdensity_fn = logdensity_fn or model.full_logpdf_fn()
+        n_data = n_data if n_data is not None else model.data.x.shape[0]
+        theta_shape = theta_shape or model.theta_shape
+    if logdensity_fn is None or n_data is None:
+        raise ValueError("regular_mcmc() needs a model or logdensity_fn + n_data")
+    ks = samplers.get_kernel(kernel)
+    if adapt_target == "auto":
+        adapt_target = None if ks.target_accept >= 1.0 else ks.target_accept
+    kern = samplers.bind(kernel, logdensity_fn, kernel_params)
+
+    def init(keys, positions):
+        del keys
+        st = samplers.init_state(logdensity_fn, positions, with_grad=ks.needs_grad)
+        k = positions.shape[0]
+        return MCMCState(
+            sampler=st,
+            log_step=torch.log(torch.full((k,), step_size, dtype=st.lp.dtype,
+                                          device=dev)),
+            iteration=torch.zeros(k, dtype=torch.int64, device=dev),
+        )
+
+    def step(keys, state):
+        new, info = kern(keys, state.sampler, torch.exp(state.log_step))
+        log_step = state.log_step
+        if adapt_target is not None:
+            adapted = samplers.adapt_step_size(
+                log_step, info.accept_prob, adapt_target, state.iteration
+            )
+            log_step = torch.where(state.iteration < num_warmup, adapted, log_step)
+        n = torch.full_like(state.iteration, n_data)
+        stats = StepStats(
+            n_bright=n,
+            lik_queries=info.n_evals * n,
+            accept_prob=info.accept_prob,
+            overflow=torch.zeros_like(info.accepted),
+            joint_lp=new.lp,
+        )
+        return MCMCState(new, log_step, state.iteration + 1), stats
+
+    default_position = (
+        torch.zeros(theta_shape, device=dev) if theta_shape is not None else None
+    )
+    return SamplingAlgorithm(init=init, step=step, device=dev,
+                             default_position=default_position)

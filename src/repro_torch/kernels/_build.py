@@ -1,0 +1,134 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` into one shared library.
+
+Every ``csrc/*.cu`` file is compiled for ``sm_90a`` by its own ``nvcc``
+process (all started together), linked into ``build/repro_torch/
+libkernels.so`` at the root of the checkout, and loaded with ``ctypes``. The
+sources are the only inputs; the build runs at first use and is skipped when
+a library built from the same sources and flags is already there. No fast
+math: δ feeds accept decisions.
+
+Each C entry point takes device pointers (``tensor.data_ptr()``) and the
+current stream, launches on that stream, and returns ``cudaGetLastError()``;
+:func:`check` turns a nonzero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
+FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_lib = None
+build_seconds: float | None = None  # wall time of the last build (None: cached)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def build() -> Path:
+    """Compile every ``csrc/*.cu`` (in parallel) and link the library."""
+    global build_seconds
+    sources = sorted(CSRC.glob("*.cu"))
+    so = BUILD_DIR / "libkernels.so"
+    stamp = BUILD_DIR / "libkernels.sha256"
+    digest = _digest(sources)
+    if so.exists() and stamp.exists() and stamp.read_text() == digest:
+        build_seconds = None
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for src in sources:
+        obj = BUILD_DIR / (src.stem + ".o")
+        cmd = [nvcc, *FLAGS, "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = []
+    failed = []
+    for src, obj, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+    link = [nvcc, "-shared", "-o", str(so), *(str(o) for _, o, _ in procs)]
+    res = subprocess.run(link, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"linking {so.name} failed:\n{res.stdout}{res.stderr}")
+    stamp.write_text(digest)
+    build_seconds = time.perf_counter() - t0
+    return so
+
+
+def _declare(lib) -> None:
+    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    lib.bright_glm_launch.argtypes = [
+        p, p, p, p, i64, p, p, p, p, p,  # x t xi idx idx_stride nb θ δ part tot
+        i, i, i, i, i, i,  # K C N D kt family
+        f, f, f, p,  # nu sigma h stream
+    ]
+    lib.bright_glm_launch.restype = i
+    lib.z_candidates_launch.argtypes = [
+        p, i64, p, p, p, p, p,  # arr arr_stride num kw cand count tile_counts
+        i, i, i, i, p,  # K N q_bits cap stream
+    ]
+    lib.z_candidates_launch.restype = i
+    lib.kernels_error_string.argtypes = [i]
+    lib.kernels_error_string.restype = ctypes.c_char_p
+
+
+def library():
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        _declare(lib)
+        _lib = lib
+    return _lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        text = library().kernels_error_string(code).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {code} "
+                           f"({text})")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
