@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port of FlyMC on one NVIDIA GPU and check it.
+"""Drive the PyTorch + CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``, at
-first use), then:
+first use), then runs two paths — the FlyMC chain and the recurrentgemma-9b
+LM serving path — each with its kernels:
 
-1. holds each kernel against its plain PyTorch version on the card at the
-   paper's widths — ``bright_glm`` for the logistic (MNIST 7v9, N=12,214,
-   D=51), softmax (CIFAR-3, N=18,000, D=256, 3 classes) and Student-t (OPV,
-   N=1.8M, D=57) families, δ and totals to rtol/atol 1e-5; ``z_update``
-   bitwise at N=12,214 and N=1.8M — and times both: ``ms`` is the kernels'
-   device time per call (torch.profiler), ``call_ms`` and ``plain_ms`` the
-   median of warm calls between CUDA events, host overhead included;
-2. drives the main path at the MNIST width: ``GLMModel.logistic`` →
+1. holds each kernel against its plain PyTorch version on the card and
+   times it: ``ms`` is the kernels' device time per call (torch.profiler;
+   where the trace holds no record of the kernel, back-to-back calls between
+   CUDA events), ``call_ms`` and ``plain_ms`` the median of warm calls
+   between CUDA events, host overhead included.
+   FlyMC, at the paper's widths: ``bright_glm`` for the logistic (MNIST 7v9,
+   N=12,214, D=51), softmax (CIFAR-3, N=18,000, D=256, 3 classes) and
+   Student-t (OPV, N=1.8M, D=57) families, δ and totals to rtol/atol 1e-5;
+   ``z_update`` bitwise at N=12,214 and N=1.8M.
+   LM serving, at the path's shapes, to rtol/atol 1e-5:
+   ``decode_attention`` (B=4, H=16, Hk=1, D=256, W=2048, window 2048, bf16
+   K/V; a wrapped and a partly filled ring; one f32 case with G=4, Hk=2,
+   D=128), with ``scaled_dot_product_attention`` as the library yardstick;
+   ``rglru_scan`` (B=4, S=2304, C=4096; log a ≈ -5, the model's decays, and
+   ≈ -1e-6);
+2. drives the FlyMC main path at the MNIST width: ``GLMModel.logistic`` →
    ``map_estimate`` → ``map_tuned`` → ``api.firefly`` (RWMH) → ``api.sample``
    with 2 chains (250 warmup, then 750 samples resumed with streaming
    collectors), counting kernel launches, and compares it with the
@@ -24,7 +33,18 @@ first use), then:
    bright-GLM ``autograd.Function``;
 4. checks exactness on the card: a run at capacity 64 (overflow re-runs)
    equals the run at 512 bitwise, and two batched chains equal the chains
-   run one at a time.
+   run one at a time;
+5. checks the serving contract at recurrentgemma-9b's published width in
+   float32: prefill 2100 tokens, decode one, and compare the logits with the
+   full forward over 2101 tokens (rtol/atol 2e-3) and the greedy token with
+   the forward's argmax;
+6. drives the serving path once through ``repro_torch.launch.serve.serve``
+   at the published width in bfloat16 (38 layers, d_model 4096, vocab
+   256,000, seeded random weights): batch 4, a 2304-token prompt (longer
+   than the 2048 window, so the ring wraps), 32 greedy tokens; prints
+   prefill ms, decode ms/token, tokens/s and peak memory, and checks 26
+   ``rglru_scan`` launches per prefill and 12 ``decode_attention`` launches
+   per decode step.
 
 Any failure raises (nonzero exit, no result line). The last two lines are the
 ``{"kernels": [...]}`` table and ``{"ok": true, "device": {...}}``. Needs one
@@ -60,6 +80,10 @@ CAPACITY = 512
 # second run at the MNIST N with D = 3, long enough to converge.
 WARMUP, SAMPLES, CHAINS = 250, 750, 2
 D_CONV, WARMUP_CONV, SAMPLES_CONV = 3, 1000, 5000
+# LM serving path: recurrentgemma-9b at its published width.
+ARCH = "recurrentgemma-9b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2304, 32
+EXACT_BATCH, EXACT_PROMPT = 2, 2100
 
 
 def log(msg: str) -> None:
@@ -93,7 +117,10 @@ def median_ms(fn, reps: int = 25, warm: int = 3) -> float:
 
 def device_ms(fn, names, reps: int = 20):
     """Device time per call of the kernels whose names contain one of
-    ``names`` (torch.profiler, CUDA activity); None if the trace has none."""
+    ``names`` (torch.profiler, CUDA activity). If the trace holds none of
+    them, logs the kernel names it does hold and returns the time per call
+    of ``reps`` back-to-back calls between two CUDA events instead (device
+    time plus any launch gaps); the log line says which."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -103,11 +130,26 @@ def device_ms(fn, names, reps: int = 20):
             fn()
         torch.cuda.synchronize()
     total_us = 0.0
+    seen = []
     for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        seen.append((us, ev.key[:90]))
         if any(n in ev.key for n in names):
-            total_us += getattr(ev, "self_device_time_total",
-                                getattr(ev, "self_cuda_time_total", 0.0))
-    return total_us / reps / 1e3 if total_us > 0 else None
+            total_us += us
+    if total_us > 0:
+        return total_us / reps / 1e3
+    log(f"  profiler: no kernel named {names} among {len(seen)} keys "
+        f"{sorted(seen, reverse=True)[:4]}; timing {reps} back-to-back calls "
+        "with CUDA events")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -160,7 +202,7 @@ def bright_phase(name, family, data, k, c, kc, dev, gen):
         f"call {ms:.4f} ms (device {dev_ms} ms), plain {plain:.4f} ms, "
         f"bound {b_ms:.6f} ms ({b_by})")
     return {"phase": name, "N": n, "D": d, "K": k, "C": c, "max_abs_err": err,
-            "ms": dev_ms if dev_ms is not None else ms, "call_ms": ms,
+            "ms": dev_ms, "call_ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -186,7 +228,7 @@ def z_phase(name, n, k, q_db, cap, dev, gen):
         f"(count {count.tolist()}), call {ms:.4f} ms (device {dev_ms} ms), "
         f"plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
     return {"phase": name, "N": n, "K": k, "cap": cap, "max_abs_err": 0.0,
-            "ms": dev_ms if dev_ms is not None else ms, "call_ms": ms,
+            "ms": dev_ms, "call_ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -416,6 +458,198 @@ def exactness(mnist):
         f"chains == chains run alone, bitwise")
 
 
+# ---------------------------------------------------------------------------
+# 1. LM kernel phases, 5. serving exactness, 6. the serving path
+# ---------------------------------------------------------------------------
+
+
+def _ring_pos(w: int, t: int, dev) -> torch.Tensor:
+    """Ring positions after writing 0..t: slot s holds the largest p <= t
+    with p ≡ s (mod W), or -1."""
+    slots = torch.arange(w)
+    p = slots + torch.div(t - slots, w, rounding_mode="floor") * w
+    return torch.where(p >= 0, p, -1).to(torch.int32).to(dev)
+
+
+def decode_attention_phase(name, b, h, hk, d, w, t, window, dtype, dev, gen):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    q = torch.randn(b, h, d, generator=gen).to(dev)
+    k = torch.randn(b, w, hk, d, generator=gen).to(dtype).to(dev)
+    v = torch.randn(b, w, hk, d, generator=gen).to(dtype).to(dev)
+    pos = _ring_pos(w, t, dev)
+    args = (q, k, v, pos, t, window)
+    got = ops.decode_attention(*args)
+    want = decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+    err = max(float((a - r).abs().max()) for a, r in zip(got, want))
+    call = lambda: ops.decode_attention(*args)
+    ms = median_ms(call)
+    dev_ms = device_ms(call, ("decode_attention_kernel",))
+    plain = median_ms(lambda: decode_attention_ref(*args))
+    # Yardstick: one library call of the same function (GQA, boolean mask).
+    valid = (pos >= 0) & (pos <= t)
+    if window is not None:
+        valid &= pos > t - window
+    qs = q.to(dtype).view(b, h, 1, d)
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    mask = valid.view(1, 1, 1, w)
+    sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  enable_gqa=True)
+    lib_err = float((sdpa().float().view(b, h, d) - want[0]).abs().max())
+    lib_ms = median_ms(sdpa)
+    n_valid = int(valid.sum())
+    g = h // hk
+    b_ms, b_by = bound(2 * b * n_valid * hk * d * k.element_size()
+                       + 2 * b * h * d * 4 + 2 * b * hk * g * 4 + w * 4,
+                       4.0 * b * h * n_valid * d)
+    log(f"decode_attention[{name}: B={b} H={h} Hk={hk} D={d} W={w} t={t} "
+        f"window={window} {str(dtype)[6:]}] max|Δ|={err:.3g}, call {ms:.4f} ms "
+        f"(device {dev_ms:.6f} ms), plain {plain:.4f} ms, library (sdpa) "
+        f"{lib_ms:.4f} ms (max|Δ| {lib_err:.3g}), bound {b_ms:.6f} ms ({b_by})")
+    return {"phase": name, "B": b, "H": h, "Hk": hk, "D": d, "W": w, "t": t,
+            "window": window, "dtype": str(dtype)[6:], "max_abs_err": err,
+            "ms": dev_ms, "call_ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
+def rglru_phase(name, b, s, c, log_a, with_h0, dev, gen):
+    from repro_torch.kernels.rglru_scan import ops
+    from repro_torch.kernels.rglru_scan.ref import rglru_ref
+
+    la = (log_a * (0.9 + 0.2 * torch.rand(b, s, c, generator=gen))).to(dev)
+    bx = torch.randn(b, s, c, generator=gen).to(dev)
+    h0 = torch.randn(b, c, generator=gen).to(dev) if with_h0 else None
+    y, hf = ops.rglru_scan(la, bx, h0)
+    y_ref, hf_ref = rglru_ref(la, bx, h0)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(y).all() and torch.isfinite(hf).all()):
+        raise AssertionError(f"rglru_scan[{name}] is not finite")
+    torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hf, hf_ref, rtol=1e-5, atol=1e-5)
+    err = float((y - y_ref).abs().max())
+    call = lambda: ops.rglru_scan(la, bx, h0)
+    ms = median_ms(call)
+    dev_ms = device_ms(call, ("rglru_scan_kernel",))
+    plain = median_ms(lambda: rglru_ref(la, bx, h0), reps=5, warm=1)
+    b_ms, b_by = bound(3 * b * s * c * 4 + b * c * 4 * (2 if with_h0 else 1),
+                       3.0 * b * s * c)
+    log(f"rglru_scan[{name}: B={b} S={s} C={c} log_a≈{log_a:g} h0={with_h0}] "
+        f"max|Δ|={err:.3g}, call {ms:.4f} ms (device {dev_ms:.6f} ms), plain "
+        f"{plain:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return {"phase": name, "B": b, "S": s, "C": c, "log_a": log_a,
+            "max_abs_err": err, "ms": dev_ms, "call_ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def lm_kernel_phases(dev):
+    """Both LM kernels at the shapes the serving path gives them, read off
+    the published config: MQA heads of the local attention over a full
+    window, and the RG-LRU width over the serving prompt."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ARCH)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    w = cfg.local_attn_window
+    gen = torch.Generator().manual_seed(12)
+    bf16 = torch.bfloat16
+    attn = [
+        decode_attention_phase("path-wrapped", SERVE_BATCH, h, hk, d, w,
+                               SERVE_PROMPT + 96, w, bf16, dev, gen),
+        decode_attention_phase("path-partial", SERVE_BATCH, h, hk, d, w,
+                               w // 2 - 24, w, bf16, dev, gen),
+        decode_attention_phase("f32-gqa", SERVE_BATCH, 8, 2, 128, w // 2,
+                               w // 2 - 324, None, torch.float32, dev, gen),
+    ]
+    scan = [
+        rglru_phase("path", SERVE_BATCH, SERVE_PROMPT, cfg.rnn_dim, -5.0,
+                    False, dev, gen),
+        rglru_phase("slow-decay", SERVE_BATCH, SERVE_PROMPT, cfg.rnn_dim,
+                    -1e-6, True, dev, gen),
+    ]
+    torch.cuda.empty_cache()
+    return attn, scan
+
+
+def serve_exactness(dev):
+    """tests/test_serving.py::test_decode_matches_forward at the published
+    width, in float32: prefill + one decode step against the full forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import serving as SV
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    model = T.init_model(cfg, 0, dev, torch.float32)
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (EXACT_BATCH, EXACT_PROMPT + 1),
+                         generator=gen, device=dev)
+    seq_len = EXACT_PROMPT + 1
+    with torch.inference_mode():
+        cache, _ = SV.prefill(model, toks[:, :EXACT_PROMPT], seq_len,
+                              torch.float32, torch.float32)
+        nxt, logits, cache = SV.decode_step(model, cache,
+                                            toks[:, EXACT_PROMPT:], seq_len,
+                                            torch.float32)
+        del cache
+        h = T.forward_hidden(model, toks, torch.float32)
+        ref = (h[:, -1:] @ model.embed.head).float()
+    torch.cuda.synchronize()
+    err = float((logits - ref).abs().max())
+    torch.testing.assert_close(logits, ref, rtol=2e-3, atol=2e-3)
+    if not torch.equal(nxt[:, 0], ref[:, 0].argmax(-1)):
+        raise AssertionError("greedy token differs from the forward's argmax")
+    log(f"serving exactness [{ARCH} full width, {n_params / 1e9:.3f} B "
+        f"params, float32, batch {EXACT_BATCH}]: prefill {EXACT_PROMPT} + 1 "
+        f"decode step vs forward over {seq_len} tokens: max|Δ logits| "
+        f"{err:.3g} (tolerance 2e-3), greedy tokens {nxt[:, 0].tolist()} == "
+        f"forward argmax; {time.perf_counter() - t0:.1f} s")
+    del model, h, ref, logits
+    torch.cuda.empty_cache()
+
+
+def serve_path(dev):
+    """The LM serving path through its entry point; returns its kernels'
+    launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as aops
+    from repro_torch.kernels.rglru_scan import ops as rops
+    from repro_torch.launch.serve import serve
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    aops.launch_count = 0
+    rops.launch_count = 0
+    ids, stats = serve(ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                       gen=SERVE_GEN, seed=0, full=True, dtype=torch.bfloat16,
+                       device=dev)
+    launches = {"decode_attention": aops.launch_count,
+                "rglru_scan": rops.launch_count}
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = SERVE_GEN - 1
+    want = {"decode_attention": 12 * steps, "rglru_scan": 26}
+    if launches != want:
+        raise AssertionError(f"serving launches {launches}, want {want}")
+    vocab = get_config(ARCH).vocab_size
+    if ids.shape != (SERVE_BATCH, SERVE_GEN) or not bool(
+            ((ids >= 0) & (ids < vocab)).all()):
+        raise AssertionError(f"bad generated ids {tuple(ids.shape)}")
+    log(f"serve path [{ARCH} full width, bf16, batch {SERVE_BATCH}, prompt "
+        f"{SERVE_PROMPT}, {SERVE_GEN} greedy tokens]: prefill "
+        f"{stats['prefill_s'] * 1e3:.3f} ms, decode "
+        f"{stats['decode_s'] * 1e3 / steps:.3f} ms/token ({steps} steps), "
+        f"{stats['tok_per_s']:.1f} tok/s, peak memory {peak / 2**30:.2f} GiB; "
+        f"launches per prefill: rglru_scan {launches['rglru_scan']}; per "
+        f"decode step: decode_attention {launches['decode_attention'] / steps:g}; "
+        f"first tokens {ids[0, :8].tolist()}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -443,10 +677,16 @@ def main() -> int:
                 log("  ptxas: " + line.strip())
 
     bright, z, mnist = kernel_phases(dev)
+    attn, scan = lm_kernel_phases(dev)
     launches = main_path(mnist)
     convergence_path()
     gradient_path()
     exactness(mnist)
+    del mnist
+    torch.cuda.empty_cache()
+
+    serve_exactness(dev)
+    serve_launches = serve_path(dev)
 
     main_b = next(p for p in bright if p["phase"] == "logistic")
     main_z = next(p for p in z if p["phase"] == "mnist")
@@ -468,6 +708,24 @@ def main() -> int:
          "plain_ms": main_z["plain_ms"],
          "bound_ms": main_z["bound_ms"], "bound_by": main_z["bound_by"],
          "library_ms": None, "phases": z},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:115",
+         "launches": serve_launches["decode_attention"],
+         "max_abs_err": max(p["max_abs_err"] for p in attn),
+         "ms": attn[0]["ms"], "call_ms": attn[0]["call_ms"],
+         "plain_ms": attn[0]["plain_ms"], "bound_ms": attn[0]["bound_ms"],
+         "bound_by": attn[0]["bound_by"], "library_ms": attn[0]["library_ms"],
+         "phases": attn},
+        {"name": "rglru_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan/kernel.py:61",
+         "launches": serve_launches["rglru_scan"],
+         "max_abs_err": max(p["max_abs_err"] for p in scan),
+         "ms": scan[0]["ms"], "call_ms": scan[0]["call_ms"],
+         "plain_ms": scan[0]["plain_ms"], "bound_ms": scan[0]["bound_ms"],
+         "bound_by": scan[0]["bound_by"], "library_ms": None,
+         "phases": scan},
     ]}
     log(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps(table), flush=True)

@@ -106,6 +106,18 @@ def _declare(lib) -> None:
         i, i, i, i, p,  # K N q_bits cap stream
     ]
     lib.z_candidates_launch.restype = i
+    ll = ctypes.c_longlong
+    lib.decode_attention_launch.argtypes = [
+        p, p, p, p, p, p, p,  # q k v pos out m l
+        i, i, i, i, i,  # B Hk G D W
+        ll, ll, i, i, p,  # t window has_window kv_bf16 stream
+    ]
+    lib.decode_attention_launch.restype = i
+    lib.rglru_scan_launch.argtypes = [
+        p, p, p, p, p,  # log_a bx h0 (or null) y h_last
+        i, i, i, p,  # B S C stream
+    ]
+    lib.rglru_scan_launch.restype = i
     lib.kernels_error_string.argtypes = [i]
     lib.kernels_error_string.restype = ctypes.c_char_p
 

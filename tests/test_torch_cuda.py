@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: each against its plain version, and
-the exactness contracts of a short chain run on the device.
+"""The port's CUDA kernels on the card: each against its plain version, the
+exactness contracts of a short chain run on the device, and the full-width
+recurrentgemma serving path.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without one;
 this file imports no JAX, so it runs on a machine with only PyTorch:
@@ -16,6 +17,11 @@ from repro_torch import random as jr
 from repro_torch.data import logistic_data
 from repro_torch.kernels.bright_glm import ops as bops
 from repro_torch.kernels.bright_glm.ref import bright_glm_ref
+from repro_torch.kernels.decode_attention import ops as aops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.rglru_scan import ops as rops
+from repro_torch.kernels.rglru_scan.ref import rglru_ref
+from repro_torch.launch.serve import serve
 from repro_torch.kernels.z_update import ops as zops
 from repro_torch.kernels.z_update.ref import z_candidates_ref
 from repro_torch.models.bayes_glm import GLMModel
@@ -122,3 +128,76 @@ def test_chain_on_card_is_capacity_and_batching_invariant(dev):
         one = api.sample(alg, chain_keys[c], 40, init_state=st, device="cuda")
         assert torch.equal(one.theta[0], big.theta[c])
     assert np.isfinite(big.theta.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("b,h,hk,d,w,t,window,dtype", [
+    (2, 8, 2, 128, 256, 200, None, torch.float32),
+    (1, 4, 4, 64, 100, 80, 32, torch.bfloat16),  # W not a block multiple
+    (2, 6, 2, 96, 130, 129, None, torch.float32),  # D not dividing 256
+    (2, 32, 1, 128, 70, 9, None, torch.float32),  # G = 32, mostly empty ring
+    (4, 16, 1, 256, 2048, 2400, 2048, torch.bfloat16),  # path, wrapped ring
+    (4, 16, 1, 256, 2048, 1000, 2048, torch.bfloat16),  # path, partly filled
+])
+def test_decode_attention_kernel_matches_plain(dev, b, h, hk, d, w, t, window,
+                                               dtype):
+    g = torch.Generator().manual_seed(w + t)
+    q = torch.randn(b, h, d, generator=g).to(dev)
+    k = torch.randn(b, w, hk, d, generator=g).to(dtype).to(dev)
+    v = torch.randn(b, w, hk, d, generator=g).to(dtype).to(dev)
+    slots = torch.arange(w)
+    pos = slots + torch.div(t - slots, w, rounding_mode="floor") * w
+    pos = torch.where(pos >= 0, pos, -1).to(torch.int32).to(dev)
+    before = aops.launch_count
+    got = aops.decode_attention(q, k, v, pos, t, window)
+    torch.cuda.synchronize()
+    assert aops.launch_count == before + 1
+    want = decode_attention_ref(q, k, v, pos, t, window)
+    for a, b_ in zip(got, want):  # f32 sums in another order: 1e-5
+        torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-5)
+
+
+def test_decode_attention_kernel_fully_masked_row(dev):
+    q = torch.randn(2, 4, 32, device=dev)
+    k = torch.randn(2, 90, 2, 32, device=dev)
+    v = torch.randn(2, 90, 2, 32, device=dev)
+    pos = torch.full((90,), -1, dtype=torch.int32, device=dev)
+    out, m, l = aops.decode_attention(q, k, v, pos, 5, None)
+    want = decode_attention_ref(q, k, v, pos, 5, None)
+    assert torch.all(m == -1e30) and torch.all(l == 90)
+    torch.testing.assert_close(out, want[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,s,c,log_a,with_h0", [
+    (2, 64, 96, -1.0, False),
+    (3, 37, 130, -0.3, True),
+    (4, 2304, 4096, -5.25, False),  # the serving path, the model's decays
+    (4, 2304, 4096, -1e-6, True),  # slowest decay the clip allows
+])
+def test_rglru_scan_kernel_matches_plain(dev, b, s, c, log_a, with_h0):
+    g = torch.Generator().manual_seed(s)
+    la = (log_a * (0.9 + 0.2 * torch.rand(b, s, c, generator=g))).to(dev)
+    bx = torch.randn(b, s, c, generator=g).to(dev)
+    h0 = torch.randn(b, c, generator=g).to(dev) if with_h0 else None
+    before = rops.launch_count
+    y, hf = rops.rglru_scan(la, bx, h0)
+    torch.cuda.synchronize()
+    assert rops.launch_count == before + 1
+    y_ref, hf_ref = rglru_ref(la, bx, h0)
+    assert torch.isfinite(y).all()
+    # the same float32 operations in the same order as the plain loop
+    torch.testing.assert_close(y, y_ref, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(hf, hf_ref, rtol=1e-6, atol=1e-6)
+
+
+def test_serve_full_width_on_card(dev):
+    """recurrentgemma-9b at its published width, bf16, a prompt longer than
+    the 2048 window: 26 scan launches in the prefill, 12 flash-decode
+    launches per decode step."""
+    a0, r0 = aops.launch_count, rops.launch_count
+    ids, stats = serve("recurrentgemma-9b", batch=4, prompt_len=2304, gen=2,
+                       seed=0, full=True, dtype=torch.bfloat16, device=dev)
+    assert rops.launch_count - r0 == 26
+    assert aops.launch_count - a0 == 12
+    assert ids.shape == (4, 2) and bool(((ids >= 0) & (ids < 256000)).all())
+    assert stats["prefill_s"] > 0 and stats["decode_s"] > 0
+    torch.cuda.empty_cache()
