@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``, at
-first use), then runs two paths — the FlyMC chain and the recurrentgemma-9b
-LM serving path — each with its kernels:
+first use), then runs three paths — the FlyMC chain, the recurrentgemma-9b
+and the rwkv6-7b LM serving paths — each with its kernels (five in all):
 
 1. holds each kernel against its plain PyTorch version on the card and
    times it: ``ms`` is the kernels' device time per call (torch.profiler;
@@ -21,7 +21,11 @@ LM serving path — each with its kernels:
    K/V; a wrapped and a partly filled ring; one f32 case with G=4, Hk=2,
    D=128), with ``scaled_dot_product_attention`` as the library yardstick;
    ``rglru_scan`` (B=4, S=2304, C=4096; log a ≈ -5, the model's decays, and
-   ≈ -1e-6);
+   ≈ -1e-6); ``rwkv6_scan`` (B=4, H=64, D=64 with a carried-in state: the
+   path's 512-step time chunk with log w uniform in [-1, -1e-6], the edge
+   decay log w ≡ -1, S=32 (chunk 32) and S=1), to rtol 1e-5 plus 1e-5 of
+   the largest value (float32 sums in another order, scaled by
+   e^{±cumsum log w});
 2. drives the FlyMC main path at the MNIST width: ``GLMModel.logistic`` →
    ``map_estimate`` → ``map_tuned`` → ``api.firefly`` (RWMH) → ``api.sample``
    with 2 chains (250 warmup, then 750 samples resumed with streaming
@@ -44,7 +48,20 @@ LM serving path — each with its kernels:
    than the 2048 window, so the ring wraps), 32 greedy tokens; prints
    prefill ms, decode ms/token, tokens/s and peak memory, and checks 26
    ``rglru_scan`` launches per prefill and 12 ``decode_attention`` launches
-   per decode step.
+   per decode step;
+7. checks the rwkv6-7b serving contract at its published width in float32
+   (32 layers, d_model 4096, 64 heads × 64, d_ff 14,336, vocab 65,536;
+   the init's zero token-shift mixes, decay LoRA and bonus overwritten with
+   seeded random values): prefill 1024 tokens (two 512-step time chunks,
+   so the WKV state carries across), then 64 teacher-forced decode steps,
+   each step's logits against the full forward over 1088 tokens at that
+   position (rtol/atol 2e-3; the forward runs 17 time chunks of 64) and
+   each greedy token against the forward's argmax; 64 ``rwkv6_scan``
+   launches in the prefill, none in decode;
+8. drives the rwkv6-7b serving path once through ``serve`` at the published
+   width in bfloat16: batch 4, a 2048-token prompt, 32 greedy tokens;
+   prints prefill ms, decode ms/token, tokens/s and peak memory, and checks
+   128 ``rwkv6_scan`` launches (32 layers × 4 time chunks of the prefill).
 
 Any failure raises (nonzero exit, no result line). The last two lines are the
 ``{"kernels": [...]}`` table and ``{"ok": true, "device": {...}}``. Needs one
@@ -84,6 +101,10 @@ D_CONV, WARMUP_CONV, SAMPLES_CONV = 3, 1000, 5000
 ARCH = "recurrentgemma-9b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2304, 32
 EXACT_BATCH, EXACT_PROMPT = 2, 2100
+# LM serving path: rwkv6-7b at its published width.
+RWKV_ARCH = "rwkv6-7b"
+RWKV_BATCH, RWKV_PROMPT, RWKV_GEN = 4, 2048, 32
+RWKV_EXACT_BATCH, RWKV_EXACT_PROMPT, RWKV_EXACT_STEPS = 2, 1024, 64
 
 
 def log(msg: str) -> None:
@@ -650,6 +671,200 @@ def serve_path(dev):
     return launches
 
 
+def rwkv_phase(name, b, h, s, d, logw, dev, gen):
+    """``rwkv6_scan`` against its plain version at (B, H, S, D) with a
+    carried-in state; ``logw`` None draws log w uniform in [-1, -1e-6] (the
+    model's clip), else every step decays by e^{logw}."""
+    from repro_torch.kernels.rwkv6_scan import ops
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_chunked_ref
+
+    r, k, v = (torch.randn(b, h, s, d, generator=gen).to(dev)
+               for _ in range(3))
+    lw = (-(1e-6 + (1.0 - 1e-6) * torch.rand(b, h, s, d, generator=gen))
+          if logw is None else torch.full((b, h, s, d), logw)).to(dev)
+    u = torch.randn(h, d, generator=gen).to(dev)
+    s0 = torch.randn(b, h, d, d, generator=gen).to(dev)
+    args = (r, k, v, lw, u, s0)
+    c = min(64, s)
+    y, st = ops.rwkv6_scan(*args)
+    y_ref, st_ref = rwkv6_chunked_ref(*args, chunk=c)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
+        raise AssertionError(f"rwkv6_scan[{name}] is not finite")
+    for a, ref in ((y, y_ref), (st, st_ref)):
+        torch.testing.assert_close(a, ref, rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
+    err = max(float((y - y_ref).abs().max()), float((st - st_ref).abs().max()))
+    call = lambda: ops.rwkv6_scan(*args)
+    ms = median_ms(call)
+    dev_ms = device_ms(call, ("rwkv6_scan_kernel",))
+    plain = median_ms(lambda: rwkv6_chunked_ref(*args, chunk=c))
+    # bytes: r, k, v, logw, u and state0 in, y and the state out; operations:
+    # per chunk the four products of the closed form, in FMAs c(c-1)/2·D for
+    # each of the two strictly lower triangular ones (rq·kkᵀ and A·v) and
+    # c·D² for each of rq·S₀ and k2ᵀ·v, two flops each
+    b_ms, b_by = bound(4 * (5 * b * h * s * d + h * d + 2 * b * h * d * d),
+                       2.0 * b * h * (s // c) * (c * (c - 1) * d + 2 * c * d * d))
+    log(f"rwkv6_scan[{name}: B={b} H={h} S={s} D={d} c={c} "
+        f"logw={'U[-1,-1e-6]' if logw is None else logw}] max|Δ|={err:.3g} "
+        f"(max|y| {float(y_ref.abs().max()):.4g}), call {ms:.4f} ms (device "
+        f"{dev_ms:.6f} ms), plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return {"phase": name, "B": b, "H": h, "S": s, "D": d, "c": c,
+            "logw": logw, "max_abs_err": err, "ms": dev_ms, "call_ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def rwkv_kernel_phases(dev):
+    """``rwkv6_scan`` at the shapes the rwkv6-7b serving path gives it: the
+    published heads over one 512-step time chunk of the batch-4 prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import RWKV_TIME_CHUNK
+
+    cfg = get_config(RWKV_ARCH)
+    h, d = cfg.n_heads, cfg.resolved_head_dim
+    gen = torch.Generator().manual_seed(13)
+    phases = [
+        rwkv_phase("path", RWKV_BATCH, h, RWKV_TIME_CHUNK, d, None, dev, gen),
+        rwkv_phase("edge-decay", RWKV_BATCH, h, RWKV_TIME_CHUNK, d, -1.0, dev,
+                   gen),
+        rwkv_phase("short", RWKV_BATCH, h, 32, d, None, dev, gen),
+        rwkv_phase("single", RWKV_BATCH, h, 1, d, None, dev, gen),
+    ]
+    torch.cuda.empty_cache()
+    return phases
+
+
+def _randomize_rwkv_zero_inits(model, seed: int) -> None:
+    """Overwrite the init's zero token-shift mixes ``mu`` (uniform in [0,
+    1]), decay LoRA ``wb`` and bonus ``u`` with seeded values, so a wrong
+    shift, decay or bonus path shows."""
+    gen = torch.Generator(device=model.embed.table.device).manual_seed(seed)
+    with torch.no_grad():
+        for blk in model.blocks:
+            w = blk.mix
+            w.mu.copy_(torch.rand(w.mu.shape, generator=gen,
+                                  device=w.mu.device))
+            w.wb.copy_(0.3 * torch.randn(w.wb.shape, generator=gen,
+                                         device=w.wb.device))
+            w.u.copy_(0.5 * torch.randn(w.u.shape, generator=gen,
+                                        device=w.u.device))
+
+
+def rwkv_serve_exactness(dev):
+    """The rwkv6-7b serving contract at the published width, in float32:
+    prefill, then teacher-forced decode steps, against the full forward at
+    each position. Returns the parameter count."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.rwkv6_7b import N_PARAMS
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    from repro_torch.models import serving as SV
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import RWKV_TIME_CHUNK
+
+    cfg = get_config(RWKV_ARCH)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = T.init_model(cfg, 0, dev, torch.float32)
+    _randomize_rwkv_zero_inits(model, seed=7)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != N_PARAMS:
+        raise AssertionError(f"{RWKV_ARCH}: {n_params} parameters")
+    n, steps = RWKV_EXACT_PROMPT, RWKV_EXACT_STEPS
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (RWKV_EXACT_BATCH, n + steps),
+                         generator=gen, device=dev)
+    seq_len = n + steps
+    with torch.inference_mode():
+        wops.launch_count = 0
+        cache, _ = SV.prefill(model, toks[:, :n], seq_len, torch.float32,
+                              torch.float32)
+        torch.cuda.synchronize()
+        prefill_launches = wops.launch_count
+        wops.launch_count = 0
+        logits = []
+        for i in range(steps):
+            nxt, lg, cache = SV.decode_step(model, cache, toks[:, n + i:n + i + 1],
+                                            seq_len, torch.float32)
+            logits.append(lg[:, 0])
+        decode_launches = wops.launch_count
+        del cache
+        got = torch.stack(logits, 1)  # (B, steps, V)
+        h = T.forward_hidden(model, toks, torch.float32)
+        ref = (h[:, n:] @ model.embed.head).float()
+    torch.cuda.synchronize()
+    want_prefill = cfg.n_layers * (n // RWKV_TIME_CHUNK)
+    if (prefill_launches, decode_launches) != (want_prefill, 0):
+        raise AssertionError(
+            f"rwkv6_scan launches: prefill {prefill_launches} (want "
+            f"{want_prefill}), decode {decode_launches} (want 0)")
+    err = float((got - ref).abs().max())
+    # the gap step by step: rounding stays flat, a drift of the carried state
+    # grows with the step
+    by_step = (got - ref).abs().amax(dim=(0, 2)).tolist()
+    by_block = [max(by_step[i:i + 8]) for i in range(0, steps, 8)]
+    torch.testing.assert_close(got, ref, rtol=2e-3, atol=2e-3)
+    greedy, want = got.argmax(-1), ref.argmax(-1)
+    if not torch.equal(greedy, want):
+        top2 = ref.topk(2, dim=-1).values
+        bad = (greedy != want).nonzero().tolist()
+        raise AssertionError(
+            f"greedy tokens differ from the forward's argmax at (row, step) "
+            f"{bad[:8]}; forward top-2 margins there "
+            f"{[float(top2[r, i, 0] - top2[r, i, 1]) for r, i in bad[:8]]}")
+    log(f"rwkv serving exactness [{RWKV_ARCH} full width, {n_params / 1e9:.3f} "
+        f"B params, float32, batch {RWKV_EXACT_BATCH}, mu/wb/u random]: prefill "
+        f"{n} + {steps} teacher-forced decode steps vs forward over {seq_len} "
+        f"tokens: max|Δ logits| {err:.3g} (tolerance 2e-3, max|logit| "
+        f"{float(ref.abs().max()):.3g}); max|Δ| at decode steps 1, 2, "
+        f"{steps // 2}, {steps}: {by_step[0]:.3g}, {by_step[1]:.3g}, "
+        f"{by_step[steps // 2 - 1]:.3g}, {by_step[-1]:.3g}; per 8 steps "
+        f"{[float(f'{e:.3g}') for e in by_block]}; {steps * RWKV_EXACT_BATCH} "
+        f"greedy tokens == forward argmax; rwkv6_scan launches: prefill "
+        f"{prefill_launches}, decode {decode_launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del model, h, ref, got, logits
+    torch.cuda.empty_cache()
+    return n_params
+
+
+def rwkv_serve_path(dev):
+    """The rwkv6-7b serving path through its entry point; returns its
+    kernels' launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as aops
+    from repro_torch.kernels.rglru_scan import ops as rops
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.layers import RWKV_TIME_CHUNK
+
+    cfg = get_config(RWKV_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    aops.launch_count = rops.launch_count = wops.launch_count = 0
+    ids, stats = serve(RWKV_ARCH, batch=RWKV_BATCH, prompt_len=RWKV_PROMPT,
+                       gen=RWKV_GEN, seed=0, full=True, dtype=torch.bfloat16,
+                       device=dev)
+    launches = {"rwkv6_scan": wops.launch_count,
+                "decode_attention": aops.launch_count,
+                "rglru_scan": rops.launch_count}
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = RWKV_GEN - 1
+    want = {"rwkv6_scan": cfg.n_layers * (RWKV_PROMPT // RWKV_TIME_CHUNK),
+            "decode_attention": 0, "rglru_scan": 0}
+    if launches != want:
+        raise AssertionError(f"rwkv serving launches {launches}, want {want}")
+    if ids.shape != (RWKV_BATCH, RWKV_GEN) or not bool(
+            ((ids >= 0) & (ids < cfg.vocab_size)).all()):
+        raise AssertionError(f"bad generated ids {tuple(ids.shape)}")
+    log(f"serve path [{RWKV_ARCH} full width, bf16, batch {RWKV_BATCH}, prompt "
+        f"{RWKV_PROMPT}, {RWKV_GEN} greedy tokens]: prefill "
+        f"{stats['prefill_s'] * 1e3:.3f} ms, decode "
+        f"{stats['decode_s'] * 1e3 / steps:.3f} ms/token ({steps} steps), "
+        f"{stats['tok_per_s']:.1f} tok/s, peak memory {peak / 2**30:.2f} GiB; "
+        f"launches per prefill: rwkv6_scan {launches['rwkv6_scan']}, none in "
+        f"decode; first tokens {ids[0, :8].tolist()}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -678,6 +893,7 @@ def main() -> int:
 
     bright, z, mnist = kernel_phases(dev)
     attn, scan = lm_kernel_phases(dev)
+    wkv = rwkv_kernel_phases(dev)
     launches = main_path(mnist)
     convergence_path()
     gradient_path()
@@ -687,6 +903,8 @@ def main() -> int:
 
     serve_exactness(dev)
     serve_launches = serve_path(dev)
+    rwkv_serve_exactness(dev)
+    rwkv_launches = rwkv_serve_path(dev)
 
     main_b = next(p for p in bright if p["phase"] == "logistic")
     main_z = next(p for p in z if p["phase"] == "mnist")
@@ -726,6 +944,14 @@ def main() -> int:
          "plain_ms": scan[0]["plain_ms"], "bound_ms": scan[0]["bound_ms"],
          "bound_by": scan[0]["bound_by"], "library_ms": None,
          "phases": scan},
+        {"name": "rwkv6_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+         "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:91",
+         "launches": rwkv_launches["rwkv6_scan"],
+         "max_abs_err": max(p["max_abs_err"] for p in wkv),
+         "ms": wkv[0]["ms"], "call_ms": wkv[0]["call_ms"],
+         "plain_ms": wkv[0]["plain_ms"], "bound_ms": wkv[0]["bound_ms"],
+         "bound_by": wkv[0]["bound_by"], "library_ms": None, "phases": wkv},
     ]}
     log(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps(table), flush=True)

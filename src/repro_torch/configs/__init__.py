@@ -24,7 +24,7 @@ _REGISTRY: dict[str, tuple[str | None, str | None]] = {
     "mixtral-8x7b": (None, _MISSING["moe"]),
     "arctic-480b": (None, _MISSING["moe"]),
     "recurrentgemma-9b": ("recurrentgemma_9b", None),
-    "rwkv6-7b": (None, _MISSING["rwkv"]),
+    "rwkv6-7b": ("rwkv6_7b", None),
     "llava-next-mistral-7b": (None, _MISSING["vlm"]),
 }
 

@@ -116,13 +116,18 @@ def lm_params(params_np: dict, cfg: ModelConfig, device="cuda",
               dtype=torch.float32) -> LM:
     """The reference's ``init_model`` parameter tree (numpy leaves) as the
     port's :class:`~repro_torch.models.transformer.LM`. The reference's
-    attention sublayer ``attn`` is the block's ``mix`` here."""
+    attention sublayer ``attn`` is the block's ``mix`` here; an RWKV block
+    has ``ln1``, ``ln2`` and ``mix`` (with the channel mix's ``cm_*``) and
+    no ``ffn``."""
     model = LM(cfg, device, dtype)
     _load(model.embed, params_np["embed"])
     _load(model.final_norm, params_np["final_norm"])
     for blk, tree in zip(model.blocks, per_layer(params_np, cfg)):
-        mix = "attn" if blk.kind == "attn" else "mix"
-        for name, src in (("ln1", "ln1"), ("mix", mix), ("ln2", "ln2"),
-                          ("ffn", "ffn")):
-            _load(getattr(blk, name), tree[src])
+        src = {("attn" if (blk.kind, n) == ("attn", "mix") else n): n
+               for n, _ in blk.named_children()}
+        if set(tree) != set(src):
+            raise ValueError(f"{blk.kind} block: sublayers {sorted(tree)} "
+                             f"!= {sorted(src)}")
+        for ref_name, name in src.items():
+            _load(getattr(blk, name), tree[ref_name])
     return model

@@ -118,6 +118,12 @@ def _declare(lib) -> None:
         i, i, i, p,  # B S C stream
     ]
     lib.rglru_scan_launch.restype = i
+    lib.rwkv6_scan_launch.argtypes = [
+        p, p, p, p, p, p,  # r k v logw u state0 (or null)
+        p, p,  # y state
+        i, i, i, i, i, p,  # B H S D c stream
+    ]
+    lib.rwkv6_scan_launch.restype = i
     lib.kernels_error_string.argtypes = [i]
     lib.kernels_error_string.restype = ctypes.c_char_p
 

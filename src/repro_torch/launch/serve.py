@@ -11,6 +11,8 @@ Usage (on a machine with an NVIDIA GPU):
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-9b --full --batch 4 --prompt-len 2304 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch rwkv6-7b --full --batch 4 --prompt-len 2048 --gen 32
 """
 
 from __future__ import annotations

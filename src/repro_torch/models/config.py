@@ -44,7 +44,8 @@ class ModelConfig:
     swa_window: int | None = None  # sliding-window attention (mixtral)
     moe: MoEConfig | None = None
     # hybrid (recurrentgemma): repeating block pattern, e.g. ("rglru",
-    # "rglru", "attn"); dense/moe archs use ("attn",) implicitly.
+    # "rglru", "attn"); rwkv6 uses ("rwkv",); dense/moe archs use ("attn",)
+    # implicitly.
     block_pattern: tuple[str, ...] = ("attn",)
     local_attn_window: int | None = None  # rgemma local attention
     rnn_width: int = 0  # RG-LRU recurrence width (0 → d_model)
@@ -118,7 +119,6 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 
 # What the port lacks, by the ROADMAP item (queue 1, item 15) that adds it.
 _MISSING = {
-    "rwkv": "RWKV6 blocks (ROADMAP queue 1 item 15, step 1: rwkv6-7b serving)",
     "sp": "sequence-parallel attention configs (ROADMAP queue 1 item 15, "
           "step 2: dense/SP attention on the decode kernel)",
     "moe": "MoE blocks (ROADMAP queue 1 item 15, step 3: MoE, encdec and VLM)",
@@ -137,11 +137,13 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: {_MISSING[cfg.family]}")
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: {_MISSING['moe']}")
-    if "rwkv" in cfg.block_pattern:
-        raise NotImplementedError(f"{cfg.name}: {_MISSING['rwkv']}")
-    if cfg.parallel_mode != "tp" or cfg.mlp != "gelu" or cfg.norm != "rmsnorm":
+    # RWKV blocks have no MLP (their channel mix takes its place), so the
+    # gelu-only MLP check applies only to the kinds that have one.
+    has_mlp = bool(set(cfg.block_pattern) & {"attn", "rglru"})
+    if (cfg.parallel_mode != "tp" or cfg.norm != "rmsnorm"
+            or (has_mlp and cfg.mlp != "gelu")):
         raise NotImplementedError(f"{cfg.name}: {_MISSING['sp']}")
-    unknown = set(cfg.block_pattern) - {"attn", "rglru"}
+    unknown = set(cfg.block_pattern) - {"attn", "rglru", "rwkv"}
     if unknown:
         raise NotImplementedError(f"{cfg.name}: block kinds {sorted(unknown)}")
     if cfg.tie_embeddings:

@@ -1,18 +1,22 @@
-"""Model layers of the LM serving path, single device.
+"""Model layers of the LM serving paths, single device.
 
 The port's counterpart of :mod:`repro.models.layers`, with only what the
-recurrentgemma serving path runs: norms, RoPE, the chunked (online-softmax)
-prefill attention, the head-parallel ("TP mode") attention and MLP, the
-RG-LRU mixer and the embedding. Each function keeps the reference's name;
-``w`` is the layer's :class:`~repro_torch.models.params.Params` module where
-the reference takes a weight dict. On one device every gather and psum of
-the reference is the identity and is left out.
+recurrentgemma and rwkv6 serving paths run: norms, RoPE, the chunked
+(online-softmax) prefill attention, the head-parallel ("TP mode") attention
+and MLP, the RG-LRU mixer, the RWKV6 time and channel mixes and the
+embedding. Each function keeps the reference's name; ``w`` is the layer's
+:class:`~repro_torch.models.params.Params` module where the reference takes
+a weight dict. On one device every gather and psum of the reference is the
+identity and is left out.
 
 Weights are cast to the compute ``dtype`` where the reference's
 ``gather_param`` casts them (a no-op when the model is stored in ``dtype``).
 The RG-LRU scan goes through :mod:`repro_torch.kernels.rglru_scan`, a CUDA
 kernel on the card; the reference's model path uses ``lax.associative_scan``
-for the same recurrence.
+for the same recurrence. The RWKV6 WKV goes through
+:mod:`repro_torch.kernels.rwkv6_scan`, a CUDA kernel on the card; the
+reference's model path runs the same chunked closed form (``_wkv_chunk``)
+under ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rglru_scan import ops as rglru_ops
+from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Params, WDef
 
@@ -230,6 +235,135 @@ def rglru_mix(x, w: Params, cfg: ModelConfig, return_state: bool = False):
         # a copy, so the decode cache holds no view of the whole sequence
         return y, (h_last, bx_pre[:, -3:].to(torch.float32, copy=True))
     return y
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 time mix (chunked WKV) + channel mix — TP mode
+# ---------------------------------------------------------------------------
+
+_RWKV_LORA = 32
+_WKV_CHUNK = 64  # WKV closed-form chunk: e^{±64} stays inside float32
+RWKV_TIME_CHUNK = 512  # time chunk of a whole RWKV block (the reference's)
+
+
+def rwkv_defs(cfg: ModelConfig) -> dict[str, WDef]:
+    """The reference's ``rwkv_defs``: time mix, decay LoRA, bonus, group
+    norm and the channel mix (``cm_*``) of one RWKV block. The token-shift
+    mixes ``mu``, the LoRA's ``wb`` and the bonus ``u`` start at zero."""
+    d, h, hd, ff = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim, cfg.d_ff
+    return {
+        "mu": WDef((5, d), init="zeros"),  # r, k, v, g, w token shifts
+        "wr": WDef((d, d)),
+        "wk": WDef((d, d)),
+        "wv": WDef((d, d)),
+        "wg": WDef((d, d)),
+        # decay base: exp(w0) ≈ 0.05 per step (see the clip in rwkv_mix)
+        "w0": WDef((d,), init="const", init_scale=-3.0),
+        "wa": WDef((d, _RWKV_LORA)),  # decay LoRA
+        "wb": WDef((_RWKV_LORA, d), init="zeros"),
+        "u": WDef((h, hd), init="zeros"),  # per-head bonus
+        "ln_x": WDef((d,), init="ones"),  # per-head group norm
+        "wo": WDef((d, d)),
+        "cm_r": WDef((d, d)),
+        "cm_k": WDef((d, ff)),
+        "cm_v": WDef((ff, d)),
+    }
+
+
+def _shifted(x, shift0):
+    """x_{t-1} along the sequence: ``shift0`` (B, d) float32 (the previous
+    time chunk's last input) before the first step."""
+    first = shift0[:, None].to(x.dtype)
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def rwkv_log_decay(w0, lora):
+    """Per-step log decay clip(-exp(clip(w0 + lora, -8, 8)), -1, -1e-6) in
+    float32: >= -1 keeps e^{±64} (a 64-step chunk) inside float32."""
+    logw = -torch.exp(torch.clamp(w0.float() + lora.float(), -8.0, 8.0))
+    return torch.clamp(logw, -1.0, -1e-6)
+
+
+def rwkv_group_norm(y, ln_x, h: int, hd: int):
+    """Per-head RMS norm (eps 1e-6) times ``ln_x``, float32. y: (..., H, D)."""
+    ln = ln_x.float().reshape(h, hd)
+    return y * torch.rsqrt((y * y).mean(-1, keepdim=True) + 1e-6) * ln
+
+
+def rwkv_mix(x, w: Params, cfg: ModelConfig, state0, shift0):
+    """RWKV6 time mix over one time chunk (prefill). x: (B, s, d) normed
+    input; ``state0`` (B, H, D, D) and ``shift0`` (B, d) float32 continue
+    the recurrence from the previous time chunk. Returns (out (B, s, d),
+    final WKV state, last input (B, d) float32 for the next shift).
+
+    The mixes are formed in the compute dtype; r, k, v and the log decay
+    go to the WKV kernel in float32 with WKV chunks of min(64, s)."""
+    dtype = x.dtype
+    b, s, d = x.shape
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    mu = w.mu.to(dtype)
+    xprev = _shifted(x, shift0)
+    mix = lambda i: x + mu[i] * (xprev - x)
+    r = mix(0) @ w.wr.to(dtype)
+    k = mix(1) @ w.wk.to(dtype)
+    v = mix(2) @ w.wv.to(dtype)
+    g = mix(3) @ w.wg.to(dtype)
+    lora = torch.tanh(mix(4) @ w.wa.to(dtype)) @ w.wb.to(dtype)
+    logw = rwkv_log_decay(w.w0, lora)
+
+    def heads(t):  # (B, s, d) → (B, H, s, D) float32
+        return t.reshape(b, s, h, hd).transpose(1, 2).float().contiguous()
+
+    y, state = rwkv_ops.rwkv6_scan(heads(r), heads(k), heads(v), heads(logw),
+                                   w.u.float().contiguous(), state0,
+                                   chunk=_WKV_CHUNK)
+    # each WKV chunk's y passes through the compute dtype, as the
+    # reference's scan stacks it (repro/models/layers.py:582)
+    y = y.to(dtype).float().transpose(1, 2)  # (B, s, H, D)
+    yn = rwkv_group_norm(y, w.ln_x, h, hd).reshape(b, s, d).to(dtype)
+    out = (yn * F.silu(g)) @ w.wo.to(dtype)
+    return out, state, x[:, -1].float()
+
+
+def rwkv_channel_mix(x, w: Params, shift0):
+    """sigmoid(xk·cm_r) · (relu(xk·cm_k)²·cm_v) with xk = ½(x + x_prev).
+    Returns (out, last input (B, d) float32 for the next shift)."""
+    dtype = x.dtype
+    xk = 0.5 * (x + _shifted(x, shift0))
+    r = torch.sigmoid(xk @ w.cm_r.to(dtype))
+    hh = torch.square(torch.relu(xk @ w.cm_k.to(dtype)))
+    return r * (hh @ w.cm_v.to(dtype)), x[:, -1].float()
+
+
+def rwkv_block_chunked(x, blk, cfg: ModelConfig, capture: bool = False):
+    """A whole RWKV block (norm → time mix → norm → channel mix) over time
+    chunks of ``min(512, S)`` steps, halved until they divide S, with the
+    WKV state and both token shifts carried from chunk to chunk (the
+    reference's rule, which bounds the live activations to one chunk).
+    Returns (x, cache): with ``capture`` the decode cache {state, shift_tm,
+    shift_cm}, else {}."""
+    dtype = x.dtype
+    b, s, d = x.shape
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    chunk = min(RWKV_TIME_CHUNK, s)
+    while s % chunk:
+        chunk //= 2
+    state = torch.zeros(b, h, hd, hd, dtype=torch.float32, device=x.device)
+    sh_tm = torch.zeros(b, d, dtype=torch.float32, device=x.device)
+    sh_cm = torch.zeros(b, d, dtype=torch.float32, device=x.device)
+    ys = []
+    for t0 in range(0, s, chunk):
+        xc = x[:, t0:t0 + chunk]
+        m, state, sh_tm = rwkv_mix(apply_norm(xc, blk.ln1, dtype), blk.mix,
+                                   cfg, state, sh_tm)
+        xc = xc + m
+        cm, sh_cm = rwkv_channel_mix(apply_norm(xc, blk.ln2, dtype), blk.mix,
+                                     sh_cm)
+        ys.append(xc + cm)
+    y = torch.cat(ys, dim=1)
+    if capture:
+        return y, {"state": state, "shift_tm": sh_tm, "shift_cm": sh_cm}
+    return y, {}
 
 
 # ---------------------------------------------------------------------------

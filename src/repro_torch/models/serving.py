@@ -1,7 +1,7 @@
 """Serving: prefill + single-token greedy decode, single device.
 
 The port's counterpart of :mod:`repro.models.serving` for the TP-mode
-(recurrentgemma) block kinds:
+block kinds (recurrentgemma's and rwkv6's):
 
   * Attention layers keep a ring KV cache of capacity W (the local window,
     or the whole context if shorter). A ``pos`` buffer holds the absolute
@@ -10,6 +10,10 @@ The port's counterpart of :mod:`repro.models.serving` for the TP-mode
     :mod:`repro_torch.kernels.decode_attention` (a CUDA kernel on the card).
   * RG-LRU layers keep the per-channel state (B, r) and the last three
     pre-conv inputs (B, 3, r), both float32.
+  * RWKV6 layers keep the per-head WKV state (B, H, D, D) and the last
+    normed inputs of the time mix and the channel mix (``shift_tm``,
+    ``shift_cm``, (B, d)), all float32. Decode is plain tensor code, as in
+    the reference: one step of the recurrence is an outer product.
 
 The cache is ``{"t": int, "layers": [per-layer dict, ...]}`` in layer order;
 ``t`` is the absolute position of the next token, a host integer. Unlike the
@@ -20,6 +24,7 @@ ring slots and the recurrent state in place and returns the same dict.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention import ops as attn_ops
 from repro_torch.models import layers as L
@@ -54,6 +59,11 @@ def _slot_cache_shapes(cfg: ModelConfig, kind: str, b: int, seq_len: int,
         r = cfg.rnn_dim
         return {"state": ((b, r), torch.float32),
                 "conv": ((b, 3, r), torch.float32)}
+    if kind == "rwkv":
+        d = cfg.d_model
+        return {"state": ((b, cfg.n_heads, hd, hd), torch.float32),
+                "shift_tm": ((b, d), torch.float32),
+                "shift_cm": ((b, d), torch.float32)}
     raise ValueError(kind)
 
 
@@ -134,6 +144,45 @@ def _rglru_decode(x, w, cache, cfg: ModelConfig):
     return y
 
 
+def _rwkv_decode(x, w, cache, cfg: ModelConfig):
+    """One RWKV6 time-mix step. x: (B, 1, d) normed. The mixes are formed in
+    float32 and cast to the compute dtype, as in the reference
+    (repro/models/serving.py:342). Returns y
+    (B, 1, d); updates the WKV state and ``shift_tm`` in place."""
+    dtype = x.dtype
+    b, _, d = x.shape
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    xt = x[:, 0].float()
+    mu = w.mu.float()
+    xprev = cache["shift_tm"]
+    mix = lambda i: (xt + mu[i] * (xprev - xt)).to(dtype)
+    r = (mix(0) @ w.wr.to(dtype)).float().reshape(b, h, hd)
+    k = (mix(1) @ w.wk.to(dtype)).float().reshape(b, h, hd)
+    v = (mix(2) @ w.wv.to(dtype)).float().reshape(b, h, hd)
+    gate = mix(3) @ w.wg.to(dtype)
+    lora = torch.tanh(mix(4) @ w.wa.to(dtype)) @ w.wb.to(dtype)
+    wdec = torch.exp(L.rwkv_log_decay(w.w0, lora)).reshape(b, h, hd)
+    u = w.u.float()
+    st = cache["state"]  # (B, H, D, D) f32, key × value
+    y = (torch.einsum("bhd,bhde->bhe", r, st)
+         + (r * u * k).sum(-1, keepdim=True) * v)
+    st.mul_(wdec[..., None]).add_(k[..., :, None] * v[..., None, :])
+    yn = L.rwkv_group_norm(y, w.ln_x, h, hd).reshape(b, 1, d).to(dtype)
+    cache["shift_tm"].copy_(xt)
+    return (yn * F.silu(gate[:, None])) @ w.wo.to(dtype)
+
+
+def _rwkv_cm_decode(x, w, cache):
+    """One channel-mix step; updates ``shift_cm`` in place."""
+    dtype = x.dtype
+    xt = x[:, 0].float()
+    xk = (0.5 * (xt + cache["shift_cm"])).to(dtype)
+    r = torch.sigmoid(xk @ w.cm_r.to(dtype))
+    hh = torch.square(torch.relu(xk @ w.cm_k.to(dtype)))
+    cache["shift_cm"].copy_(xt)
+    return (r * (hh @ w.cm_v.to(dtype)))[:, None]
+
+
 # ---------------------------------------------------------------------------
 # Full decode step
 # ---------------------------------------------------------------------------
@@ -142,6 +191,10 @@ def _rglru_decode(x, w, cache, cfg: ModelConfig):
 def _decode_block(x, blk, cache, cfg: ModelConfig, t: int, seq_len: int):
     dtype = x.dtype
     h = L.apply_norm(x, blk.ln1, dtype)
+    if blk.kind == "rwkv":
+        x = x + _rwkv_decode(h, blk.mix, cache, cfg)
+        h = L.apply_norm(x, blk.ln2, dtype)
+        return x + _rwkv_cm_decode(h, blk.mix, cache)
     if blk.kind == "attn":
         win = cfg.swa_window or cfg.local_attn_window
         a = _attn_decode(h, blk.mix, cache, cfg, t, seq_len, win)
@@ -202,9 +255,9 @@ def prefill(model: T.LM, tokens, seq_len: int, dtype=torch.bfloat16,
             kv_dtype=torch.bfloat16):
     """Process a full prompt (B, S); returns (cache, hidden (B, S, d)).
 
-    The forward is the prefill forward (chunked attention, the RG-LRU scan
-    kernel); capture collects per-layer K/V and final recurrent states and
-    this function lays them out into the decode cache."""
+    The forward is the prefill forward (chunked attention, the RG-LRU and
+    WKV scan kernels); capture collects per-layer K/V and final recurrent
+    states and this function lays them out into the decode cache."""
     cfg = model.cfg
     h, captured = T.forward_hidden(model, tokens, dtype, capture=True)
     s_prompt = tokens.shape[1]
@@ -216,8 +269,8 @@ def prefill(model: T.LM, tokens, seq_len: int, dtype=torch.bfloat16,
             k, v, pos = _ring_from_full(kf, vf, s_prompt, w_total)
             layers.append({"k": k.to(kv_dtype), "v": v.to(kv_dtype),
                            "pos": pos})
-        elif kind == "rglru":
-            layers.append({"state": cap["state"], "conv": cap["conv"]})
+        elif kind in ("rglru", "rwkv"):
+            layers.append(cap)
         else:
             raise ValueError(kind)
     return {"t": s_prompt, "layers": layers}, h

@@ -1,14 +1,15 @@
-"""Transformer assembly for the LM serving path: modules, init, forward.
+"""Transformer assembly for the LM serving paths: modules, init, forward.
 
 The port's counterpart of :mod:`repro.models.transformer` for TP-mode
-(recurrence) archs on one device. A model is an :class:`LM` module: the
-embedding (table and untied head), one :class:`Block` per layer in layer
-order, and the final norm. The reference stacks each pattern slot's weights
-over layer groups and scans over the groups, unrolling the remainder
-(recurrentgemma's 38 = 12×3 + 2); here the group loop is a plain Python loop
-over ``LM.blocks``, whose layer ``i`` is group ``i // P``, slot ``i % P``
-for the first ``P·n_groups`` layers and ``extra{i - P·n_groups}`` after them
-(:func:`repro_torch.convert.per_layer` maps the reference's tree onto it).
+(recurrence) archs on one device: recurrentgemma and rwkv6. A model is an
+:class:`LM` module: the embedding (table and untied head), one
+:class:`Block` per layer in layer order, and the final norm. The reference
+stacks each pattern slot's weights over layer groups and scans over the
+groups, unrolling the remainder (recurrentgemma's 38 = 12×3 + 2); here the
+group loop is a plain Python loop over ``LM.blocks``, whose layer ``i`` is
+group ``i // P``, slot ``i % P`` for the first ``P·n_groups`` layers and
+``extra{i - P·n_groups}`` after them (:func:`repro_torch.convert.per_layer`
+maps the reference's tree onto it).
 """
 
 from __future__ import annotations
@@ -24,8 +25,12 @@ from repro_torch.models.params import Params, init_params
 
 def _slot_defs(cfg: ModelConfig, kind: str) -> dict[str, dict]:
     """Weight declarations of one block, by sublayer (the reference's
-    ``_slot_defs`` for the ``attn``-in-TP-mode and ``rglru`` kinds)."""
+    ``_slot_defs`` for the ``attn``-in-TP-mode, ``rglru`` and ``rwkv``
+    kinds). An RWKV block has no ``ffn``: its channel mix is in ``mix``."""
     d = cfg.d_model
+    if kind == "rwkv":
+        return {"ln1": L.norm_defs(d), "ln2": L.norm_defs(d),
+                "mix": L.rwkv_defs(cfg)}
     if kind == "attn":
         mix = L.attn_tp_defs(cfg)
     elif kind == "rglru":
@@ -37,9 +42,9 @@ def _slot_defs(cfg: ModelConfig, kind: str) -> dict[str, dict]:
 
 
 class Block(nn.Module):
-    """One layer: norm → mixer (local attention or RG-LRU) → norm → MLP.
-    The attention mixer is named ``mix`` here; the reference calls it
-    ``attn``."""
+    """One layer: norm → mixer (local attention or RG-LRU) → norm → MLP, or
+    an RWKV block (norm → time mix → norm → channel mix). The attention
+    mixer is named ``mix`` here; the reference calls it ``attn``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device, dtype):
         super().__init__()
@@ -49,7 +54,8 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """A decoder-only LM of TP-mode blocks (recurrentgemma's kinds)."""
+    """A decoder-only LM of TP-mode blocks (recurrentgemma's and rwkv6's
+    kinds)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda",
                  dtype=torch.float32):
@@ -83,6 +89,9 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
 def _block_fwd(x, blk: Block, cfg: ModelConfig, capture: bool = False):
     """One block. x: (B, S, d). Returns (x, cache): the layer's contribution
     to the serving cache when ``capture`` (prefill), else {}."""
+    if blk.kind == "rwkv":
+        # Time-chunked whole block; the state and shifts carry across chunks.
+        return L.rwkv_block_chunked(x, blk, cfg, capture=capture)
     dtype = x.dtype
     cache = {}
     h = L.apply_norm(x, blk.ln1, dtype)

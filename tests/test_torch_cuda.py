@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain version, the
-exactness contracts of a short chain run on the device, and the full-width
-recurrentgemma serving path.
+exactness contracts of a short chain run on the device, the full-width
+recurrentgemma serving path and the rwkv6 serving path.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without one;
 this file imports no JAX, so it runs on a machine with only PyTorch:
@@ -14,6 +14,7 @@ import torch
 
 from repro_torch import api
 from repro_torch import random as jr
+from repro_torch.configs import get_reduced
 from repro_torch.data import logistic_data
 from repro_torch.kernels.bright_glm import ops as bops
 from repro_torch.kernels.bright_glm.ref import bright_glm_ref
@@ -21,9 +22,12 @@ from repro_torch.kernels.decode_attention import ops as aops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.rglru_scan import ops as rops
 from repro_torch.kernels.rglru_scan.ref import rglru_ref
-from repro_torch.launch.serve import serve
+from repro_torch.kernels.rwkv6_scan import ops as wops
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_chunked_ref
 from repro_torch.kernels.z_update import ops as zops
 from repro_torch.kernels.z_update.ref import z_candidates_ref
+from repro_torch.launch.serve import serve
+from repro_torch.models import transformer as T
 from repro_torch.models.bayes_glm import GLMModel
 
 pytestmark = pytest.mark.cuda
@@ -201,3 +205,53 @@ def test_serve_full_width_on_card(dev):
     assert ids.shape == (4, 2) and bool(((ids >= 0) & (ids < 256000)).all())
     assert stats["prefill_s"] > 0 and stats["decode_s"] > 0
     torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("b,h,s,d,chunk,logw,with_s0", [
+    (2, 3, 64, 16, 16, None, False),
+    (2, 4, 96, 32, 32, None, True),  # the reduced model's heads
+    (1, 2, 33, 48, 64, None, True),  # c = 33, D not a power of two
+    (2, 2, 5, 8, 1, None, True),  # c = 1
+    (4, 64, 32, 64, 64, None, True),  # S = 32: c = 32
+    (1, 4, 128, 64, 64, -1.0, True),  # edge decay: e^{±64}
+    (4, 64, 512, 64, 64, None, True),  # the serving path's time chunk
+])
+def test_rwkv6_scan_kernel_matches_plain(dev, b, h, s, d, chunk, logw,
+                                         with_s0):
+    g = torch.Generator().manual_seed(s * d)
+    r, k, v = (torch.randn(b, h, s, d, generator=g).to(dev) for _ in range(3))
+    lw = (torch.full((b, h, s, d), logw) if logw is not None
+          else -(1e-6 + (1 - 1e-6) * torch.rand(b, h, s, d, generator=g)))
+    lw = lw.to(dev)
+    u = torch.randn(h, d, generator=g).to(dev)
+    s0 = torch.randn(b, h, d, d, generator=g).to(dev) if with_s0 else None
+    before = wops.launch_count
+    y, st = wops.rwkv6_scan(r, k, v, lw, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wops.launch_count == before + 1
+    y_ref, st_ref = rwkv6_chunked_ref(r, k, v, lw, u, s0, chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    # float32 sums in another order, scaled by e^{±cumsum logw}: 1e-5
+    # relative, plus 1e-5 of the largest value for entries near zero
+    for a, ref in ((y, y_ref), (st, st_ref)):
+        torch.testing.assert_close(a, ref, rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+def test_serve_rwkv_reduced_on_card(dev):
+    """The reduced rwkv6 twin through ``serve`` on the card, float32: one
+    WKV launch per layer and 512-step time chunk of the prefill, none in
+    decode; the first token is the argmax of the model's forward over the
+    prompt."""
+    w0 = wops.launch_count
+    ids, _ = serve("rwkv6-7b", batch=2, prompt_len=1024, gen=3, seed=3,
+                   dtype=torch.float32, device=dev)
+    assert wops.launch_count - w0 == 2 * 2  # 2 layers × 2 time chunks
+    assert ids.shape == (2, 3) and bool(((ids >= 0) & (ids < 512)).all())
+    model = T.init_model(get_reduced("rwkv6-7b"), 3, dev, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    prompts = torch.randint(0, 512, (2, 1024), generator=gen, device=dev)
+    with torch.inference_mode():
+        h = T.forward_hidden(model, prompts, torch.float32)
+    assert torch.equal((h[:, -1] @ model.embed.head).argmax(-1).cpu(),
+                       ids[:, 0])
