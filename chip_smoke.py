@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``, at
-first use), then runs three paths — the FlyMC chain, the recurrentgemma-9b
-and the rwkv6-7b LM serving paths — each with its kernels (five in all):
+first use), then runs four paths — the FlyMC chain, the recurrentgemma-9b
+and the rwkv6-7b LM serving paths, and the recurrentgemma-9b training step —
+each with its kernels (six in all):
 
 1. holds each kernel against its plain PyTorch version on the card and
    times it: ``ms`` is the kernels' device time per call (torch.profiler;
@@ -61,7 +62,27 @@ and the rwkv6-7b LM serving paths — each with its kernels (five in all):
 8. drives the rwkv6-7b serving path once through ``serve`` at the published
    width in bfloat16: batch 4, a 2048-token prompt, 32 greedy tokens;
    prints prefill ms, decode ms/token, tokens/s and peak memory, and checks
-   128 ``rwkv6_scan`` launches (32 layers × 4 time chunks of the prefill).
+   128 ``rwkv6_scan`` launches (32 layers × 4 time chunks of the prefill);
+9. holds ``fused_ce`` against its plain version at the training path's
+   shape (T = 4096 tokens, D = 4096, V = 256,000; bf16 and f32 inputs, and
+   a ragged T = 4095; labels at vocab column 0, V − 1 and both sides of a
+   split boundary), ``lse`` and ``tgt`` to 1e-4 absolute, with
+   ``F.cross_entropy(x @ w)`` as the library yardstick and the bound at the
+   bf16 tensor-core peak (bf16 inputs) or the f32 CUDA-core peak;
+10. checks the backwards on the card: ``FusedCE`` (f32, the path's shape)
+   against autograd through the plain version over token chunks, dx and dw
+   within 1e-4 of their largest value; ``RGLRUScan`` (B=2, S=2048, C=4096;
+   log a ≈ -5 and ≈ -1e-6 with h0) against autograd through the plain loop,
+   rtol 1e-5 plus 1e-5 of the largest value, its backward one more launch;
+11. drives the training path through ``repro_torch.launch.train.
+   train_reduced`` at the published width cut to 3 layers (rglru, rglru,
+   attn; 2.603 B params), f32 master weights and AdamW state, bf16
+   compute, batch 2 × 2048 tokens, 6 steps: prints each step's loss, grad
+   norm and lr, the median step ms after the first, tokens/s and peak
+   memory, and checks a finite loss, 1 ``fused_ce`` and 4 ``rglru_scan``
+   launches per step;
+12. a descent check: 8 ``make_train_step`` steps (warmup 1) on one fixed
+   batch at that width; the last loss must be below the first.
 
 Any failure raises (nonzero exit, no result line). The last two lines are the
 ``{"kernels": [...]}`` table and ``{"ok": true, "device": {...}}``. Needs one
@@ -85,6 +106,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12  # H100 SXM, outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # H100 SXM, bf16 tensor cores, dense
 
 # The paper's widths (benchmarks/table1.py): MNIST 7v9, CIFAR-3, OPV.
 N_MNIST, D_MNIST = 12214, 51
@@ -105,6 +127,12 @@ EXACT_BATCH, EXACT_PROMPT = 2, 2100
 RWKV_ARCH = "rwkv6-7b"
 RWKV_BATCH, RWKV_PROMPT, RWKV_GEN = 4, 2048, 32
 RWKV_EXACT_BATCH, RWKV_EXACT_PROMPT, RWKV_EXACT_STEPS = 2, 1024, 64
+# LM training path: recurrentgemma-9b at its published width, depth cut to
+# one (rglru, rglru, attn) group: 38 layers' f32 weights, gradients and
+# AdamW moments (137 GB) do not fit one 80 GB card.
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 3, 2, 2049, 6
+DESCENT_STEPS = 8
+CE_TOKENS = TRAIN_BATCH * (TRAIN_SEQ - 1)  # fused_ce's T on the path: 4096
 
 
 def log(msg: str) -> None:
@@ -173,9 +201,10 @@ def device_ms(fn, names, reps: int = 20):
     return a.elapsed_time(b) / reps
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float,
+          flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_f = flops / FP32_FLOP_PER_S * 1e3
+    t_f = flops / flop_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -865,6 +894,305 @@ def rwkv_serve_path(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 9. fused_ce, 10. the backwards, 11. the training path, 12. descent
+# ---------------------------------------------------------------------------
+
+
+def fused_ce_phase(name, t, d, v, dtype, dev, gen):
+    """``fused_ce`` against its plain version at (T, D, V) with labels at
+    vocab column 0, V - 1 and both sides of a split boundary; ``lse`` and
+    ``tgt`` to 1e-4 absolute (float32 sums of D products in another order,
+    values O(10)). Times the kernel, the plain version and the library
+    yardstick ``F.cross_entropy(x @ w)`` (two PyTorch calls, in ``dtype``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.fused_ce import ops
+    from repro_torch.kernels.fused_ce.ref import fused_ce_ref
+
+    x = torch.randn(t, d, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(d, v, generator=gen, device=dev) / d**0.5).to(dtype)
+    lab = torch.randint(0, v, (t,), generator=gen, device=dev)
+    edge = [0, v - 1, ops.SPLIT_COLS - 1, ops.SPLIT_COLS,
+            (v - 1) // ops.SPLIT_COLS * ops.SPLIT_COLS]
+    lab[:len(edge)] = torch.tensor([min(e, v - 1) for e in edge], device=dev)
+    lse, tgt = ops.lse_and_target(x, w, lab)
+    lse_ref, tgt_ref = fused_ce_ref(x, w, lab)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(lse).all() and torch.isfinite(tgt).all()):
+        raise AssertionError(f"fused_ce[{name}] is not finite")
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+    torch.testing.assert_close(tgt, tgt_ref, rtol=0, atol=1e-4)
+    err = max(float((lse - lse_ref).abs().max()),
+              float((tgt - tgt_ref).abs().max()))
+    del lse_ref, tgt_ref
+    call = lambda: ops.lse_and_target(x, w, lab)
+    dev_ms = device_ms(call, ("ce_tiles_kernel", "ce_merge_kernel"), reps=3)
+    ms = median_ms(call, reps=3, warm=1)
+    plain = median_ms(lambda: fused_ce_ref(x, w, lab), reps=3, warm=1)
+    lib = lambda: F.cross_entropy(x @ w, lab, reduction="none")
+    lib_err = float((lib().float() - (lse - tgt)).abs().max())
+    lib_ms = median_ms(lib, reps=5, warm=1)
+    es = x.element_size()
+    b_ms, b_by = bound(t * d * es + d * v * es + t * 8 + t * 8,
+                       2.0 * t * d * v,
+                       BF16_FLOP_PER_S if dtype == torch.bfloat16
+                       else FP32_FLOP_PER_S)
+    log(f"fused_ce[{name}: T={t} D={d} V={v} {str(dtype)[6:]}] max|Δ|="
+        f"{err:.3g} (max lse {float(lse.max()):.4g}), call {ms:.4f} ms "
+        f"(device {dev_ms:.6f} ms, {2.0 * t * d * v / dev_ms / 1e9:.1f} "
+        f"TFLOP/s), plain {plain:.4f} ms, library (x@w + cross_entropy) "
+        f"{lib_ms:.4f} ms (max|Δ nll| {lib_err:.3g}), bound {b_ms:.6f} ms "
+        f"({b_by})")
+    del x, w
+    torch.cuda.empty_cache()
+    return {"phase": name, "T": t, "D": d, "V": v, "dtype": str(dtype)[6:],
+            "max_abs_err": err, "ms": dev_ms, "call_ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
+
+
+def fused_ce_grad_phase(t, d, v, dev, gen):
+    """``FusedCE``'s backward (the reference's chunk VJP) at the path's
+    shape in float32, against autograd through the plain version over
+    1024-token chunks: dx and dw within 1e-4 of their largest value."""
+    from repro_torch.kernels.fused_ce import ops
+    from repro_torch.kernels.fused_ce.ref import fused_ce_ref
+
+    x = torch.randn(t, d, generator=gen, device=dev)
+    w = torch.randn(d, v, generator=gen, device=dev) / d**0.5
+    lab = torch.randint(0, v, (t,), generator=gen, device=dev)
+    c = torch.rand(t, generator=gen, device=dev) / t
+
+    def backward_ms(dtype):
+        xg = x.to(dtype, copy=True).requires_grad_()
+        wg = w.to(dtype, copy=True).requires_grad_()
+        loss = (ops.fused_ce(xg, wg, lab) * c).sum()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, xg.grad, wg.grad
+
+    backward_ms(torch.bfloat16)  # the first call allocates and picks kernels
+    bwd_bf16_ms, _, _ = backward_ms(torch.bfloat16)  # the training step's
+    torch.cuda.empty_cache()
+    bwd_ms, dx, dw = backward_ms(torch.float32)
+    wr = w.requires_grad_()
+    dx_ref = torch.empty_like(x)
+    for t0 in range(0, t, 1024):
+        xc = x[t0:t0 + 1024].clone().requires_grad_()
+        lse, tgt = fused_ce_ref(xc, wr, lab[t0:t0 + 1024])
+        ((lse - tgt) * c[t0:t0 + 1024]).sum().backward()
+        dx_ref[t0:t0 + 1024] = xc.grad
+    torch.cuda.synchronize()
+    errs = []
+    for a, ref in ((dx, dx_ref), (dw, wr.grad)):
+        scale = float(ref.abs().max())
+        torch.testing.assert_close(a, ref, rtol=0, atol=1e-4 * scale)
+        errs.append(float((a - ref).abs().max()) / scale)
+    log(f"FusedCE backward[T={t} D={d} V={v} float32, chunks of "
+        f"{ops.BWD_CHUNK}]: max|Δ dx|, max|Δ dw| = {errs[0]:.3g}, "
+        f"{errs[1]:.3g} of their largest value (tolerance 1e-4); backward "
+        f"{bwd_ms:.3f} ms in float32 (first call), {bwd_bf16_ms:.3f} ms in "
+        f"bfloat16 (second call; host clock)")
+    del x, w, wr, dx, dw, dx_ref
+    torch.cuda.empty_cache()
+    return {"phase": "backward-f32", "T": t, "D": d, "V": v,
+            "max_rel_err": max(errs), "bwd_ms": bwd_ms,
+            "bwd_bf16_ms": bwd_bf16_ms}
+
+
+def rglru_grad_phase(name, b, s, c, log_a, with_h0, dev, gen):
+    """``RGLRUScan``'s backward (one more scan launch, reversed in time)
+    against autograd through the plain loop: ∂log_a, ∂b (and ∂h0) to rtol
+    1e-5 plus 1e-5 of the largest value."""
+    from repro_torch.kernels.rglru_scan import ops
+    from repro_torch.kernels.rglru_scan.ref import rglru_ref
+
+    la = (log_a * (0.9 + 0.2 * torch.rand(b, s, c, generator=gen))).to(dev)
+    bx = torch.randn(b, s, c, generator=gen).to(dev)
+    h0 = torch.randn(b, c, generator=gen).to(dev) if with_h0 else None
+    gh = torch.randn(b, s, c, generator=gen).to(dev)
+    gl = torch.randn(b, c, generator=gen).to(dev)
+
+    def forward(scan):
+        ins = [la.clone().requires_grad_(), bx.clone().requires_grad_()]
+        if with_h0:
+            ins.append(h0.clone().requires_grad_())
+        y, hf = scan(ins[0], ins[1], ins[2] if with_h0 else None)
+        return (y * gh).sum() + (hf * gl).sum(), ins
+
+    before = ops.launch_count
+    out, ins = forward(ops.rglru_scan)
+    got = torch.autograd.grad(out, ins, retain_graph=True)
+    torch.cuda.synchronize()
+    if ops.launch_count - before != 2:
+        raise AssertionError(f"rglru_scan forward + backward launched "
+                             f"{ops.launch_count - before} times, want 2")
+    ref_out, ref_ins = forward(rglru_ref)
+    want = torch.autograd.grad(ref_out, ref_ins)
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, ref in zip(got, want):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"rglru_scan backward[{name}] not finite")
+        scale = float(ref.abs().max())
+        torch.testing.assert_close(a, ref, rtol=1e-5, atol=1e-5 * scale)
+        err = max(err, float((a - ref).abs().max()))
+    del ref_out, ref_ins, want
+    bwd = lambda: torch.autograd.grad(out, ins, retain_graph=True)
+    bwd_ms = median_ms(bwd, reps=10, warm=2)
+    # bytes: log_a, the saved h and ḡ read, ∂log_a and ∂b written
+    b_ms, b_by = bound(5 * b * s * c * 4 + b * c * 4 * (3 if with_h0 else 2),
+                       6.0 * b * s * c)
+    log(f"rglru_scan backward[{name}: B={b} S={s} C={c} log_a≈{log_a:g} "
+        f"h0={with_h0}] max|Δ|={err:.3g}, backward call {bwd_ms:.4f} ms, "
+        f"bound {b_ms:.6f} ms ({b_by})")
+    torch.cuda.empty_cache()
+    return {"phase": name, "B": b, "S": s, "C": c, "log_a": log_a,
+            "max_abs_err": err, "bwd_call_ms": bwd_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def train_kernel_phases(dev):
+    """fused_ce at the training path's shape (T = 4096 tokens of the
+    published width and vocab; bf16 and f32; a ragged T), FusedCE's and
+    RGLRUScan's backwards."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ARCH)
+    d, v = cfg.d_model, cfg.padded_vocab()
+    gen = torch.Generator(device=dev).manual_seed(14)
+    ce = [
+        fused_ce_phase("path", CE_TOKENS, d, v, torch.bfloat16, dev, gen),
+        fused_ce_phase("f32", CE_TOKENS, d, v, torch.float32, dev, gen),
+        fused_ce_phase("ragged-T", CE_TOKENS - 1, d, v, torch.bfloat16, dev,
+                       gen),
+    ]
+    ce_grad = fused_ce_grad_phase(CE_TOKENS, d, v, dev, gen)
+    cgen = torch.Generator().manual_seed(15)
+    scan_bwd = [
+        rglru_grad_phase("backward", TRAIN_BATCH, TRAIN_SEQ - 1, cfg.rnn_dim,
+                         -5.0, False, dev, cgen),
+        rglru_grad_phase("backward-slow-decay", TRAIN_BATCH, TRAIN_SEQ - 1,
+                         cfg.rnn_dim, -1e-6, True, dev, cgen),
+    ]
+    return ce, ce_grad, scan_bwd
+
+
+def train_path(dev):
+    """The training path through its entry point: ``train_reduced`` at the
+    published width with 3 layers in bf16 (f32 master weights and AdamW
+    state). Returns (launch counts, the model for the descent check)."""
+    from repro_torch.kernels.decode_attention import ops as aops
+    from repro_torch.kernels.fused_ce import ops as cops
+    from repro_torch.kernels.rglru_scan import ops as rops
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    from repro_torch.launch.train import train_reduced
+    from repro_torch.models.config import layer_kinds
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cops.launch_count = rops.launch_count = 0
+    aops.launch_count = wops.launch_count = 0
+    model, hist = train_reduced(ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                                seq=TRAIN_SEQ, log_every=TRAIN_STEPS, seed=0,
+                                full=True, n_layers=TRAIN_LAYERS,
+                                dtype=torch.bfloat16, device=dev)
+    launches = {"fused_ce": cops.launch_count, "rglru_scan": rops.launch_count,
+                "decode_attention": aops.launch_count,
+                "rwkv6_scan": wops.launch_count}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_rglru = layer_kinds(model.cfg).count("rglru")
+    want = {"fused_ce": TRAIN_STEPS, "rglru_scan": 2 * n_rglru * TRAIN_STEPS,
+            "decode_attention": 0, "rwkv6_scan": 0}
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, want {want}")
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"training loss not finite: {hist}")
+    n_params = sum(p.numel() for p in model.parameters())
+    step_ms = statistics.median(h["seconds"] for h in hist[1:]) * 1e3
+    tokens = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    lrs = [float(f"{h['lr']:.4g}") for h in hist]
+    log(f"train path [{ARCH} full width, {TRAIN_LAYERS} layers, "
+        f"{n_params / 1e9:.3f} B params, bf16 compute, f32 master + AdamW, "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ - 1} tokens, {TRAIN_STEPS} "
+        f"steps]: step ms {[round(h['seconds'] * 1e3, 3) for h in hist]}, "
+        f"median after the first {step_ms:.3f} ms, "
+        f"{tokens / step_ms * 1e3:.1f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB; loss {[round(h['loss'], 4) for h in hist]}, "
+        f"grad norm {[round(h['grad_norm'], 4) for h in hist]}, lr {lrs}; "
+        f"launches per step: "
+        f"fused_ce {launches['fused_ce'] / TRAIN_STEPS:g}, rglru_scan "
+        f"{launches['rglru_scan'] / TRAIN_STEPS:g}")
+    return launches, model, {"step_ms": step_ms,
+                             "tokens_per_s": tokens / step_ms * 1e3,
+                             "peak_gib": peak / 2**30}
+
+
+def step_breakdown(model, dev):
+    """One more training step at the path's width, split by CUDA events:
+    the forward (``loss_fn``, with its ``fused_ce`` launch), the backward
+    (``loss.backward()``, with the CE's chunked VJP and 2 ``rglru_scan``
+    launches) and the optimizer (global norm, clip and AdamW over every
+    parameter), as ``make_train_step`` runs them."""
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_update, warmup_cosine
+
+    opt = T.init_opt(model)
+    batch = synthetic_batch(torch.Generator(device=dev).manual_seed(98),
+                            model.cfg, TRAIN_BATCH, TRAIN_SEQ)
+    params = dict(model.named_parameters())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    loss, _ = T.loss_fn(model, batch, torch.bfloat16)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    grads = {n: p.grad for n, p in params.items()}
+    gnorm = T.global_grad_norm(grads)
+    adamw_update(params, grads, opt,
+                 warmup_cosine(opt.step, peak_lr=3e-4, warmup_steps=1),
+                 grad_scale=torch.clamp(1.0 / (gnorm + 1e-6), max=1.0))
+    ev[3].record()
+    ev[3].synchronize()
+    for p in params.values():
+        p.grad = None
+    del opt, grads, loss
+    torch.cuda.empty_cache()
+    parts = {"forward_ms": ev[0].elapsed_time(ev[1]),
+             "backward_ms": ev[1].elapsed_time(ev[2]),
+             "optimizer_ms": ev[2].elapsed_time(ev[3])}
+    log(f"train step breakdown [{ARCH} full width, {model.cfg.n_layers} "
+        f"layers, bf16, batch {TRAIN_BATCH} x {TRAIN_SEQ - 1}; CUDA events]: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    return parts
+
+
+def descent_check(model, dev):
+    """8 steps of ``make_train_step`` (warmup 1) on one fixed batch at the
+    published width: the last loss must be below the first."""
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import transformer as T
+
+    cfg = model.cfg
+    opt = T.init_opt(model)
+    step = T.make_train_step(cfg, dtype=torch.bfloat16, warmup_steps=1)
+    batch = synthetic_batch(torch.Generator(device=dev).manual_seed(99), cfg,
+                            TRAIN_BATCH, TRAIN_SEQ)
+    losses = [float(step(model, opt, batch)["loss"])
+              for _ in range(DESCENT_STEPS)]
+    log(f"descent [{ARCH} full width, {cfg.n_layers} layers, one fixed batch, "
+        f"warmup 1, peak lr 3e-4]: losses {[round(x, 4) for x in losses]}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"loss did not fall on a fixed batch: {losses}")
+    del opt
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -894,6 +1222,7 @@ def main() -> int:
     bright, z, mnist = kernel_phases(dev)
     attn, scan = lm_kernel_phases(dev)
     wkv = rwkv_kernel_phases(dev)
+    ce, ce_grad, scan_bwd = train_kernel_phases(dev)
     launches = main_path(mnist)
     convergence_path()
     gradient_path()
@@ -905,6 +1234,13 @@ def main() -> int:
     serve_launches = serve_path(dev)
     rwkv_serve_exactness(dev)
     rwkv_launches = rwkv_serve_path(dev)
+    torch.cuda.empty_cache()
+
+    train_launches, model, _ = train_path(dev)
+    step_breakdown(model, dev)
+    descent_check(model, dev)
+    del model
+    torch.cuda.empty_cache()
 
     main_b = next(p for p in bright if p["phase"] == "logistic")
     main_z = next(p for p in z if p["phase"] == "mnist")
@@ -939,11 +1275,12 @@ def main() -> int:
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:61",
          "launches": serve_launches["rglru_scan"],
-         "max_abs_err": max(p["max_abs_err"] for p in scan),
+         "launches_train": train_launches["rglru_scan"],
+         "max_abs_err": max(p["max_abs_err"] for p in scan + scan_bwd),
          "ms": scan[0]["ms"], "call_ms": scan[0]["call_ms"],
          "plain_ms": scan[0]["plain_ms"], "bound_ms": scan[0]["bound_ms"],
          "bound_by": scan[0]["bound_by"], "library_ms": None,
-         "phases": scan},
+         "phases": scan + scan_bwd},
         {"name": "rwkv6_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rwkv6_scan.cu",
          "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:91",
@@ -952,6 +1289,15 @@ def main() -> int:
          "ms": wkv[0]["ms"], "call_ms": wkv[0]["call_ms"],
          "plain_ms": wkv[0]["plain_ms"], "bound_ms": wkv[0]["bound_ms"],
          "bound_by": wkv[0]["bound_by"], "library_ms": None, "phases": wkv},
+        {"name": "fused_ce", "route": "cuda",
+         "source": "src/repro_torch/csrc/fused_ce.cu",
+         "replaces": "src/repro/kernels/fused_ce/kernel.py:88",
+         "launches": train_launches["fused_ce"],
+         "max_abs_err": max(p["max_abs_err"] for p in ce),
+         "ms": ce[0]["ms"], "call_ms": ce[0]["call_ms"],
+         "plain_ms": ce[0]["plain_ms"], "bound_ms": ce[0]["bound_ms"],
+         "bound_by": ce[0]["bound_by"], "library_ms": ce[0]["library_ms"],
+         "phases": ce + [ce_grad]},
     ]}
     log(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps(table), flush=True)

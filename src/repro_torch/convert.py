@@ -4,8 +4,10 @@ The caller hands over numpy arrays (``jax.device_get`` of the reference's
 arrays, and ``jax.random.key_data`` of its keys); nothing here touches a jax
 object. Every FlyMC function here adds the port's leading chain axis unless
 the arrays already carry one (``batched=True``). :func:`lm_params` turns the
-reference's LM parameter tree into the port's modules. The parity tests use
-these to start both packages from the same state.
+reference's LM parameter tree into the port's modules (a gradient tree has
+the same structure, so it converts the same way), and :func:`adamw_state`
+its AdamW state into the port's. The parity tests use these to start both
+packages from the same state.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Params
 from repro_torch.models.transformer import LM
+from repro_torch.optim import AdamWState
 
 
 def _t(a, device, dtype=None):
@@ -131,3 +134,20 @@ def lm_params(params_np: dict, cfg: ModelConfig, device="cuda",
         for ref_name, name in src.items():
             _load(getattr(blk, name), tree[ref_name])
     return model
+
+
+def adamw_state(opt_np, model: LM) -> AdamWState:
+    """The reference's ``AdamWState`` (numpy leaves: ``step``, and ``m`` and
+    ``v`` trees shaped like the parameters) as the port's state for
+    ``model``: moments keyed by ``model.named_parameters()`` names, on the
+    model's device, float32."""
+    dev = model.final_norm.scale.device
+
+    def moments(tree):
+        twin = lm_params(tree, model.cfg, dev, torch.float32)
+        return {n: p.detach() for n, p in twin.named_parameters()}
+
+    m, v = moments(opt_np.m), moments(opt_np.v)
+    if set(m) != {n for n, _ in model.named_parameters()}:
+        raise ValueError("AdamW moments do not match the model's parameters")
+    return AdamWState(_t(opt_np.step, dev, torch.int32), m, v)

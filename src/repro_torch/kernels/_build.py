@@ -124,6 +124,11 @@ def _declare(lib) -> None:
         i, i, i, i, i, p,  # B H S D c stream
     ]
     lib.rwkv6_scan_launch.restype = i
+    lib.fused_ce_launch.argtypes = [
+        p, p, p, p, p, p,  # x w labels part lse tgt
+        i, i, i, i, p,  # T D V is_bf16 stream
+    ]
+    lib.fused_ce_launch.restype = i
     lib.kernels_error_string.argtypes = [i]
     lib.kernels_error_string.restype = ctypes.c_char_p
 

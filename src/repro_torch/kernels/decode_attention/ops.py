@@ -3,7 +3,9 @@
 Entry point of :func:`repro_torch.models.serving._decode_attend`, one call
 per local-attention layer per decode step. A CUDA tensor goes to
 ``csrc/decode_attention.cu`` (or the wrapper raises); a CPU tensor goes to
-the plain version in :mod:`.ref`. No gradient: serving only.
+the plain version in :mod:`.ref`. Serving only: the kernel has no backward,
+so on the card the wrapper raises under autograd rather than return an
+untracked result.
 """
 
 from __future__ import annotations
@@ -78,6 +80,10 @@ def decode_attention(q, k, v, pos, t: int, window: int | None = None):
     m (B, Hk, G), l (B, Hk, G)) float32, G = H / Hk.
     """
     if q.is_cuda:
+        if torch.is_grad_enabled() and any(a.requires_grad for a in (q, k, v)):
+            raise NotImplementedError(
+                "decode_attention: the CUDA kernel has no backward (ROADMAP "
+                "queue 1 item 15, step 4d: decode_attention under autograd)")
         return _launch(q, k, v, pos, t, window)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, pos, t, window)

@@ -3,7 +3,9 @@
 Entry point of :func:`repro_torch.models.layers.rwkv_mix`, one call per
 RWKV layer per time chunk of a prefill. A CUDA tensor goes to
 ``csrc/rwkv6_scan.cu`` (or the wrapper raises); a CPU tensor goes to the
-plain version in :mod:`.ref`. No gradient: serving only.
+plain version in :mod:`.ref`. The kernel has no backward yet: on the card
+the wrapper raises under autograd rather than return an untracked result
+(the plain CPU version differentiates as written).
 """
 
 from __future__ import annotations
@@ -79,6 +81,12 @@ def rwkv6_scan(r, k, v, logw, u, state0=None, chunk: int = 64):
     if r.device.type not in ("cuda", "cpu"):
         raise ValueError(f"rwkv6_scan: unsupported device {r.device}")
     c = _check(r, k, v, logw, u, state0, chunk)
+    if r.is_cuda and torch.is_grad_enabled() and any(
+            a is not None and a.requires_grad
+            for a in (r, k, v, logw, u, state0)):
+        raise NotImplementedError(
+            "rwkv6_scan: the CUDA kernel has no backward (ROADMAP queue 1 "
+            "item 15, step 4c: a WKV6 backward for rwkv6 training)")
     if r.is_cuda:
         return _launch(r, k, v, logw, u, state0, c)
     return rwkv6_chunked_ref(r, k, v, logw, u, state0, c)

@@ -126,6 +126,12 @@ _MISSING = {
               "encdec and VLM)",
     "vlm": "VLM frontends (ROADMAP queue 1 item 15, step 3: MoE, encdec and "
            "VLM)",
+    "remat": "remat through torch.utils.checkpoint (ROADMAP queue 1 item 15, "
+             "step 4a)",
+    "ckpt": "checkpointing the training state (ROADMAP queue 1 item 15, "
+            "step 4b, with queue 1 item 12)",
+    "rwkv_train": "rwkv6 training on the card: a WKV6 backward (ROADMAP "
+                  "queue 1 item 15, step 4c)",
 }
 
 
@@ -148,3 +154,15 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: block kinds {sorted(unknown)}")
     if cfg.tie_embeddings:
         raise NotImplementedError(f"{cfg.name}: untied embeddings only")
+
+
+def check_trainable(cfg: ModelConfig, device) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item for a config
+    the port cannot train on ``device`` (a ``torch.device`` or its name):
+    on the card every block kind needs a kernel with a backward, which
+    ``attn`` and ``rglru`` have and ``rwkv`` has not yet; on the CPU every
+    kind differentiates through its plain version."""
+    check_supported(cfg)
+    kind = getattr(device, "type", str(device).split(":")[0])
+    if kind == "cuda" and "rwkv" in cfg.block_pattern:
+        raise NotImplementedError(f"{cfg.name}: {_MISSING['rwkv_train']}")

@@ -1,7 +1,7 @@
-"""Model layers of the LM serving paths, single device.
+"""Model layers of the LM serving and training paths, single device.
 
 The port's counterpart of :mod:`repro.models.layers`, with only what the
-recurrentgemma and rwkv6 serving paths run: norms, RoPE, the chunked
+recurrentgemma and rwkv6 paths run: norms, RoPE, the chunked
 (online-softmax) prefill attention, the head-parallel ("TP mode") attention
 and MLP, the RG-LRU mixer, the RWKV6 time and channel mixes and the
 embedding. Each function keeps the reference's name; ``w`` is the layer's
@@ -16,7 +16,9 @@ kernel on the card; the reference's model path uses ``lax.associative_scan``
 for the same recurrence. The RWKV6 WKV goes through
 :mod:`repro_torch.kernels.rwkv6_scan`, a CUDA kernel on the card; the
 reference's model path runs the same chunked closed form (``_wkv_chunk``)
-under ``lax.scan``.
+under ``lax.scan``. The cross-entropy's logsumexp and target logit go
+through :mod:`repro_torch.kernels.fused_ce`, a CUDA kernel on the card; the
+reference's model path computes them in jnp over 256-token chunks.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.fused_ce import ops as ce_ops
 from repro_torch.kernels.rglru_scan import ops as rglru_ops
 from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
 from repro_torch.models.config import ModelConfig
@@ -380,3 +383,20 @@ def embed_tokens(ids, w: Params, dtype):
     """ids: (B, S) → (B, S, d). Rows are gathered, then cast (the reference
     casts the table first; the values are the same)."""
     return w.table[ids].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy — TP mode
+# ---------------------------------------------------------------------------
+
+
+def ce_loss_tp(x, labels, w: Params, cfg: ModelConfig):
+    """TP-mode cross-entropy: x (B, S, d) final-norm hidden, labels (B, S).
+    Returns (Σ per-token NLL (float32 scalar), token count), the
+    reference's pair. One :func:`~repro_torch.kernels.fused_ce.ops.fused_ce`
+    call over the flattened (B·S, d) hidden against the head cast to the
+    compute dtype; its backward takes the reference's 256-token chunks."""
+    b, s, d = x.shape
+    head = w.head.to(x.dtype)
+    nll = ce_ops.fused_ce(x.reshape(b * s, d), head, labels.reshape(b * s))
+    return nll.sum(), b * s

@@ -37,8 +37,9 @@ class Params(nn.Module):
     """A layer's weights, one ``nn.Parameter`` per :class:`WDef`.
 
     Parameters are allocated uninitialised on ``device`` in ``dtype``;
-    :func:`init_params` draws them. Serving needs no gradients, so none is
-    tracked.
+    :func:`init_params` draws them. They start with ``requires_grad=False``,
+    which serving keeps; the trainer switches gradients on with
+    ``model.requires_grad_(True)``.
     """
 
     def __init__(self, defs: dict[str, WDef], device, dtype):

@@ -1,4 +1,5 @@
-"""Transformer assembly for the LM serving paths: modules, init, forward.
+"""Transformer assembly for the LM paths: modules, init, forward, and the
+training step (loss, global gradient norm, clip, AdamW).
 
 The port's counterpart of :mod:`repro.models.transformer` for TP-mode
 (recurrence) archs on one device: recurrentgemma and rwkv6. A model is an
@@ -19,8 +20,15 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig, check_supported, layer_kinds
+from repro_torch.models.config import (
+    _MISSING,
+    ModelConfig,
+    check_supported,
+    check_trainable,
+    layer_kinds,
+)
 from repro_torch.models.params import Params, init_params
+from repro_torch.optim import AdamWState, adamw_init, adamw_update, warmup_cosine
 
 
 def _slot_defs(cfg: ModelConfig, kind: str) -> dict[str, dict]:
@@ -125,3 +133,73 @@ def forward_hidden(model: LM, tokens, dtype=torch.bfloat16,
     if capture:
         return x, captured
     return x
+
+
+# ---------------------------------------------------------------------------
+# Loss and train step
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(model: LM, batch, dtype=torch.bfloat16):
+    """Mean next-token NLL over ``batch`` ({"tokens", "labels"}, each (B, S)
+    int) and its metrics {"loss", "nll"}: the reference's ``loss_fn`` on one
+    device with ``remat=False`` (untied head, no MoE balance term)."""
+    h = forward_hidden(model, batch["tokens"], dtype)
+    nll_sum, count = L.ce_loss_tp(h, batch["labels"], model.embed, model.cfg)
+    loss = nll_sum / count
+    return loss, {"loss": loss, "nll": loss}
+
+
+def global_grad_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt(Σ over every gradient of Σ g²), float32 (on one device no leaf
+    is replicated, so the reference's replica divisor is 1)."""
+    sq = [torch.linalg.vector_norm(g, dtype=torch.float32).square()
+          for g in grads.values()]
+    return torch.stack(sq).sum().sqrt()
+
+
+def init_opt(model: LM) -> AdamWState:
+    """Zero float32 AdamW moments for every parameter of ``model``."""
+    return adamw_init(dict(model.named_parameters()))
+
+
+def make_train_step(cfg: ModelConfig, dtype=torch.bfloat16,
+                    clip_norm: float = 1.0, peak_lr: float = 3e-4,
+                    warmup_steps: int = 200, remat: bool = False):
+    """``train_step(model, opt, batch) → metrics``: the reference's step on
+    one device. Gradients of :func:`loss_fn` in ``dtype`` (master weights
+    stay in the model's dtype), the global norm clipped to ``clip_norm``
+    (fused into AdamW as a gradient scale), the learning rate from
+    :func:`~repro_torch.optim.warmup_cosine` at the optimizer's step, then
+    AdamW in place on the model and ``opt``. Metrics: loss, nll, grad_norm
+    and lr, as tensors. The model's parameters must require gradients
+    (``model.requires_grad_(True)``)."""
+    if remat:
+        raise NotImplementedError(f"{cfg.name}: {_MISSING['remat']}")
+    check_supported(cfg)
+
+    def train_step(model: LM, opt: AdamWState, batch) -> dict:
+        check_trainable(cfg, model.final_norm.scale.device)
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        with torch.enable_grad():
+            loss, metrics = loss_fn(model, batch, dtype)
+            loss.backward()
+        grads = {}
+        for name, p in params.items():
+            if p.grad is None:
+                raise ValueError(f"parameter {name} got no gradient: call "
+                                 "model.requires_grad_(True) first")
+            grads[name] = p.grad
+        gnorm = global_grad_norm(grads)
+        scale = torch.clamp(clip_norm / (gnorm + 1e-6), max=1.0)
+        lr = warmup_cosine(opt.step, peak_lr=peak_lr,
+                           warmup_steps=warmup_steps)
+        adamw_update(params, grads, opt, lr, grad_scale=scale)
+        for p in params.values():
+            p.grad = None
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return {**metrics, "grad_norm": gnorm, "lr": lr}
+
+    return train_step

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version, the
 exactness contracts of a short chain run on the device, the full-width
-recurrentgemma serving path and the rwkv6 serving path.
+recurrentgemma serving path, the rwkv6 serving path, and the training path
+(the ``FusedCE`` and ``RGLRUScan`` gradients, the reduced trainer).
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without one;
 this file imports no JAX, so it runs on a machine with only PyTorch:
@@ -20,6 +21,8 @@ from repro_torch.kernels.bright_glm import ops as bops
 from repro_torch.kernels.bright_glm.ref import bright_glm_ref
 from repro_torch.kernels.decode_attention import ops as aops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.fused_ce import ops as cops
+from repro_torch.kernels.fused_ce.ref import fused_ce_ref
 from repro_torch.kernels.rglru_scan import ops as rops
 from repro_torch.kernels.rglru_scan.ref import rglru_ref
 from repro_torch.kernels.rwkv6_scan import ops as wops
@@ -27,6 +30,7 @@ from repro_torch.kernels.rwkv6_scan.ref import rwkv6_chunked_ref
 from repro_torch.kernels.z_update import ops as zops
 from repro_torch.kernels.z_update.ref import z_candidates_ref
 from repro_torch.launch.serve import serve
+from repro_torch.launch.train import train_reduced
 from repro_torch.models import transformer as T
 from repro_torch.models.bayes_glm import GLMModel
 
@@ -255,3 +259,99 @@ def test_serve_rwkv_reduced_on_card(dev):
         h = T.forward_hidden(model, prompts, torch.float32)
     assert torch.equal((h[:, -1] @ model.embed.head).argmax(-1).cpu(),
                        ids[:, 0])
+
+
+@pytest.mark.parametrize("t,d,v,dtype", [
+    (64, 128, 512, torch.float32),  # the reduced model's (B·S, d) × vocab
+    (37, 64, 1000, torch.bfloat16),  # ragged token tile and vocab tile
+    (300, 256, 4096, torch.bfloat16),  # 4 vocab splits, 3 token tiles
+    (130, 4096, 256000, torch.bfloat16),  # the full vocab and width
+])
+def test_fused_ce_kernel_matches_plain(dev, t, d, v, dtype):
+    g = torch.Generator().manual_seed(t + v)
+    x = torch.randn(t, d, generator=g).to(dtype).to(dev)
+    w = (torch.randn(d, v, generator=g) / d**0.5).to(dtype).to(dev)
+    lab = torch.randint(0, v, (t,), generator=g)
+    # the vocab's first and last columns and both sides of a split boundary
+    lab[:4] = torch.tensor([0, v - 1, min(1023, v - 1), min(1024, v - 1)])
+    lab = lab.to(dev)
+    before = cops.launch_count
+    lse, tgt = cops.lse_and_target(x, w, lab)
+    torch.cuda.synchronize()
+    assert cops.launch_count == before + 1
+    lse_ref, tgt_ref = fused_ce_ref(x, w, lab)
+    # float32 sums of D products in another order; values O(10)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+    torch.testing.assert_close(tgt, tgt_ref, rtol=0, atol=1e-4)
+
+
+def test_fused_ce_gradient_on_card(dev):
+    """FusedCE's backward on the card against autograd through the plain
+    version, float32, with a chunk boundary inside the tokens."""
+    g = torch.Generator().manual_seed(5)
+    t, d, v = 300, 128, 2048
+    x = torch.randn(t, d, generator=g).to(dev).requires_grad_()
+    w = (torch.randn(d, v, generator=g) / d**0.5).to(dev).requires_grad_()
+    lab = torch.randint(0, v, (t,), generator=g).to(dev)
+    c = torch.rand(t, generator=g).to(dev)
+    (cops.fused_ce(x, w, lab) * c).sum().backward()
+    x2, w2 = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+    lse, tgt = fused_ce_ref(x2, w2, lab)
+    ((lse - tgt) * c).sum().backward()
+    for a, ref in ((x.grad, x2.grad), (w.grad, w2.grad)):
+        torch.testing.assert_close(a, ref, rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("log_a,with_h0", [(-5.25, False), (-1e-6, True)])
+def test_rglru_scan_gradient_on_card(dev, log_a, with_h0):
+    """RGLRUScan's backward launches the same kernel once more; its
+    gradients match autograd through the plain loop."""
+    g = torch.Generator().manual_seed(3)
+    b, s, c = 2, 200, 96
+    la = (log_a * (0.9 + 0.2 * torch.rand(b, s, c, generator=g))).to(dev)
+    bx = torch.randn(b, s, c, generator=g).to(dev)
+    h0 = torch.randn(b, c, generator=g).to(dev) if with_h0 else None
+    gh = torch.randn(b, s, c, generator=g).to(dev)
+    gl = torch.randn(b, c, generator=g).to(dev)
+    ins = [a.clone().requires_grad_() for a in (la, bx)] + (
+        [h0.clone().requires_grad_()] if with_h0 else [])
+    before = rops.launch_count
+    y, hf = rops.rglru_scan(*ins[:2], ins[2] if with_h0 else None)
+    ((y * gh).sum() + (hf * gl).sum()).backward()
+    torch.cuda.synchronize()
+    assert rops.launch_count == before + 2
+    ref_ins = [a.clone().requires_grad_() for a in (la, bx)] + (
+        [h0.clone().requires_grad_()] if with_h0 else [])
+    y2, hf2 = rglru_ref(*ref_ins[:2], ref_ins[2] if with_h0 else None)
+    ((y2 * gh).sum() + (hf2 * gl).sum()).backward()
+    for a, ref in zip(ins, ref_ins):
+        torch.testing.assert_close(a.grad, ref.grad, rtol=1e-5,
+                                   atol=1e-5 * float(ref.grad.abs().max()))
+
+
+def test_kernels_without_backward_raise_under_autograd(dev):
+    r, k, v, lw = (torch.randn(1, 2, 8, 16, device=dev) for _ in range(4))
+    lw = -lw.abs().clamp(1e-6, 1.0)
+    u = torch.randn(2, 16, device=dev)
+    with pytest.raises(NotImplementedError, match="step 4c"):
+        wops.rwkv6_scan(r.requires_grad_(), k, v, lw, u)
+    with torch.no_grad():
+        wops.rwkv6_scan(r, k, v, lw, u)  # no graph: the kernel runs
+    q = torch.randn(1, 4, 64, device=dev, requires_grad=True)
+    kv = torch.randn(1, 16, 1, 64, device=dev)
+    pos = torch.arange(16, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="step 4d"):
+        aops.decode_attention(q, kv, kv, pos, 15)
+
+
+def test_train_reduced_on_card(dev):
+    """The reduced recurrentgemma twin through ``train_reduced`` on the
+    card: one fused_ce launch and 4 RG-LRU layers × (forward + backward)
+    scan launches per step, and a finite loss."""
+    c0, r0 = cops.launch_count, rops.launch_count
+    _, hist = train_reduced("recurrentgemma-9b", steps=2, batch=2, seq=65,
+                            warmup_steps=1, dtype=torch.bfloat16, device=dev)
+    assert cops.launch_count - c0 == 2
+    assert rops.launch_count - r0 == 2 * 4 * 2  # 4 rglru layers in 6
+    assert all(np.isfinite(h["loss"]) for h in hist)
