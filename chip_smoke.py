@@ -68,7 +68,8 @@ each with its kernels (six in all):
    a ragged T = 4095; labels at vocab column 0, V − 1 and both sides of a
    split boundary), ``lse`` and ``tgt`` to 1e-4 absolute, with
    ``F.cross_entropy(x @ w)`` as the library yardstick and the bound at the
-   bf16 tensor-core peak (bf16 inputs) or the f32 CUDA-core peak;
+   bf16 tensor-core peak (bf16 inputs: the TMA-fed ``wgmma`` kernel, its
+   TFLOP/s printed) or the f32 CUDA-core peak (f32 inputs);
 10. checks the backwards on the card: ``FusedCE`` (f32, the path's shape)
    against autograd through the plain version over token chunks, dx and dw
    within 1e-4 of their largest value; ``RGLRUScan`` (B=2, S=2048, C=4096;
@@ -84,9 +85,10 @@ each with its kernels (six in all):
 12. a descent check: 8 ``make_train_step`` steps (warmup 1) on one fixed
    batch at that width; the last loss must be below the first.
 
-Any failure raises (nonzero exit, no result line). The last two lines are the
-``{"kernels": [...]}`` table and ``{"ok": true, "device": {...}}``. Needs one
-CUDA card; imports nothing of JAX.
+Any failure raises (nonzero exit, no result line). The build's ptxas
+registers, shared memory and spills are printed per kernel. The last two
+lines are the ``{"kernels": [...]}`` table and ``{"ok": true, "device":
+{...}}``. Needs one CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -540,7 +542,8 @@ def decode_attention_phase(name, b, h, hk, d, w, t, window, dtype, dev, gen):
     err = max(float((a - r).abs().max()) for a, r in zip(got, want))
     call = lambda: ops.decode_attention(*args)
     ms = median_ms(call)
-    dev_ms = device_ms(call, ("decode_attention_kernel",))
+    dev_ms = device_ms(call, ("decode_attention_split",
+                              "decode_attention_merge"))
     plain = median_ms(lambda: decode_attention_ref(*args))
     # Yardstick: one library call of the same function (GQA, boolean mask).
     valid = (pos >= 0) & (pos <= t)
@@ -555,15 +558,18 @@ def decode_attention_phase(name, b, h, hk, d, w, t, window, dtype, dev, gen):
     lib_ms = median_ms(sdpa)
     n_valid = int(valid.sum())
     g = h // hk
+    split, n_split = ops.plan_splits(b * hk, w, ops.sm_count(dev.index))
     b_ms, b_by = bound(2 * b * n_valid * hk * d * k.element_size()
                        + 2 * b * h * d * 4 + 2 * b * hk * g * 4 + w * 4,
                        4.0 * b * h * n_valid * d)
     log(f"decode_attention[{name}: B={b} H={h} Hk={hk} D={d} W={w} t={t} "
-        f"window={window} {str(dtype)[6:]}] max|Δ|={err:.3g}, call {ms:.4f} ms "
+        f"window={window} {str(dtype)[6:]}; {n_split} splits of {split} "
+        f"slots] max|Δ|={err:.3g}, call {ms:.4f} ms "
         f"(device {dev_ms:.6f} ms), plain {plain:.4f} ms, library (sdpa) "
         f"{lib_ms:.4f} ms (max|Δ| {lib_err:.3g}), bound {b_ms:.6f} ms ({b_by})")
     return {"phase": name, "B": b, "H": h, "Hk": hk, "D": d, "W": w, "t": t,
-            "window": window, "dtype": str(dtype)[6:], "max_abs_err": err,
+            "window": window, "dtype": str(dtype)[6:], "splits": n_split,
+            "split_slots": split, "max_abs_err": err,
             "ms": dev_ms, "call_ms": ms, "plain_ms": plain, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms}
 
@@ -927,7 +933,8 @@ def fused_ce_phase(name, t, d, v, dtype, dev, gen):
               float((tgt - tgt_ref).abs().max()))
     del lse_ref, tgt_ref
     call = lambda: ops.lse_and_target(x, w, lab)
-    dev_ms = device_ms(call, ("ce_tiles_kernel", "ce_merge_kernel"), reps=3)
+    dev_ms = device_ms(call, ("ce_wgmma_kernel", "ce_tiles_kernel",
+                              "ce_merge_kernel"), reps=3)
     ms = median_ms(call, reps=3, warm=1)
     plain = median_ms(lambda: fused_ce_ref(x, w, lab), reps=3, warm=1)
     lib = lambda: F.cross_entropy(x @ w, lab, reduction="none")
@@ -1216,7 +1223,8 @@ def main() -> int:
     build_log = _build.BUILD_DIR / "build.log"
     if build_log.exists():
         for line in build_log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if ("Compiling entry function" in line or "registers" in line
+                    or "spill" in line):
                 log("  ptxas: " + line.strip())
 
     bright, z, mnist = kernel_phases(dev)

@@ -108,8 +108,8 @@ def _declare(lib) -> None:
     lib.z_candidates_launch.restype = i
     ll = ctypes.c_longlong
     lib.decode_attention_launch.argtypes = [
-        p, p, p, p, p, p, p,  # q k v pos out m l
-        i, i, i, i, i,  # B Hk G D W
+        p, p, p, p, p, p, p, p,  # q k v pos part out m l
+        i, i, i, i, i, i, i,  # B Hk G D W split_len n_split
         ll, ll, i, i, p,  # t window has_window kv_bf16 stream
     ]
     lib.decode_attention_launch.restype = i

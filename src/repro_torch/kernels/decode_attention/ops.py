@@ -2,13 +2,17 @@
 
 Entry point of :func:`repro_torch.models.serving._decode_attend`, one call
 per local-attention layer per decode step. A CUDA tensor goes to
-``csrc/decode_attention.cu`` (or the wrapper raises); a CPU tensor goes to
-the plain version in :mod:`.ref`. Serving only: the kernel has no backward,
+``csrc/decode_attention.cu`` (or the wrapper raises): the ring cut into
+splits by :func:`plan_splits`, one CTA per (batch row, KV head, split),
+then a merge in split order; a CPU tensor goes to the plain version in
+:mod:`.ref`. Serving only: the kernel has no backward,
 so on the card the wrapper raises under autograd rather than return an
 untracked result.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -19,8 +23,25 @@ launch_count = 0  # kernel launches through this wrapper (one per call)
 _MAX_G = 32  # kMaxG in csrc/decode_attention.cu
 _MAX_D = 256  # kMaxD
 _MAX_GD = 4096  # kMaxGD: query rows × head dim of one CTA
-_THREADS, _MAX_ACC = 512, 16  # kThreads, kMaxAcc
 _KV_TYPES = (torch.float32, torch.bfloat16)
+MIN_SPLIT = 32  # ring slots a split takes at least
+
+
+def plan_splits(bh: int, w: int, sms: int) -> tuple[int, int]:
+    """(slots per split, number of splits) of a ring of ``w`` slots for
+    ``bh`` = B·Hk (batch row, KV head) pairs: enough splits that the
+    (B·Hk, n_split) grid fills the card's ``sms`` SMs, none shorter than
+    ``MIN_SPLIT`` slots (below that the merge reads more than a split
+    computes). A small ring is one split; the last split may be ragged."""
+    want = -(-sms // bh)
+    split = max(MIN_SPLIT, -(-w // want))
+    return split, -(-w // split)
+
+
+@functools.cache
+def sm_count(index: int | None) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -49,22 +70,25 @@ def _launch(q, k, v, pos, t: int, window: int | None):
     g = h // hk
     _require(0 < d <= _MAX_D and d % 8 == 0,
              f"D={d} must be a multiple of 8 up to {_MAX_D} (16-byte loads)")
-    _require(g <= _MAX_G and g * d <= _MAX_GD
-             and -(-g // (_THREADS // d)) <= _MAX_ACC,
+    _require(g <= _MAX_G and g * d <= _MAX_GD,
              f"G={g} query rows × D={d} exceed the kernel's limits "
              f"(G <= {_MAX_G}, G·D <= {_MAX_GD})")
     _require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
              "k and v must be 16-byte aligned")
     _require(window is None or window > 0, "window must be positive")
     lib = _build.library()
+    split, n_split = plan_splits(b * hk, w, sm_count(dev.index))
+    part = torch.empty(n_split, b, hk, g, d + 2, dtype=torch.float32,
+                       device=dev)
     out = torch.empty(b, h, d, dtype=torch.float32, device=dev)
     m = torch.empty(b, hk, g, dtype=torch.float32, device=dev)
     l = torch.empty(b, hk, g, dtype=torch.float32, device=dev)
     code = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, hk, g, d, w, int(t), int(window or 0), int(window is not None),
-        int(k.dtype == torch.bfloat16), _build.stream_ptr(dev),
+        part.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+        b, hk, g, d, w, split, n_split, int(t), int(window or 0),
+        int(window is not None), int(k.dtype == torch.bfloat16),
+        _build.stream_ptr(dev),
     )
     launch_count += 1
     _build.check(code, "decode_attention")

@@ -3,8 +3,9 @@ and the ``FusedCE`` autograd Function.
 
 Entry point of :func:`repro_torch.models.layers.ce_loss_tp`, one call per
 training step over the flattened (B·S, d) hidden. A CUDA tensor goes to
-``csrc/fused_ce.cu`` (or the wrapper raises); a CPU tensor goes to the plain
-version in :mod:`.ref`.
+``csrc/fused_ce.cu`` (or the wrapper raises): bfloat16 inputs to its
+TMA-fed ``wgmma`` kernel, float32 inputs to its CUDA-core kernel; a CPU
+tensor goes to the plain version in :mod:`.ref`.
 
 The reference defines no VJP for its kernel: the training step's gradient is
 the autodiff of ``ce_loss_tp``'s checkpointed 256-token chunk. ``FusedCE``'s
@@ -24,7 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fused_ce.ref import fused_ce_ref
 
 launch_count = 0  # kernel launches through this wrapper (one per call)
-SPLIT_COLS = 1024  # vocab columns one CTA sweeps (kBV · kTilesPerSplit)
+SPLIT_COLS = 1024  # vocab columns one CTA sweeps (kSplitCols in the .cu)
 BWD_CHUNK = 256  # token chunk of the backward: the reference's CE chunk
 _TYPES = (torch.float32, torch.bfloat16)
 

@@ -70,8 +70,10 @@ def rope(x, positions, theta: float):
     rotation, as the reference)."""
     d = x.shape[-1]
     ar = torch.arange(0, d, 2, dtype=torch.float32, device=x.device)
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=x.device), -ar / d)
+    # torch.full, not torch.tensor: a host scalar copied to the card makes
+    # the host wait for the device (a decode step calls this twice a layer)
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=x.device), -ar / d)
     angles = positions.float()[:, None] * freqs[None, :]
     cos = torch.cos(angles)[None, :, None, :]
     sin = torch.sin(angles)[None, :, None, :]

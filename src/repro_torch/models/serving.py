@@ -91,7 +91,7 @@ def _ring_write(buf, pos_buf, new, t: int, w_total: int):
     place: slot t mod W, and pos[slot] = t."""
     slot = t % w_total
     buf[:, slot] = new[:, 0].to(buf.dtype)
-    pos_buf[slot] = t
+    pos_buf[slot].fill_(t)  # a kernel argument: no host-to-device copy
 
 
 def _decode_attend(q, kbuf, vbuf, pos_buf, t: int, window):

@@ -31,6 +31,7 @@ from repro_torch.kernels.z_update import ops as zops
 from repro_torch.kernels.z_update.ref import z_candidates_ref
 from repro_torch.launch.serve import serve
 from repro_torch.launch.train import train_reduced
+from repro_torch.models import serving as SV
 from repro_torch.models import transformer as T
 from repro_torch.models.bayes_glm import GLMModel
 
@@ -175,6 +176,57 @@ def test_decode_attention_kernel_fully_masked_row(dev):
     torch.testing.assert_close(out, want[0], rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("b,h,hk,d,w,t,window,dtype", [
+    (4, 16, 1, 256, 2048, 1000, 2048, torch.float32),  # whole splits masked
+    (4, 16, 1, 256, 2048, 2400, 2048, torch.float32),  # path, wrapped, f32
+    (2, 8, 2, 128, 1000, 700, 64, torch.float32),  # W not a split multiple
+    (1, 4, 1, 64, 4100, 4000, None, torch.bfloat16),  # 129 splits, ragged
+    (1, 8, 1, 128, 20000, 19990, None, torch.bfloat16),  # 3 tiles a split
+    (4, 16, 1, 256, 2048, 2048 // 2 - 24, 2048, torch.bfloat16),  # partial
+])
+def test_decode_attention_split_kernel_matches_plain(dev, b, h, hk, d, w, t,
+                                                     window, dtype):
+    """The ring split over many CTAs and merged in split order: whole splits
+    masked, a ragged last split, splits longer than one tile, f32 and bf16
+    K/V; against the plain version at 1e-5 (float32 sums in another
+    order), and the same result on a second run."""
+    split, n_split = aops.plan_splits(b * hk, w, aops.sm_count(dev.index))
+    assert n_split > 1
+    g = torch.Generator().manual_seed(w + t + 1)
+    q = torch.randn(b, h, d, generator=g).to(dev)
+    k = torch.randn(b, w, hk, d, generator=g).to(dtype).to(dev)
+    v = torch.randn(b, w, hk, d, generator=g).to(dtype).to(dev)
+    slots = torch.arange(w)
+    pos = slots + torch.div(t - slots, w, rounding_mode="floor") * w
+    pos = torch.where(pos >= 0, pos, -1).to(torch.int32).to(dev)
+    before = aops.launch_count
+    got = aops.decode_attention(q, k, v, pos, t, window)
+    again = aops.decode_attention(q, k, v, pos, t, window)
+    torch.cuda.synchronize()
+    assert aops.launch_count == before + 2
+    want = decode_attention_ref(q, k, v, pos, t, window)
+    for a, a2, r in zip(got, again, want):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+        assert torch.equal(a, a2)
+
+
+def test_decode_attention_split_kernel_fully_masked_row(dev):
+    """An empty ring cut into several splits: m = -1e30, l = W and out the
+    mean of V, as the plain version gives."""
+    w = 300
+    assert aops.plan_splits(2, w, aops.sm_count(dev.index))[1] > 1
+    q = torch.randn(2, 4, 64, device=dev)
+    k = torch.randn(2, w, 1, 64, device=dev).to(torch.bfloat16)
+    v = torch.randn(2, w, 1, 64, device=dev).to(torch.bfloat16)
+    pos = torch.full((w,), -1, dtype=torch.int32, device=dev)
+    out, m, l = aops.decode_attention(q, k, v, pos, 5, None)
+    want = decode_attention_ref(q, k, v, pos, 5, None)
+    assert torch.all(m == -1e30) and torch.all(l == w)
+    torch.testing.assert_close(out, want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        out, v.float().mean(1).expand(2, 4, 64), rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("b,s,c,log_a,with_h0", [
     (2, 64, 96, -1.0, False),
     (3, 37, 130, -0.3, True),
@@ -209,6 +261,34 @@ def test_serve_full_width_on_card(dev):
     assert ids.shape == (4, 2) and bool(((ids >= 0) & (ids < 256000)).all())
     assert stats["prefill_s"] > 0 and stats["decode_s"] > 0
     torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-7b"])
+def test_decode_step_never_waits_on_the_card(dev, arch):
+    """Decode steps of the reduced twin issue their work without making the
+    host wait for the device (no host-to-device copy of a Python scalar, no
+    read-back): under ``set_sync_debug_mode("error")`` a synchronising call
+    raises. The prompt is longer than the reduced window: the ring wraps."""
+    cfg = get_reduced(arch)
+    model = T.init_model(cfg, 0, dev, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prompt, steps = 40, 4
+    prompts = torch.randint(0, cfg.vocab_size, (2, prompt), generator=gen,
+                            device=dev)
+    with torch.inference_mode():
+        cache, h = SV.prefill(model, prompts, prompt + steps,
+                              dtype=torch.bfloat16, kv_dtype=torch.bfloat16)
+        tok = SV.vocab_parallel_argmax((h[:, -1:] @ model.embed.head).float())
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(steps):
+                tok, _, cache = SV.decode_step(model, cache, tok,
+                                               prompt + steps, torch.bfloat16)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert cache["t"] == prompt + steps
+    assert bool(((tok >= 0) & (tok < cfg.vocab_size)).all())
 
 
 @pytest.mark.parametrize("b,h,s,d,chunk,logw,with_s0", [
@@ -281,6 +361,37 @@ def test_fused_ce_kernel_matches_plain(dev, t, d, v, dtype):
     assert cops.launch_count == before + 1
     lse_ref, tgt_ref = fused_ce_ref(x, w, lab)
     # float32 sums of D products in another order; values O(10)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+    torch.testing.assert_close(tgt, tgt_ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("t,d,v", [
+    (1, 64, 1000),  # one token; V not a multiple of the 256-column tile
+    (129, 64, 1000),  # a ragged token tile
+    (37, 200, 1000),  # D not a multiple of the 64-deep stage
+    (129, 4096, 2056),  # two split boundaries, a ragged last tile
+    (4095, 64, 3000),  # the path's ragged T
+    (4095, 4096, 1000),  # the path's ragged T and width
+])
+def test_fused_ce_wgmma_matches_plain(dev, t, d, v):
+    """The bf16 kernel (TMA-fed wgmma) at ragged T, V and D, with labels at
+    the vocab's ends, at 256-column tile edges and at 1024-column split
+    edges; lse and tgt against the plain version at 1e-4 (float32 sums of
+    D products in another order; values O(10))."""
+    g = torch.Generator().manual_seed(t * 7 + d + v)
+    x = torch.randn(t, d, generator=g).to(torch.bfloat16).to(dev)
+    w = (torch.randn(d, v, generator=g) / d**0.5).to(torch.bfloat16).to(dev)
+    lab = torch.randint(0, v, (t,), generator=g)
+    edges = [0, v - 1, 255, 256, 511, 512, 1023, 1024, 2047, 2048]
+    edges = [e for e in edges if e < v][:t]
+    lab[:len(edges)] = torch.tensor(edges)
+    lab = lab.to(dev)
+    before = cops.launch_count
+    lse, tgt = cops.lse_and_target(x, w, lab)
+    torch.cuda.synchronize()
+    assert cops.launch_count == before + 1
+    lse_ref, tgt_ref = fused_ce_ref(x, w, lab)
+    assert torch.isfinite(lse).all() and torch.isfinite(tgt).all()
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
     torch.testing.assert_close(tgt, tgt_ref, rtol=0, atol=1e-4)
 

@@ -2,8 +2,11 @@
 against the JAX reference ``decode_attention_ref`` and the JAX Pallas kernel
 ``decode_attention`` (interpret mode on the CPU), on the shapes of
 ``tests/test_kernels.py::test_decode_attention``, the ring-wraparound case and
-the serving path's head layout (D=256, MQA, window 2048). The CUDA kernel is
-held against the plain version on the card (``test_torch_cuda.py``)."""
+the serving path's head layout (D=256, MQA, window 2048); the split-and-merge
+plan the CUDA kernel runs (per-split partials merged in split order) against
+the whole reference and the JAX one; the wrapper's split planner. The CUDA
+kernel is held against the plain version on the card
+(``test_torch_cuda.py``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,11 +16,16 @@ import torch
 from repro.kernels.decode_attention.ops import decode_attention as jax_kernel
 from repro.kernels.decode_attention.ref import decode_attention_ref as jax_ref
 from repro_torch.kernels.decode_attention import ops
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref,
+    split_merge_ref,
+    split_partials_ref,
+)
 
 # Tolerances of the JAX kernel test: f32 2e-5; bf16 inputs 2e-2 (both sides
 # upcast the same bf16 values, so the gap is f32 summation order).
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+H100_SMS = 132  # the wrapper reads the SM count off the card it launches on
 
 
 def _inputs(b, h, hk, d, w, seed):
@@ -105,3 +113,74 @@ def test_wrapper_runs_plain_version_on_cpu():
     assert ops.launch_count == before  # the kernel only runs on the card
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
+
+
+def _ring(w, t, empty_from=None):
+    """Ring positions after writing 0..t (slot s holds the largest p <= t
+    with p = s mod W, or -1); slots from ``empty_from`` on are empty."""
+    slots = np.arange(w)
+    pos = slots + ((t - slots) // w) * w
+    pos = np.where(pos >= 0, pos, -1)
+    if empty_from is not None:
+        pos[empty_from:] = -1
+    return pos.astype(np.int32)
+
+
+# (b, h, hk, d, w, t, window, empty_from): a ragged ring; whole splits masked
+# on both sides of a 16-slot window in a partly filled ring; the serving
+# path's head layout over a wrapped ring; an empty ring (fully masked rows).
+SPLIT_CASES = {
+    "ragged": (2, 8, 2, 64, 100, 90, None, None),
+    "masked-splits": (1, 4, 1, 32, 130, 40, 16, None),
+    "serving-layout": (1, 16, 1, 256, 256, 5000, 2048, None),
+    "fully-masked": (2, 4, 2, 32, 45, 7, None, 0),
+}
+
+
+@pytest.mark.parametrize("split_len", [1, 7, 64, "W", "plan"])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_merge_matches_whole_and_jax(case, split_len):
+    """The ring cut into splits of 1, 7, 64, W slots (and the wrapper's
+    plan), each split's (m_j, l_j, acc_j) merged in split order, equals the
+    whole plain reference and the JAX reference. Float32 sums of the same
+    terms in another order, values O(1): 1e-5 against the plain version,
+    2e-5 (the JAX kernel test's float32 tolerance) against JAX."""
+    b, h, hk, d, w, t, window, empty_from = SPLIT_CASES[case]
+    q, k, v = _inputs(b, h, hk, d, w, seed=w + t)
+    pos = _ring(w, t, empty_from)
+    plan = ops.plan_splits(b * hk, w, H100_SMS)[0]
+    n = {"W": w, "plan": plan}.get(split_len, split_len)
+    tq, tk, tv, tpos = (torch.from_numpy(a) for a in (q, k, v, pos))
+    m_j, l_j, acc_j = split_partials_ref(tq, tk, tv, tpos, t, window, n)
+    assert m_j.shape[0] == -(-w // n)
+    got = split_merge_ref(m_j, l_j, acc_j)
+    whole = decode_attention_ref(tq, tk, tv, tpos, t, window)
+    for g_, w_ in zip(got, whole):
+        torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-5)
+    _check(got, jax_ref(*(jnp.asarray(a) for a in (q, k, v, pos)), t,
+                        window=window), 2e-5)
+    if empty_from == 0:  # every row fully masked: m = -1e30, weights 1
+        assert torch.all(got[1] == -1e30) and torch.all(got[2] == w)
+        assert torch.all(l_j == torch.tensor(
+            [min(n, w - s0) for s0 in range(0, w, n)])[:, None, None, None])
+    if case == "masked-splits" and n == 7:
+        # whole splits masked on both sides of the window (t - 16, t]
+        assert torch.all(m_j[:3] == -1e30) and torch.all(m_j[6:] == -1e30)
+        assert torch.all(m_j[3:6] > -1e30)
+
+
+def test_plan_splits_fills_the_card():
+    """At the serving shape (B·Hk = 4, W = 2048) the grid has at least one
+    CTA per SM, every slot lies in exactly one split, and the last split is
+    ragged; a small ring is one split; no split is shorter than
+    MIN_SPLIT slots."""
+    split, n = ops.plan_splits(4, 2048, H100_SMS)
+    assert 4 * n >= H100_SMS
+    assert split * (n - 1) < 2048 <= split * n
+    assert 2048 % split != 0
+    assert ops.plan_splits(4, 20, H100_SMS) == (ops.MIN_SPLIT, 1)
+    assert ops.plan_splits(1, ops.MIN_SPLIT, H100_SMS) == (ops.MIN_SPLIT, 1)
+    for bh, w in [(1, 100_000), (64, 2048), (2, 70), (132, 4096)]:
+        split, n = ops.plan_splits(bh, w, H100_SMS)
+        assert split >= ops.MIN_SPLIT and split * (n - 1) < w <= split * n
+        assert bh * n >= H100_SMS or split == ops.MIN_SPLIT or n == 1
