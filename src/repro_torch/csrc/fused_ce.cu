@@ -7,6 +7,9 @@
 // float32 products of the inputs' values (a bfloat16 input is exact in
 // float32), an online logsumexp over the vocabulary, and the logit at the
 // label (0 for a label outside [0, V), as the TPU kernel gives).
+// For bfloat16 inputs a second mode (round_logits) rounds each float32
+// logit to bfloat16 and back before the max, the sum and the target pick:
+// the logits of the model's bf16 loss, whose x·W is a bf16 dot.
 //
 // What bounds it on an H100: operations. 2·T·D·V flops (8.59 TFLOP at the
 // training path's T = 4096, D = 4096, V = 256,000) against x + W + out bytes
@@ -59,6 +62,7 @@
 // and passed by value as __grid_constant__ parameters.
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -340,6 +344,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+template <bool kRoundLogits>
 __global__ void __launch_bounds__(kWgThreads, 1) ce_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_x,  // (T, D) bf16, box 128 × 64
     const __grid_constant__ CUtensorMap tm_w,  // (D, V) bf16, box 64 × 64
@@ -444,7 +449,14 @@ __global__ void __launch_bounds__(kWgThreads, 1) ce_wgmma_kernel(
       if (tid == 0) mbar_arrive(empty0 + 8 * prev);
 
       // Epilogue: register d[4j + 2i + c] is row r0 + 8i, column
-      // v0 + 8j + 2·quad + c.
+      // v0 + 8j + 2·quad + c. In the rounding mode each logit is first
+      // rounded to bfloat16 (to nearest even, as a bf16 dot's output is)
+      // and back, so the max, the exp-sum and the target all see it.
+      if (kRoundLogits) {
+#pragma unroll
+        for (int i = 0; i < 128; ++i)
+          d[i] = __bfloat162float(__float2bfloat16_rn(d[i]));
+      }
       const bool ragged = v0 + kWV > V;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -556,14 +568,15 @@ bool encode_bf16(CUtensorMap* map, const void* ptr, int rows, int cols,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <bool kRoundLogits>
 cudaError_t launch_wgmma(const void* x, const void* w, const int* lab,
                          float* part, int T, int D, int V, int n_split,
                          cudaStream_t s) {
   static bool configured = false;  // opt in to > 48 KB of shared memory once
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        ce_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kWgmmaSmem);
+        ce_wgmma_kernel<kRoundLogits>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kWgmmaSmem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
@@ -572,8 +585,8 @@ cudaError_t launch_wgmma(const void* x, const void* w, const int* lab,
       !encode_bf16(&tm_w, w, D, V, kWK, kBoxV))
     return cudaErrorInvalidValue;
   const dim3 grid((T + kBT - 1) / kBT, n_split);
-  ce_wgmma_kernel<<<grid, kWgThreads, kWgmmaSmem, s>>>(tm_x, tm_w, lab, part,
-                                                       T, D, V, n_split);
+  ce_wgmma_kernel<kRoundLogits><<<grid, kWgThreads, kWgmmaSmem, s>>>(
+      tm_x, tm_w, lab, part, T, D, V, n_split);
   return cudaGetLastError();
 }
 
@@ -581,8 +594,10 @@ cudaError_t launch_wgmma(const void* x, const void* w, const int* lab,
 
 extern "C" int fused_ce_launch(const void* x, const void* w, const void* labels,
                                void* part, void* lse, void* tgt, int T, int D,
-                               int V, int is_bf16, void* stream) {
-  if (T <= 0 || D <= 0 || V <= 0 || D % 8 != 0 || V % 8 != 0)
+                               int V, int is_bf16, int round_logits,
+                               void* stream) {
+  if (T <= 0 || D <= 0 || V <= 0 || D % 8 != 0 || V % 8 != 0 ||
+      (round_logits && !is_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_split = (V + kSplitCols - 1) / kSplitCols;
   if (n_split > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -591,7 +606,8 @@ extern "C" int fused_ce_launch(const void* x, const void* w, const void* labels,
   auto* p = static_cast<float*>(part);
   cudaError_t err;
   if (is_bf16) {
-    err = launch_wgmma(x, w, lab, p, T, D, V, n_split, s);
+    err = round_logits ? launch_wgmma<true>(x, w, lab, p, T, D, V, n_split, s)
+                       : launch_wgmma<false>(x, w, lab, p, T, D, V, n_split, s);
   } else {
     ce_tiles_kernel<<<dim3((T + kBT - 1) / kBT, n_split), kThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), lab, p, T,

@@ -126,7 +126,7 @@ def _declare(lib) -> None:
     lib.rwkv6_scan_launch.restype = i
     lib.fused_ce_launch.argtypes = [
         p, p, p, p, p, p,  # x w labels part lse tgt
-        i, i, i, i, p,  # T D V is_bf16 stream
+        i, i, i, i, i, p,  # T D V is_bf16 round_logits stream
     ]
     lib.fused_ce_launch.restype = i
     lib.kernels_error_string.argtypes = [i]

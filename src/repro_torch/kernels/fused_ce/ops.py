@@ -5,7 +5,10 @@ Entry point of :func:`repro_torch.models.layers.ce_loss_tp`, one call per
 training step over the flattened (B·S, d) hidden. A CUDA tensor goes to
 ``csrc/fused_ce.cu`` (or the wrapper raises): bfloat16 inputs to its
 TMA-fed ``wgmma`` kernel, float32 inputs to its CUDA-core kernel; a CPU
-tensor goes to the plain version in :mod:`.ref`.
+tensor goes to the plain version in :mod:`.ref`. ``round_logits`` (bfloat16
+inputs only) rounds each logit to bfloat16 before the softmax, as the
+reference's bf16 ``ce_loss_tp`` does; without it the logits are the float32
+products that the TPU kernel forms.
 
 The reference defines no VJP for its kernel: the training step's gradient is
 the autodiff of ``ce_loss_tp``'s checkpointed 256-token chunk. ``FusedCE``'s
@@ -35,7 +38,7 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"fused_ce: {msg}")
 
 
-def _launch(x, w, labels):
+def _launch(x, w, labels, round_logits):
     global launch_count
     t, d = x.shape
     v = w.shape[1]
@@ -62,20 +65,25 @@ def _launch(x, w, labels):
     code = lib.fused_ce_launch(
         x.data_ptr(), w.data_ptr(), lab.data_ptr(), part.data_ptr(),
         lse.data_ptr(), tgt.data_ptr(), t, d, v,
-        int(x.dtype == torch.bfloat16), _build.stream_ptr(dev),
+        int(x.dtype == torch.bfloat16), int(round_logits),
+        _build.stream_ptr(dev),
     )
     launch_count += 1
     _build.check(code, "fused_ce")
     return lse, tgt
 
 
-def lse_and_target(x, w, labels):
+def lse_and_target(x, w, labels, round_logits: bool = False):
     """Per-token ``logsumexp(x·w)`` and ``(x·w)[label]`` without the (T, V)
     logits in memory.
 
     x (T, D) and w (D, V) float32 or bfloat16 (one dtype; on the card D and
     V multiples of 8); labels (T,) integers in [0, V) (a label outside gives
-    a target logit of 0, as the TPU kernel does). Products are float32.
+    a target logit of 0, as the TPU kernel does). Products are float32;
+    ``round_logits`` (bfloat16 inputs only) rounds each to bfloat16 first,
+    as the reference's loss does (``layers.ce_loss_tp`` sets it in
+    bfloat16). Without it, bfloat16 inputs give ``fused_ce_pallas``'s
+    function, kept for parity with the TPU kernel.
     Returns (lse (T,), tgt (T,)) float32.
     """
     _require(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0],
@@ -83,10 +91,12 @@ def lse_and_target(x, w, labels):
              f"{tuple(w.shape)}")
     _require(labels.shape == (x.shape[0],) and not labels.is_floating_point(),
              f"labels must be ({x.shape[0]},) integers")
+    _require(not round_logits or x.dtype == torch.bfloat16,
+             f"round_logits needs bfloat16 inputs, got {x.dtype}")
     if x.is_cuda:
-        return _launch(x, w, labels)
+        return _launch(x, w, labels, round_logits)
     if x.device.type == "cpu":
-        return fused_ce_ref(x, w, labels)
+        return fused_ce_ref(x, w, labels, round_logits)
     raise ValueError(f"fused_ce: unsupported device {x.device}")
 
 
@@ -121,8 +131,8 @@ class FusedCE(torch.autograd.Function):
     chunked VJP as its backward. Differentiable in x and w."""
 
     @staticmethod
-    def forward(ctx, x, w, labels):
-        lse, tgt = lse_and_target(x, w, labels)
+    def forward(ctx, x, w, labels, round_logits):
+        lse, tgt = lse_and_target(x, w, labels, round_logits)
         ctx.save_for_backward(x, w, labels)
         return lse - tgt
 
@@ -131,10 +141,12 @@ class FusedCE(torch.autograd.Function):
         x, w, labels = ctx.saved_tensors
         need_x, need_w = ctx.needs_input_grad[:2]
         dx, dw = ce_backward(x, w, labels, g, need_x, need_w)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
-def fused_ce(x, w, labels):
+def fused_ce(x, w, labels, round_logits: bool = False):
     """Per-token NLL (T,) float32 = logsumexp(x·w) − (x·w)[label], the
-    reference's ``ops.fused_ce``; differentiable in x and w."""
-    return FusedCE.apply(x, w, labels)
+    reference's ``ops.fused_ce``; differentiable in x and w. With
+    ``round_logits`` (bfloat16) the forward takes the bf16 logits whose
+    gradient the backward returns."""
+    return FusedCE.apply(x, w, labels, round_logits)

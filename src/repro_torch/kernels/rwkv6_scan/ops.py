@@ -86,7 +86,7 @@ def rwkv6_scan(r, k, v, logw, u, state0=None, chunk: int = 64):
             for a in (r, k, v, logw, u, state0)):
         raise NotImplementedError(
             "rwkv6_scan: the CUDA kernel has no backward (ROADMAP queue 1 "
-            "item 15, step 4c: a WKV6 backward for rwkv6 training)")
+            "item 9b: a WKV6 backward for rwkv6 training)")
     if r.is_cuda:
         return _launch(r, k, v, logw, u, state0, c)
     return rwkv6_chunked_ref(r, k, v, logw, u, state0, c)

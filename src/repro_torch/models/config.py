@@ -117,21 +117,19 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     return dataclasses.replace(cfg, **small)
 
 
-# What the port lacks, by the ROADMAP item (queue 1, item 15) that adds it.
+# What the port lacks, by the ROADMAP item (queue 1) that adds it.
 _MISSING = {
-    "sp": "sequence-parallel attention configs (ROADMAP queue 1 item 15, "
-          "step 2: dense/SP attention on the decode kernel)",
-    "moe": "MoE blocks (ROADMAP queue 1 item 15, step 3: MoE, encdec and VLM)",
-    "encdec": "encoder-decoder models (ROADMAP queue 1 item 15, step 3: MoE, "
-              "encdec and VLM)",
-    "vlm": "VLM frontends (ROADMAP queue 1 item 15, step 3: MoE, encdec and "
-           "VLM)",
-    "remat": "remat through torch.utils.checkpoint (ROADMAP queue 1 item 15, "
-             "step 4a)",
-    "ckpt": "checkpointing the training state (ROADMAP queue 1 item 15, "
-            "step 4b, with queue 1 item 12)",
+    "sp": "sequence-parallel attention configs (ROADMAP queue 1 item 9a: "
+          "dense/SP attention on the decode kernel)",
+    "moe": "MoE blocks (ROADMAP queue 1 item 9e: MoE, encdec and VLM)",
+    "encdec": "encoder-decoder models (ROADMAP queue 1 item 9e: MoE, encdec "
+              "and VLM)",
+    "vlm": "VLM frontends (ROADMAP queue 1 item 9e: MoE, encdec and VLM)",
+    "remat": "remat through torch.utils.checkpoint (ROADMAP queue 1 item 9c)",
+    "ckpt": "checkpointing the training state (ROADMAP queue 1 item 6, with "
+            "the serving stack's checkpointer)",
     "rwkv_train": "rwkv6 training on the card: a WKV6 backward (ROADMAP "
-                  "queue 1 item 15, step 4c)",
+                  "queue 1 item 9b)",
 }
 
 

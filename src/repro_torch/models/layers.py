@@ -23,6 +23,7 @@ reference's model path computes them in jnp over 256-token chunks.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -38,9 +39,40 @@ _NEG = -1e30
 _I32_MAX = 2**31 - 1
 
 
+@functools.cache
+def _gelu_consts(dtype):
+    """The reference's constants 0.044715 and √(2/π), rounded to ``dtype``
+    as ``jax.nn.gelu`` rounds them."""
+    return (float(torch.tensor(0.044715, dtype=dtype)),
+            float(torch.tensor(math.sqrt(2 / math.pi), dtype=dtype)))
+
+
+class _Gelu(torch.autograd.Function):
+    """``jax.nn.gelu`` (the tanh approximation, layers.py:303, :756) as the
+    reference writes it: one op at a time in the input's dtype, so in
+    bfloat16 every intermediate is rounded to bfloat16 where the
+    reference's is. ``F.gelu`` keeps them in float32 and rounds once, which
+    moves about 40% of the bf16 outputs by an ulp. The backward is the
+    reference's VJP of the same ops, in the same order and dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        c1, c2 = _gelu_consts(x.dtype)
+        t = torch.tanh(c2 * (x + c1 * (x * x * x)))
+        ctx.save_for_backward(x, t)
+        return x * (0.5 * (1.0 + t))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, t = ctx.saved_tensors
+        c1, c2 = _gelu_consts(x.dtype)
+        p = (0.5 * (x * g)) * (1.0 - t)
+        s = c2 * (p + p * t)
+        return (g * (0.5 * (1.0 + t)) + s) + (c1 * s) * (3.0 * (x * x))
+
+
 def _gelu(x):
-    # jax.nn.gelu defaults to the tanh approximation (layers.py:303, :756).
-    return F.gelu(x, approximate="tanh")
+    return _Gelu.apply(x)
 
 
 # ---------------------------------------------------------------------------
@@ -397,8 +429,11 @@ def ce_loss_tp(x, labels, w: Params, cfg: ModelConfig):
     Returns (Σ per-token NLL (float32 scalar), token count), the
     reference's pair. One :func:`~repro_torch.kernels.fused_ce.ops.fused_ce`
     call over the flattened (B·S, d) hidden against the head cast to the
-    compute dtype; its backward takes the reference's 256-token chunks."""
+    compute dtype; its backward takes the reference's 256-token chunks. In
+    bfloat16 the logits are rounded to bfloat16 before the softmax, as the
+    reference's ``(xi @ head).astype(float32)`` of a bf16 dot does."""
     b, s, d = x.shape
     head = w.head.to(x.dtype)
-    nll = ce_ops.fused_ce(x.reshape(b * s, d), head, labels.reshape(b * s))
+    nll = ce_ops.fused_ce(x.reshape(b * s, d), head, labels.reshape(b * s),
+                          round_logits=x.dtype == torch.bfloat16)
     return nll.sum(), b * s

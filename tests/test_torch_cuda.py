@@ -299,6 +299,8 @@ def test_decode_step_never_waits_on_the_card(dev, arch):
     (4, 64, 32, 64, 64, None, True),  # S = 32: c = 32
     (1, 4, 128, 64, 64, -1.0, True),  # edge decay: e^{±64}
     (4, 64, 512, 64, 64, None, True),  # the serving path's time chunk
+    (2, 4, 448, 64, 64, None, True),  # 7 chunks: S carried across sweeps
+    (2, 3, 40, 5, 8, None, True),  # D % 4 != 0: 4-byte staging, c = 8
 ])
 def test_rwkv6_scan_kernel_matches_plain(dev, b, h, s, d, chunk, logw,
                                          with_s0):
@@ -315,8 +317,9 @@ def test_rwkv6_scan_kernel_matches_plain(dev, b, h, s, d, chunk, logw,
     assert wops.launch_count == before + 1
     y_ref, st_ref = rwkv6_chunked_ref(r, k, v, lw, u, s0, chunk)
     assert torch.isfinite(y).all() and torch.isfinite(st).all()
-    # float32 sums in another order, scaled by e^{±cumsum logw}: 1e-5
-    # relative, plus 1e-5 of the largest value for entries near zero
+    # 3xTF32 products and float32 sums in another order, scaled by
+    # e^{±cumsum logw}: 1e-5 relative, plus 1e-5 of the largest value for
+    # entries near zero
     for a, ref in ((y, y_ref), (st, st_ref)):
         torch.testing.assert_close(a, ref, rtol=1e-5,
                                    atol=1e-5 * float(ref.abs().max()))
@@ -396,6 +399,41 @@ def test_fused_ce_wgmma_matches_plain(dev, t, d, v):
     torch.testing.assert_close(tgt, tgt_ref, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("t,d,v", [
+    (129, 64, 1000),  # a ragged token tile
+    (37, 200, 1000),  # D not a multiple of the 64-deep stage
+    (4095, 4096, 1000),  # the path's ragged T and width
+])
+def test_fused_ce_round_logits_matches_plain(dev, t, d, v):
+    """The bf16 kernel's rounding mode (each logit rounded to bf16 before
+    the softmax: the model's bf16 loss) against the plain version at ragged
+    T. lse and tgt within 1e-4 on at least 99% of the tokens, and within
+    1e-4 plus one bf16 ulp of the largest |logit| on every token: the two
+    float32 sums may round a logit to neighbouring bf16 values. The mode
+    reaches the kernel: its tgt differs from the float32-products mode's."""
+    g = torch.Generator().manual_seed(t * 11 + d + v)
+    x = torch.randn(t, d, generator=g).to(torch.bfloat16).to(dev)
+    w = (torch.randn(d, v, generator=g) / d**0.5).to(torch.bfloat16).to(dev)
+    lab = torch.randint(0, v, (t,), generator=g)
+    edges = [0, v - 1, 255, 256, 511, 512]
+    lab[:len(edges)] = torch.tensor(edges)
+    lab = lab.to(dev)
+    before = cops.launch_count
+    lse, tgt = cops.lse_and_target(x, w, lab, round_logits=True)
+    torch.cuda.synchronize()
+    assert cops.launch_count == before + 1
+    lse_ref, tgt_ref = fused_ce_ref(x, w, lab, round_logits=True)
+    top = float((x.float() @ w.float()).abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    for a, ref in ((lse, lse_ref), (tgt, tgt_ref)):
+        assert torch.isfinite(a).all()
+        err = (a - ref).abs()
+        assert float((err > 1e-4).float().mean()) <= 0.01
+        assert float(err.max()) <= 1e-4 + ulp
+    _, tgt_products = cops.lse_and_target(x, w, lab)
+    assert float(((tgt - tgt_products).abs() > 1e-4).float().mean()) > 0.5
+
+
 def test_fused_ce_gradient_on_card(dev):
     """FusedCE's backward on the card against autograd through the plain
     version, float32, with a chunk boundary inside the tokens."""
@@ -445,7 +483,7 @@ def test_kernels_without_backward_raise_under_autograd(dev):
     r, k, v, lw = (torch.randn(1, 2, 8, 16, device=dev) for _ in range(4))
     lw = -lw.abs().clamp(1e-6, 1.0)
     u = torch.randn(2, 16, device=dev)
-    with pytest.raises(NotImplementedError, match="step 4c"):
+    with pytest.raises(NotImplementedError, match="item 9b"):
         wops.rwkv6_scan(r.requires_grad_(), k, v, lw, u)
     with torch.no_grad():
         wops.rwkv6_scan(r, k, v, lw, u)  # no graph: the kernel runs

@@ -204,11 +204,11 @@ def test_unsupported_training_raises():
     and checkpointing wait: each raises NotImplementedError naming its
     ROADMAP item. The card's guard is checked without a card."""
     rwkv = get_reduced("rwkv6-7b")
-    with pytest.raises(NotImplementedError, match="step 4c"):
+    with pytest.raises(NotImplementedError, match="item 9b"):
         check_trainable(rwkv, torch.device("cuda"))
     check_trainable(rwkv, "cpu")  # the plain WKV differentiates
     check_trainable(get_reduced(ARCH), "cuda")
-    with pytest.raises(NotImplementedError, match="step 4a"):
+    with pytest.raises(NotImplementedError, match="item 9c"):
         T.make_train_step(get_reduced(ARCH), remat=True)
-    with pytest.raises(NotImplementedError, match="step 4b"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         train_reduced(ARCH, steps=1, device="cpu", ckpt_dir="ckpt")
