@@ -16,7 +16,15 @@ each with its kernels (six in all):
    FlyMC, at the paper's widths: ``bright_glm`` for the logistic (MNIST 7v9,
    N=12,214, D=51), softmax (CIFAR-3, N=18,000, D=256, 3 classes) and
    Student-t (OPV, N=1.8M, D=57) families, δ and totals to rtol/atol 1e-5;
-   ``z_update`` bitwise at N=12,214 and N=1.8M.
+   ``z_update`` bitwise at N=12,214 and N=1.8M; each one device kernel a
+   call (profiler); ``host`` is the host time a call over 100 back-to-back
+   calls, ``queued`` the device time a call with 100 calls queued back to
+   back behind a spin kernel (kernels and the gaps between them, the host's
+   issue time hidden). ``z_update``'s bound is the larger of its bytes and its
+   hashes, one Threefry-2x32-20 a position in [num, N), counted from the
+   hash's definition and split by pipe (rotations and xors on the ALU pipe,
+   64 lanes an SM; every operation within 128 issued lanes an SM), at the
+   SM clock that ``nvidia-smi`` reports.
    LM serving, at the path's shapes, to rtol/atol 1e-5:
    ``decode_attention`` (B=4, H=16, Hk=1, D=256, W=2048, window 2048, bf16
    K/V; a wrapped and a partly filled ring; one f32 case with G=4, Hk=2,
@@ -30,10 +38,12 @@ each with its kernels (six in all):
 2. drives the FlyMC main path at the MNIST width: ``GLMModel.logistic`` →
    ``map_estimate`` → ``map_tuned`` → ``api.firefly`` (RWMH) → ``api.sample``
    with 2 chains (250 warmup, then 750 samples resumed with streaming
-   collectors), counting kernel launches, and compares it with the
-   ``regular_mcmc`` baseline (queries/iter, R̂, posterior means); then runs
-   the same path at the MNIST N with D = 3 to convergence (split-R̂ < 1.1,
-   posterior means within 4 Monte-Carlo standard errors);
+   collectors), counting kernel launches and printing a digest of the
+   samples, and compares it with the ``regular_mcmc`` baseline
+   (queries/iter, R̂, posterior means); checks under
+   ``set_sync_debug_mode("warn")`` that a step never waits for the card;
+   then runs the same path at the MNIST N with D = 3 to convergence
+   (split-R̂ < 1.1, posterior means within 4 Monte-Carlo standard errors);
 3. runs the gradient path: softmax/MALA at the CIFAR width through the
    bright-GLM ``autograd.Function``;
 4. checks exactness on the card: a run at capacity 64 (overflow re-runs)
@@ -96,6 +106,7 @@ lines are the ``{"kernels": [...]}`` table and ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -213,6 +224,109 @@ def bound(bytes_moved: float, flops: float,
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def host_ms(fn, reps: int = 100) -> float:
+    """Host time per call over ``reps`` back-to-back warm calls, on the host
+    clock: what the caller waits for before its next operation."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
+def queued_ms(fn, reps: int = 100, spin_cycles: int = 40_000_000) -> float:
+    """Device time per call with ``reps`` calls queued back to back behind a
+    spin kernel (~20 ms), so the host's issue time is hidden: the kernels
+    and the gaps between them, as a CUDA graph of the caller would see
+    them."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_kernels(fn, reps: int = 10, tries: int = 5):
+    """The device activities (kernels, copies, memsets) of each of ``reps``
+    warm calls of ``fn``, from one profiler trace a call: a list of names a
+    call. The profiler now and then records nothing for a call; such a call
+    is traced again, up to ``tries`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    calls, empty = [], 0
+    for _ in range(reps):
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            if names:
+                break
+            empty += 1
+        calls.append(names)
+    if empty:
+        log(f"  profiler: {empty} traces of one call recorded nothing")
+    return calls
+
+
+def one_kernel_a_call(phase: dict, kernel: str) -> None:
+    """Raises unless every traced call of the phase ran exactly one device
+    kernel, the one named ``kernel``."""
+    bad = [c for c in phase["device_kernels"]
+           if len(c) != 1 or kernel not in c[0]]
+    if bad:
+        raise AssertionError(f"{phase['phase']}: {len(bad)} of "
+                             f"{len(phase['device_kernels'])} calls ran "
+                             f"{bad[0]}, not one {kernel}")
+
+
+def sm_clocks_per_s() -> float:
+    """SM-clocks a second over the card: its SMs times the maximum SM clock
+    that nvidia-smi reports."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * mhz * 1e6
+
+
+# Integer operations of one Threefry-2x32-20 (Salmon et al. 2011) of which
+# only the first word is kept, as csrc/z_update.cu keeps it. 20 rounds of
+# add, rotate, xor, of which the last rotate and xor feed only the second
+# word; the key injections: the datum word's first add (the counter word's
+# is the same for every datum) and, after every 4 rounds, one add into each
+# word (the last into the second word is dead).
+THREEFRY_ALU_OPS = 19 + 19  # rotations (funnel shifts) and xors
+THREEFRY_OPS = THREEFRY_ALU_OPS + 1 + 20 + 5 + 4  # and the adds
+# Hopper, per SM and clock: 64 lanes of the ALU pipe, which alone runs
+# shifts and logic; 64 of the FMA pipe, which runs an add as an IMAD; 4 warp
+# instructions issued, 128 lanes.
+ALU_LANES, ISSUE_LANES = 64, 128
+
+
+def hash_bound_ms(hashes: int, sm_clocks: float) -> float:
+    """The least time the card takes for ``hashes`` Threefry hashes: the
+    ALU pipe's share, or every operation at the issue rate."""
+    clocks = max(THREEFRY_ALU_OPS / ALU_LANES, THREEFRY_OPS / ISSUE_LANES)
+    return hashes * clocks / sm_clocks * 1e3
+
+
 # ---------------------------------------------------------------------------
 # 1. Kernel phases
 # ---------------------------------------------------------------------------
@@ -246,7 +360,13 @@ def bright_phase(name, family, data, k, c, kc, dev, gen):
     err = float((delta - d_ref).abs().max())
     call = lambda: ops.bright_glm(*args, family=family, **kw)
     ms = median_ms(call)
-    dev_ms = device_ms(call, ("bright_glm_rows", "bright_glm_total"))
+    # The profiles hold only this call's kernels; the prefix names the
+    # kernels of any design of it, so a phase times an earlier tree too.
+    dev_ms = device_ms(call, ("bright_glm",))
+    kernels = device_kernels(call)
+    per_call = sum(map(len, kernels)) / len(kernels)
+    q_ms = queued_ms(call)
+    h_ms = host_ms(call)
     plain = median_ms(lambda: bright_glm_ref(*args, family=family, **kw))
     kt = kc if family == "softmax" else 1
     t_bytes = data.t.element_size()
@@ -254,14 +374,17 @@ def bright_phase(name, family, data, k, c, kc, dev, gen):
     b_ms, b_by = bound(k * c * row_in + k * c * 4 + k * 4 + k * kt * d * 4,
                        2.0 * k * c * d * kt)
     log(f"bright_glm[{name}: N={n} D={d} K={k} C={c}] max|δ-δ_plain|={err:.3g} "
-        f"call {ms:.4f} ms (device {dev_ms} ms), plain {plain:.4f} ms, "
-        f"bound {b_ms:.6f} ms ({b_by})")
+        f"call {ms:.4f} ms (host {h_ms:.4f} ms; device {dev_ms} ms, "
+        f"{per_call} device kernels a call, queued {q_ms:.6f} ms), plain "
+        f"{plain:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
     return {"phase": name, "N": n, "D": d, "K": k, "C": c, "max_abs_err": err,
-            "ms": dev_ms, "call_ms": ms,
+            "ms": dev_ms, "call_ms": ms, "kernels_per_call": per_call,
+            "device_kernels": kernels,
+            "queued_ms": q_ms, "host_ms": h_ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def z_phase(name, n, k, q_db, cap, dev, gen):
+def z_phase(name, n, k, q_db, cap, dev, gen, sm_clocks):
     from repro_torch.kernels.z_update import ops
     from repro_torch.kernels.z_update.ref import z_candidates_ref
 
@@ -276,15 +399,34 @@ def z_phase(name, n, k, q_db, cap, dev, gen):
         raise AssertionError(f"z_update[{name}] differs from its plain version")
     call = lambda: ops.z_candidates(arr, num, kw, q_db, cap)
     ms = median_ms(call)
-    dev_ms = device_ms(call, ("z_tile_counts", "z_scan", "z_scatter"))
+    dev_ms = device_ms(call, ("z_",))  # only this call's kernels, as above
+    kernels = device_kernels(call)
+    per_call = sum(map(len, kernels)) / len(kernels)
+    q_ms = queued_ms(call)
+    h_ms = host_ms(call)
     plain = median_ms(lambda: z_candidates_ref(arr, num, kw, q_db, cap))
-    b_ms, b_by = bound(k * n * 4 + k * cap * 4 + k * 8 * 3 + k * 4, 0.0)
+    # bytes: arr, num and the key words in, cand and count out; operations:
+    # one Threefry a position in [num, N)
+    bytes_moved = k * n * 4 + k * cap * 4 + k * 8 * 3 + k * 4
+    hashed = k * n - int(num.sum())
+    by_bytes = bound(bytes_moved, 0.0)[0]
+    by_ops = hash_bound_ms(hashed, sm_clocks)
+    b_ms, b_by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                                 "operations")
     log(f"z_update[{name}: N={n} K={k} cap={cap} q={q_db}] bitwise equal "
-        f"(count {count.tolist()}), call {ms:.4f} ms (device {dev_ms} ms), "
-        f"plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        f"(count {count.tolist()}), call {ms:.4f} ms (host {h_ms:.4f} ms; "
+        f"device {dev_ms} ms, "
+        f"{per_call} device kernels a call, queued {q_ms:.6f} ms), plain "
+        f"{plain:.4f} ms, bound "
+        f"{b_ms:.6f} ms ({b_by}; bytes {by_bytes:.6f} ms, {hashed} hashes "
+        f"{by_ops:.6f} ms)")
     return {"phase": name, "N": n, "K": k, "cap": cap, "max_abs_err": 0.0,
-            "ms": dev_ms, "call_ms": ms,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+            "ms": dev_ms, "call_ms": ms, "kernels_per_call": per_call,
+            "device_kernels": kernels,
+            "queued_ms": q_ms, "host_ms": h_ms, "plain_ms": plain,
+            "bound_ms": b_ms,
+            "bound_by": b_by, "bound_bytes_ms": by_bytes,
+            "bound_ops_ms": by_ops}
 
 
 def kernel_phases(dev):
@@ -304,9 +446,12 @@ def kernel_phases(dev):
                                dev, gen))
     del opv
     torch.cuda.empty_cache()
+    sm_clocks = sm_clocks_per_s()
+    log(f"Threefry bound: {THREEFRY_ALU_OPS} ALU-pipe of {THREEFRY_OPS} "
+        f"integer operations a hash, {sm_clocks / 1e12:.4f} T SM-clocks/s")
     z = [
-        z_phase("mnist", N_MNIST, 2, 0.01, CAPACITY, dev, gen),
-        z_phase("opv", N_OPV, 2, 0.01, N_OPV // 64, dev, gen),
+        z_phase("mnist", N_MNIST, 2, 0.01, CAPACITY, dev, gen, sm_clocks),
+        z_phase("opv", N_OPV, 2, 0.01, N_OPV // 64, dev, gen, sm_clocks),
     ]
     return bright, z, mnist
 
@@ -397,6 +542,8 @@ def _flymc_vs_regular(data, warmup, samples, key0):
         "fly_ms": (t1 - t0) * 1e3 / (warmup + samples),
         "reg_ms": (t3 - t2) * 1e3 / (warmup + samples),
         "capacity": tr.algorithm.spec.capacity,
+        # the chain's samples, to compare runs and trees bitwise
+        "digest": hashlib.sha256(theta.tobytes()).hexdigest()[:16],
     }
 
 
@@ -407,7 +554,8 @@ def _report(name, r, warmup, samples):
         f"{r['rhat_reg']:.4f}; max|Δ posterior mean| {r['dmean']:.4g} "
         f"({r['z']:.2f} MC s.e.); ms/iter flymc {r['fly_ms']:.3f}, regular "
         f"{r['reg_ms']:.3f}; capacity {r['capacity']}; launches "
-        f"{r['launches']} over {r['steps']} steps")
+        f"{r['launches']} over {r['steps']} steps; samples sha256 "
+        f"{r['digest']}")
     if not r["q_fly"] < r["n"] / 10:
         raise AssertionError(f"FlyMC queries/iter {r['q_fly']} not << N")
 
@@ -417,6 +565,49 @@ def main_path(mnist):
     r = _flymc_vs_regular(mnist, WARMUP, SAMPLES, key0=2)
     _report("main path", r, WARMUP, SAMPLES)
     return r["launches"]
+
+
+def step_syncs(mnist):
+    """Four FlyMC steps at the MNIST width (K = 2, RWMH) under
+    ``torch.cuda.set_sync_debug_mode("warn")``: returns the lines that issued
+    an operation making the host wait for the card, with their counts. A
+    step without them can be captured as a graph."""
+    import warnings
+    from collections import Counter
+
+    from repro_torch import api
+    from repro_torch import random as jr
+    from repro_torch.models.bayes_glm import GLMModel
+
+    model = GLMModel.logistic(mnist)
+    tuned = model.map_tuned(model.map_estimate(jr.key(2), steps=200))
+    alg = api.firefly(tuned, kernel="rwmh", capacity=CAPACITY,
+                      cand_capacity=CAPACITY, q_db=0.01, step_size=0.03,
+                      adapt_target="auto", num_warmup=50)
+    k_init, k_steps = jr.split(jr.key(12))
+    state = alg.init(jr.split(k_init, CHAINS),
+                     torch.stack([alg.default_position] * CHAINS))
+    keys = jr.split(k_steps, CHAINS)
+    for _ in range(3):
+        state, _ = alg.step(keys, state)
+        keys = state.rng
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(4):
+                state, _ = alg.step(keys, state)
+                keys = state.rng
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # The sync warning itself, not the notice that the mode is a prototype.
+    sites = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                    if "called a synchronizing CUDA operation"
+                    in str(w.message))
+    log(f"FlyMC steps [MNIST width, {CHAINS} chains, 4 steps]: operations "
+        f"that wait for the card: {dict(sites) or 'none'}")
+    return dict(sites)
 
 
 def convergence_path():
@@ -1266,6 +1457,9 @@ def main() -> int:
     wkv = rwkv_kernel_phases(dev)
     ce, ce_grad, scan_bwd = train_kernel_phases(dev)
     launches = main_path(mnist)
+    waits = step_syncs(mnist)
+    if waits:
+        raise AssertionError(f"the FlyMC step waits for the card: {waits}")
     convergence_path()
     gradient_path()
     exactness(mnist)
@@ -1284,6 +1478,10 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    for p in bright + z:
+        one_kernel_a_call(p, "bright_glm_kernel" if p in bright
+                          else "z_candidates_kernel")
+        del p["device_kernels"]  # checked; too long for the kernels line
     main_b = next(p for p in bright if p["phase"] == "logistic")
     main_z = next(p for p in z if p["phase"] == "mnist")
     table = {"kernels": [

@@ -159,8 +159,10 @@ def _fused_z_update(spec, data, key, theta, bright, delta_full, delta_bright):
     (bright_new, delta_full, queries (K,), overflow (K,))."""
     n = data.x.shape[0]
     kw = key_words_of(key)
-    log_q = torch.log(torch.tensor(spec.q_db, dtype=delta_full.dtype,
-                                   device=delta_full.device))
+    # torch.full, not torch.tensor: a host scalar copied to the card would
+    # make the step wait on the stream.
+    log_q = torch.log(torch.full((), spec.q_db, dtype=delta_full.dtype,
+                                 device=delta_full.device))
 
     # --- bright → dark (free: cached δ + O(C) counter uniforms) ------------
     idx_b, mask_b = brightness.bright_buffer(bright, spec.capacity)

@@ -10,11 +10,11 @@
 // because δ feeds accept decisions) and the per-chain total
 // Σ_{c < n_bright[k]} log_expm1(δ).
 //
-// What bounds it on an H100: bytes. Per slot it reads one index, one row of
-// D floats, t and ξ, and writes one δ: K·C·(4 + 4D + 8) bytes in and K·C·4
-// out, a few microseconds at most over 3.35 TB/s at C = 512. At the main
-// path's sizes the kernel is far below that, so launch latency is its real
-// floor. The design follows:
+// What bounds it on an H100: per slot it reads one index, one row of D
+// floats, t and ξ, and writes one δ — K·C·(4D + 12) bytes, under 0.1 µs over
+// 3.35 TB/s at the main path's C = 512 and D = 51 — and does 2·D·Kt flops.
+// Neither comes near the cost of a launch, so at the main path's sizes the
+// kernel's floor is launch latency, and the design spends one launch a call:
 //   * one block per (chain, tile of BR = 8 rows), one warp per row; lanes
 //     stride over D so each row load is contiguous across the warp, and the
 //     dot products reduce with warp shuffles (a fixed butterfly order);
@@ -23,11 +23,20 @@
 //     candidate buffer's sentinel N would otherwise read past x;
 //   * the TPU kernel's running total over a sequential grid has no GPU
 //     counterpart, and float atomics would make the sum depend on block
-//     order. Each block writes its partial (its BR rows summed in row order)
-//     and a second tiny launch sums the partials of each chain in block
-//     order. With BR fixed, valid rows always fall into the same blocks and
-//     padded rows add exactly +0.0, so the total — and the chain — is bitwise
-//     independent of the buffer capacity and of the number of chains.
+//     order. Each block writes its partial (its BR rows summed in row order),
+//     fences, and takes a ticket from its chain's arrival counter (an integer
+//     atomic). The block that draws the chain's last ticket sums the chain's
+//     partials in block order and writes the total, in the same launch. With
+//     BR fixed, valid rows always fall into the same blocks and padded rows
+//     add exactly +0.0, so the total — and the chain — is bitwise independent
+//     of the buffer capacity, of the number of chains and of the order in
+//     which blocks run;
+//   * the arrival counters are a persistent int32 workspace (one per chain,
+//     zeroed once by the wrapper). The last block resets its chain's counter
+//     to 0, so the workspace is clean for the next call without a memset
+//     launch. Calls on one stream run one after another and may share a
+//     workspace; two calls in flight at once on one workspace (two streams,
+//     or two host threads, sharing it) are not supported.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,42 +114,57 @@ __device__ float softmax_delta(const float* eta, const float* eta0, int t,
 }
 
 // grid (ceil(C / BR), K), block BR warps; dynamic shared memory Kt·D floats.
-__global__ void bright_glm_rows(const float* __restrict__ x,
-                                const void* __restrict__ t,
-                                const float* __restrict__ xi,
-                                const int32_t* __restrict__ idx,
-                                int64_t idx_stride,
-                                const int64_t* __restrict__ n_bright,
-                                const float* __restrict__ theta,
-                                float* __restrict__ delta,
-                                float* __restrict__ partials, int C, int N,
-                                int D, int kt, int family, float nu,
-                                float sigma, float h) {
+__global__ void __launch_bounds__(kBlockRows * 32)
+bright_glm_kernel(const float* __restrict__ x, const void* __restrict__ t,
+                  const float* __restrict__ xi,
+                  const int32_t* __restrict__ idx, int64_t idx_stride,
+                  const int64_t* __restrict__ n_bright,
+                  const float* __restrict__ theta, float* __restrict__ delta,
+                  float* __restrict__ partials, float* __restrict__ total,
+                  unsigned int* __restrict__ arrivals, int C, int N, int D,
+                  int kt, int family, float nu, float sigma, float h) {
   extern __shared__ float th[];
   __shared__ float contrib[kBlockRows];
+  __shared__ bool last;
   const int k = blockIdx.y;
   const int tile = blockIdx.x;
+  const int nblk = gridDim.x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
+  // The loads that do not wait on θ go first, so their latencies overlap
+  // the staging of θ: this row's index, the chain's bright count, then the
+  // row's t and ξ for lane 0.
+  const int c = tile * kBlockRows + warp;
+  const bool valid = c < C;
+  int r = 0;
+  if (valid) r = min(max(idx[(int64_t)k * idx_stride + c], 0), N - 1);
+  const int64_t nb = n_bright[k];
   const float* th_k = theta + (int64_t)k * kt * D;
   for (int i = threadIdx.x; i < kt * D; i += blockDim.x) th[i] = th_k[i];
+  float tv = 0.0f, xv = 0.0f;
+  int tc = 0;
+  if (valid && lane == 0) {
+    if (family == kSoftmax) {
+      tc = (int)static_cast<const int64_t*>(t)[r];
+    } else {
+      tv = static_cast<const float*>(t)[r];
+      xv = xi[r];
+    }
+  }
   __syncthreads();
 
-  const int c = tile * kBlockRows + warp;
   float part = 0.0f;
-  if (c < C) {
-    int r = idx[(int64_t)k * idx_stride + c];
-    r = min(max(r, 0), N - 1);
+  if (valid) {
     const float* row = x + (int64_t)r * D;
     float acc[kMaxClasses];
 #pragma unroll
     for (int j = 0; j < kMaxClasses; ++j) acc[j] = 0.0f;
     for (int d = lane; d < D; d += 32) {
-      float xv = row[d];
+      const float xd = row[d];
 #pragma unroll
       for (int j = 0; j < kMaxClasses; ++j)
-        if (j < kt) acc[j] += xv * th[j * D + d];
+        if (j < kt) acc[j] += xd * th[j * D + d];
     }
 #pragma unroll
     for (int j = 0; j < kMaxClasses; ++j) {
@@ -153,16 +177,13 @@ __global__ void bright_glm_rows(const float* __restrict__ x,
     if (lane == 0) {
       float dl;
       if (family == kSoftmax) {
-        int tc = (int)static_cast<const int64_t*>(t)[r];
         dl = softmax_delta(acc, xi + (int64_t)r * kt, tc, kt);
       } else {
-        float tv = static_cast<const float*>(t)[r];
-        float xv = xi[r];
         dl = family == kLogistic ? logistic_delta(tv * acc[0], xv)
                                  : student_t_delta(tv - acc[0], xv, nu, sigma, h);
       }
       delta[(int64_t)k * C + c] = dl;
-      if (c < n_bright[k]) part = log_expm1(dl);
+      if (c < nb) part = log_expm1(dl);
     }
   }
   if (lane == 0) contrib[warp] = part;
@@ -170,28 +191,44 @@ __global__ void bright_glm_rows(const float* __restrict__ x,
   if (threadIdx.x == 0) {
     float s = contrib[0];
     for (int w = 1; w < kBlockRows; ++w) s += contrib[w];
-    partials[(int64_t)k * gridDim.x + tile] = s;
+    partials[(int64_t)k * nblk + tile] = s;
+    __threadfence();  // release: the partial is visible before the ticket
+    last = atomicAdd(&arrivals[k], 1u) == (unsigned int)(nblk - 1);
   }
-}
+  __syncthreads();
+  if (!last || warp != 0) return;
 
-// grid K, one warp: sums each chain's block partials in block order. The
-// warp loads 32 partials at a time and every lane adds them in index order
-// (shuffle broadcast), so the order is sequential whatever the block count.
-__global__ void bright_glm_total(const float* __restrict__ partials,
-                                 float* __restrict__ total, int nblk) {
-  const int k = blockIdx.x;
-  const int lane = threadIdx.x;
+  // The chain's last block: every partial of chain k has been written and
+  // fenced before its ticket. Sum them in block order: the warp loads 128
+  // partials at a time (from L2, past this SM's L1) and every lane adds them
+  // in index order (shuffle broadcast, unrolled so the shuffles run ahead of
+  // the dependent adds), so the order is sequential whatever the block
+  // count.
+  __threadfence();  // acquire
   const float* p = partials + (int64_t)k * nblk;
+  constexpr int kChunks = 4;
   float s = 0.0f;
-  for (int base = 0; base < nblk; base += 32) {
-    float v = base + lane < nblk ? p[base + lane] : 0.0f;
-    int m = min(32, nblk - base);
-    for (int j = 0; j < m; ++j) {
-      float w = __shfl_sync(0xffffffffu, v, j);
-      s = (base + j == 0) ? w : s + w;
+  for (int base = 0; base < nblk; base += 32 * kChunks) {
+    float v[kChunks];
+#pragma unroll
+    for (int q = 0; q < kChunks; ++q) {
+      const int i = base + 32 * q + lane;
+      v[q] = i < nblk ? __ldcg(p + i) : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < kChunks; ++q) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int i = base + 32 * q + j;
+        const float w = __shfl_sync(0xffffffffu, v[q], j);
+        if (i < nblk) s = i == 0 ? w : s + w;
+      }
     }
   }
-  if (lane == 0) total[k] = s;
+  if (lane == 0) {
+    total[k] = s;
+    arrivals[k] = 0u;  // clean for the next call on this workspace
+  }
 }
 
 }  // namespace
@@ -200,20 +237,17 @@ extern "C" int bright_glm_launch(const float* x, const void* t,
                                  const float* xi, const int32_t* idx,
                                  int64_t idx_stride, const int64_t* n_bright,
                                  const float* theta, float* delta,
-                                 float* partials, float* total, int K, int C,
-                                 int N, int D, int kt, int family, float nu,
+                                 float* partials, float* total,
+                                 unsigned int* arrivals, int K, int C, int N,
+                                 int D, int kt, int family, float nu,
                                  float sigma, float h, void* stream) {
   if (kt > kMaxClasses || C <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nblk = (C + kBlockRows - 1) / kBlockRows;
-  dim3 grid(nblk, K);
   size_t smem = (size_t)kt * D * sizeof(float);
-  bright_glm_rows<<<grid, kBlockRows * 32, smem, s>>>(
-      x, t, xi, idx, idx_stride, n_bright, theta, delta, partials, C, N, D,
-      kt, family, nu, sigma, h);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  bright_glm_total<<<K, 32, 0, s>>>(partials, total, nblk);
+  bright_glm_kernel<<<dim3(nblk, K), kBlockRows * 32, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      x, t, xi, idx, idx_stride, n_bright, theta, delta, partials, total,
+      arrivals, C, N, D, kt, family, nu, sigma, h);
   return (int)cudaGetLastError();
 }
 

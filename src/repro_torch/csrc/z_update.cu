@@ -11,22 +11,44 @@
 // at slots >= cap are dropped) and count[k] is the true total, which may
 // exceed cap (the driver's overflow signal).
 //
-// What bounds it on an H100: its byte bound is K·N·4 bytes of arr read once
-// plus K·cap·4 bytes written, a few microseconds at N = 1.8M — but each
-// datum also costs ~80 integer operations of Threefry, and this
-// first version reads arr and hashes it twice, so integer throughput and the
-// three launches set its time. The TPU kernel kept its order and its running
-// count in a sequential grid; blocks on the GPU run in no order, so the
-// compaction is three launches:
-//   1. per-tile candidate counts (a tile is 8 warps × 8 rounds × 32 lanes =
-//      2048 consecutive positions; each round's flags are one warp ballot);
-//   2. per-chain exclusive scan of the tile counts (one block per chain),
-//      which also writes the chain's total and fills cand[count:cap] with N;
-//   3. recompute the flags and scatter: a candidate's slot is its tile's
-//      offset + its warp's offset in the tile + the popc of the ballot bits
-//      below its lane, i.e. its rank in arr-position order.
-// The result is bitwise the plain version's (kernels/z_update/ref.py): the
-// RNG is pure integer math and the order is the stable one.
+// What bounds it on an H100. Bytes: K·N·4 of arr read once plus K·cap·4
+// written, ~4 µs at N = 1.8M. Integer issue: each datum costs one Threefry,
+// whose 19 rotations and 19 xors (of ~70 integer instructions) run only on
+// the ALU pipe, 64 lanes an SM: ~8 µs at N = 1.8M — so at that size the
+// kernel is bound by integer issue, and hashing each
+// datum once is what matters. At the main path's N = 12,214 both are well
+// under a microsecond, and the floor is launch latency. So the design is one
+// launch a call and one hash a datum: a single-pass compaction with
+// decoupled look-back (Merrill & Garland, "Single-pass parallel prefix scan
+// with decoupled look-back", 2016), per chain:
+//   * a tile is 8 warps × 8 rounds × 32 lanes = 2048 consecutive positions;
+//     each round's candidate flags are one warp ballot. A block hashes its
+//     tile once and keeps the ballot masks and datum ids in registers;
+//   * a block takes its tile index from its chain's atomic ticket, not from
+//     blockIdx: every tile before it was taken by a block that is running or
+//     done, so waiting on a predecessor cannot deadlock;
+//   * it publishes its tile's count in a status word (flag A), looks back
+//     over its predecessors' words with one warp, 32 at a time, adding
+//     aggregates until it meets an inclusive prefix (flag P), publishes its
+//     own inclusive prefix, and scatters each candidate to its tile's offset
+//     + its warp's offset + the popc of the ballot bits below its lane: its
+//     rank in arr-position order. Counts are integers, so the result is
+//     bitwise the plain version's (kernels/z_update/ref.py) whatever order
+//     the blocks run in;
+//   * the tile with the chain's last ticket learns the total: it writes
+//     count[k] and fills cand[k, count:cap] with N;
+//   * a status word is one 64-bit store: the chain's epoch (32 bits), the
+//     flag (2 bits) and the count (30 bits; the wrapper holds N below 2^30).
+//     A word whose epoch is not this call's is stale and read as "not yet",
+//     so no word from an earlier call, of any N, is taken for this call's;
+//   * the workspace (per chain: ticket, arrival counter, epoch; then the
+//     status words, one row of tiles per chain) is persistent, zeroed once by
+//     the wrapper. Every block takes an arrival ticket when it is done; the
+//     chain's last block resets the ticket and the counter and bumps the
+//     epoch, so the workspace is clean for the next call, of any N and K,
+//     without a memset launch. Calls on one stream run one after another and
+//     may share a workspace; two calls in flight at once on one workspace
+//     (two streams, or two host threads, sharing it) are not supported.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,8 +58,14 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kRounds = 8;
 constexpr int kTile = kWarps * kRounds * 32;  // positions per block
-constexpr int kScanThreads = 1024;
 constexpr uint32_t kDrawCand = 1;
+constexpr unsigned long long kFlagAggregate = 1ull << 30;
+constexpr unsigned long long kFlagPrefix = 2ull << 30;
+constexpr unsigned long long kCountMask = (1ull << 30) - 1;
+
+struct ChainCtl {  // 16 bytes per chain at the head of the workspace
+  unsigned int ticket, arrived, epoch, pad;
+};
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int d) {
   return (x << d) | (x >> (32 - d));
@@ -62,163 +90,167 @@ __device__ __forceinline__ uint32_t threefry_x0(uint32_t k0, uint32_t k1,
   return x0;
 }
 
-// Ballot masks of this warp's kRounds rounds of 32 consecutive positions.
-__device__ __forceinline__ void candidate_masks(
-    const int32_t* __restrict__ arr_k, int64_t num, int N, uint32_t k0,
-    uint32_t k1, uint32_t q_bits, int64_t base, uint32_t* masks,
-    int32_t* datum) {
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long w) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = w;
+}
+
+// grid (ntiles, K), kWarps warps. status: K rows of status_stride words.
+__global__ void __launch_bounds__(kWarps * 32)
+z_candidates_kernel(const int32_t* __restrict__ arr, int64_t arr_stride,
+                    const int64_t* __restrict__ num,
+                    const int64_t* __restrict__ kw,
+                    int32_t* __restrict__ cand, int32_t* __restrict__ count,
+                    ChainCtl* __restrict__ ctl,
+                    unsigned long long* __restrict__ status,
+                    int64_t status_stride, int N, uint32_t q_bits, int cap) {
+  __shared__ int s_tile;
+  __shared__ unsigned int s_epoch;
+  __shared__ int warp_off[kWarps];
+  __shared__ int s_total;
+  const int k = blockIdx.y;
+  const int ntiles = gridDim.x;
+  const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  ChainCtl* c = ctl + k;
+
+  if (threadIdx.x == 0) {
+    s_epoch = *reinterpret_cast<volatile unsigned int*>(&c->epoch);
+    s_tile = (int)atomicAdd(&c->ticket, 1u);
+  }
+  __syncthreads();
+  const int tile = s_tile;
+  const unsigned int epoch = s_epoch;
+  const unsigned long long tag = (unsigned long long)epoch << 32;
+
+  // ---- hash the tile once: ballot masks and ids stay in registers -------
+  const int32_t* arr_k = arr + k * arr_stride;
+  const int64_t n0 = num[k];
+  const uint32_t k0 = (uint32_t)kw[2 * k], k1 = (uint32_t)kw[2 * k + 1];
+  const int base = tile * kTile + warp * kRounds * 32 + lane;  // N < 2^30
+  int32_t datum[kRounds];
+  uint32_t masks[kRounds];
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
-    int64_t pos = base + r * 32 + lane;
-    bool cand = false;
-    int32_t id = 0;
-    if (pos < N) {
-      id = arr_k[pos];
-      if (pos >= num) {
-        uint32_t b = threefry_x0(k0, k1, kDrawCand, (uint32_t)id);
-        cand = (b >> 8) < q_bits;
-      }
-    }
-    datum[r] = id;
-    masks[r] = __ballot_sync(0xffffffffu, cand);
+    const int pos = base + r * 32;
+    datum[r] = pos < N ? arr_k[pos] : 0;
   }
-}
-
-__global__ void z_tile_counts(const int32_t* __restrict__ arr,
-                              int64_t arr_stride,
-                              const int64_t* __restrict__ num,
-                              const int64_t* __restrict__ kw,
-                              int32_t* __restrict__ tile_counts, int N,
-                              uint32_t q_bits) {
-  __shared__ int warp_counts[kWarps];
-  const int k = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int64_t base = (int64_t)blockIdx.x * kTile + warp * kRounds * 32;
-  uint32_t masks[kRounds];
-  int32_t datum[kRounds];
-  candidate_masks(arr + k * arr_stride, num[k], N, (uint32_t)kw[2 * k],
-                  (uint32_t)kw[2 * k + 1], q_bits, base, masks, datum);
+  // Hash every round without a branch, so the rounds' independent chains
+  // interleave; positions outside [num, N) are masked afterwards.
+  uint32_t bits[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r)
+    bits[r] = threefry_x0(k0, k1, kDrawCand, (uint32_t)datum[r]);
   int cnt = 0;
 #pragma unroll
-  for (int r = 0; r < kRounds; ++r) cnt += __popc(masks[r]);
-  if (threadIdx.x % 32 == 0) warp_counts[warp] = cnt;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-    for (int w = 0; w < kWarps; ++w) s += warp_counts[w];
-    tile_counts[(int64_t)k * gridDim.x + blockIdx.x] = s;
+  for (int r = 0; r < kRounds; ++r) {
+    const int pos = base + r * 32;
+    masks[r] = __ballot_sync(0xffffffffu,
+                             pos < N && pos >= n0 && (bits[r] >> 8) < q_bits);
+    cnt += __popc(masks[r]);
   }
-}
-
-// grid K, kScanThreads threads: exclusive scan of the chain's tile counts in
-// place; count[k] = total; cand[k, total:cap] = N.
-__global__ void z_scan(int32_t* __restrict__ tile_counts,
-                       int32_t* __restrict__ count,
-                       int32_t* __restrict__ cand, int ntiles, int cap,
-                       int N) {
-  __shared__ int warp_sums[kScanThreads / 32];
-  __shared__ int carry;
-  const int k = blockIdx.x;
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  int32_t* tc = tile_counts + (int64_t)k * ntiles;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int base = 0; base < ntiles; base += kScanThreads) {
-    int i = base + threadIdx.x;
-    int v = i < ntiles ? tc[i] : 0;
-    int x = v;  // inclusive warp scan
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      int y = __shfl_up_sync(0xffffffffu, x, off);
-      if (lane >= off) x += y;
-    }
-    if (lane == 31) warp_sums[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      int ws = warp_sums[lane];
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        int y = __shfl_up_sync(0xffffffffu, ws, off);
-        if (lane >= off) ws += y;
-      }
-      warp_sums[lane] = ws;  // inclusive over warps
-    }
-    __syncthreads();
-    int before = carry + (warp > 0 ? warp_sums[warp - 1] : 0);
-    if (i < ntiles) tc[i] = before + x - v;  // exclusive
-    __syncthreads();
-    if (threadIdx.x == 0) carry += warp_sums[kScanThreads / 32 - 1];
-    __syncthreads();
-  }
-  const int total = carry;
-  if (threadIdx.x == 0) count[k] = total;
-  for (int s = total + threadIdx.x; s < cap; s += blockDim.x)
-    cand[(int64_t)k * cap + s] = N;
-}
-
-__global__ void z_scatter(const int32_t* __restrict__ arr,
-                          int64_t arr_stride,
-                          const int64_t* __restrict__ num,
-                          const int64_t* __restrict__ kw,
-                          const int32_t* __restrict__ tile_offsets,
-                          int32_t* __restrict__ cand, int N, uint32_t q_bits,
-                          int cap) {
-  __shared__ int warp_off[kWarps];
-  const int k = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int64_t base = (int64_t)blockIdx.x * kTile + warp * kRounds * 32;
-  uint32_t masks[kRounds];
-  int32_t datum[kRounds];
-  candidate_masks(arr + k * arr_stride, num[k], N, (uint32_t)kw[2 * k],
-                  (uint32_t)kw[2 * k + 1], q_bits, base, masks, datum);
-  int cnt = 0;
-#pragma unroll
-  for (int r = 0; r < kRounds; ++r) cnt += __popc(masks[r]);
   if (lane == 0) warp_off[warp] = cnt;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = tile_offsets[(int64_t)k * gridDim.x + blockIdx.x];
-    for (int w = 0; w < kWarps; ++w) {
-      int c = warp_off[w];
-      warp_off[w] = s;
-      s += c;
+
+  // ---- publish, look back, publish the inclusive prefix (warp 0) --------
+  if (warp == 0) {
+    const int v = lane < kWarps ? warp_off[lane] : 0;
+    int incl = v;  // inclusive scan of the warp counts
+#pragma unroll
+    for (int off = 1; off < kWarps; off <<= 1) {
+      int y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    const int agg = __shfl_sync(0xffffffffu, incl, kWarps - 1);
+    unsigned long long* st = status + (int64_t)k * status_stride;
+    int excl = 0;
+    if (tile == 0) {
+      if (lane == 0) store_status(st, tag | kFlagPrefix | (unsigned)agg);
+    } else {
+      if (lane == 0)
+        store_status(st + tile, tag | kFlagAggregate | (unsigned)agg);
+      // Lane i reads predecessor (end − i); the window moves back 32 tiles
+      // until it holds an inclusive prefix. Tile 0 always publishes one.
+      for (int end = tile - 1;; end -= 32) {
+        const int j = end - lane;
+        unsigned long long w;
+        bool ready;
+        do {
+          w = j >= 0 ? load_status(st + j) : (tag | kFlagPrefix);
+          ready = (unsigned int)(w >> 32) == epoch &&
+                  (w & (kFlagAggregate | kFlagPrefix)) != 0;
+        } while (!__all_sync(0xffffffffu, ready));
+        const unsigned prefix = __ballot_sync(0xffffffffu,
+                                              (w & kFlagPrefix) != 0);
+        // Lanes up to the nearest prefix (lowest such lane) contribute.
+        const int stop = prefix ? __ffs(prefix) - 1 : 31;
+        int part = lane <= stop && j >= 0 ? (int)(w & kCountMask) : 0;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
+        excl += part;
+        if (prefix) break;
+      }
+      if (lane == 0)
+        store_status(st + tile, tag | kFlagPrefix | (unsigned)(excl + agg));
+    }
+    if (lane < kWarps) warp_off[lane] = excl + incl - v;  // per-warp offset
+    if (lane == 0 && tile == ntiles - 1) {
+      s_total = excl + agg;
+      count[k] = excl + agg;
     }
   }
   __syncthreads();
+
+  // ---- scatter at the candidates' ranks in arr-position order -----------
+  int32_t* cand_k = cand + (int64_t)k * cap;
   int slot0 = warp_off[warp];
   const uint32_t below = (1u << lane) - 1u;
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
     if (masks[r] & (1u << lane)) {
       int slot = slot0 + __popc(masks[r] & below);
-      if (slot < cap) cand[(int64_t)k * cap + slot] = datum[r];
+      if (slot < cap) cand_k[slot] = datum[r];
     }
     slot0 += __popc(masks[r]);
+  }
+  if (tile == ntiles - 1)
+    for (int s = s_total + threadIdx.x; s < cap; s += blockDim.x)
+      cand_k[s] = N;
+
+  // ---- leave the workspace clean: the chain's last block resets it ------
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(&c->arrived, 1u) == (unsigned int)(ntiles - 1)) {
+      c->ticket = 0u;
+      c->arrived = 0u;
+      c->epoch = epoch + 1u;
+    }
   }
 }
 
 }  // namespace
 
 extern "C" int z_candidates_launch(const int32_t* arr, int64_t arr_stride,
-                                   const int64_t* num,
-                                   const int64_t* kw, int32_t* cand,
-                                   int32_t* count, int32_t* tile_counts, int K,
-                                   int N, int q_bits, int cap, void* stream) {
-  if (K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                                   const int64_t* num, const int64_t* kw,
+                                   int32_t* cand, int32_t* count,
+                                   void* ctl, void* status,
+                                   int64_t status_stride, int K, int N,
+                                   int q_bits, int cap, void* stream) {
+  if (K <= 0 || N <= 0 || cap <= 0 || (int64_t)N > (int64_t)kCountMask)
+    return (int)cudaErrorInvalidValue;
   const int ntiles = (N + kTile - 1) / kTile;
-  dim3 grid(ntiles, K);
-  z_tile_counts<<<grid, kWarps * 32, 0, s>>>(arr, arr_stride, num, kw, tile_counts, N,
-                                            (uint32_t)q_bits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  z_scan<<<K, kScanThreads, 0, s>>>(tile_counts, count, cand, ntiles, cap, N);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  z_scatter<<<grid, kWarps * 32, 0, s>>>(arr, arr_stride, num, kw, tile_counts, cand, N,
-                                        (uint32_t)q_bits, cap);
+  if (status_stride < ntiles) return (int)cudaErrorInvalidValue;
+  z_candidates_kernel<<<dim3(ntiles, K), kWarps * 32, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      arr, arr_stride, num, kw, cand, count, static_cast<ChainCtl*>(ctl),
+      static_cast<unsigned long long*>(status), status_stride, N,
+      (uint32_t)q_bits, cap);
   return (int)cudaGetLastError();
 }

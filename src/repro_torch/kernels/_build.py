@@ -97,12 +97,13 @@ def _declare(lib) -> None:
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     lib.bright_glm_launch.argtypes = [
         p, p, p, p, i64, p, p, p, p, p,  # x t xi idx idx_stride nb θ δ part tot
-        i, i, i, i, i, i,  # K C N D kt family
+        p, i, i, i, i, i, i,  # arrivals K C N D kt family
         f, f, f, p,  # nu sigma h stream
     ]
     lib.bright_glm_launch.restype = i
     lib.z_candidates_launch.argtypes = [
-        p, i64, p, p, p, p, p,  # arr arr_stride num kw cand count tile_counts
+        p, i64, p, p, p, p,  # arr arr_stride num kw cand count
+        p, p, i64,  # ctl status status_stride
         i, i, i, i, p,  # K N q_bits cap stream
     ]
     lib.z_candidates_launch.restype = i
@@ -151,7 +152,15 @@ def check(code: int, name: str) -> None:
                            f"({text})")
 
 
+def describe(**tensors) -> str:
+    """Device, shape, dtype and strides of each operand, for an error."""
+    return "; ".join(f"{name} {tuple(a.shape)} {a.dtype} on {a.device}, "
+                     f"strides {a.stride()}" for name, a in tensors.items())
+
+
 def stream_ptr(device) -> int:
+    """The raw ``cudaStream_t`` of ``device``'s current stream (without
+    building a ``torch.cuda.Stream`` object)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)

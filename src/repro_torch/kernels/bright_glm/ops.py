@@ -32,8 +32,13 @@ from repro_torch.kernels.bright_glm.ref import (
 
 _FAMILY_CODE = {"logistic": 0, "student_t": 1, "softmax": 2}
 _MAX_CLASSES = 16  # kMaxClasses in csrc/bright_glm.cu
+_SMEM_BYTES = 48 * 1024  # θ staged in static-limit shared memory
 
 launch_count = 0  # kernel launches through this wrapper (one per call)
+# Per-chain arrival counters of the kernel's in-launch total, one int32
+# workspace per (device, stream), zeroed once and left zeroed by every call
+# (csrc/bright_glm.cu). Calls on one stream run in order and share it.
+_arrivals: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -41,44 +46,88 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"bright_glm: {msg}")
 
 
-def _launch(x, t, xi, idx, n_bright, theta, family, nu, sigma):
-    global launch_count
-    k, c = idx.shape
-    n, d = x.shape
-    kt = theta.shape[1] if family == "softmax" else 1
+def _refuse(x, t, xi, idx, n_bright, theta, softmax):
+    """The launch's checks one at a time, once their combined test failed:
+    raises naming the first operand the kernel cannot read."""
     dev = x.device
     for name, a in (("t", t), ("xi", xi), ("idx", idx), ("n_bright", n_bright),
                     ("theta", theta)):
         _require(a.device == dev, f"{name} is on {a.device}, x on {dev}")
-    _require(x.dtype == torch.float32 and x.is_contiguous(),
-             "x must be contiguous float32")
-    want_t = torch.int64 if family == "softmax" else torch.float32
+    _require(x.dim() == 2 and x.dtype == torch.float32 and x.is_contiguous(),
+             "x must be contiguous (N, D) float32")
+    n, d = x.shape
+    _require(idx.dim() == 2 and idx.dtype == torch.int32 and idx.stride(1) == 1,
+             "idx must be (K, C) int32 with unit slot stride")
+    k, c = idx.shape
+    _require(theta.dim() == (3 if softmax else 2),
+             f"theta must be {'(K, Kc, D)' if softmax else '(K, D)'}")
+    kt = theta.shape[1] if softmax else 1
+    want_t = torch.int64 if softmax else torch.float32
     _require(t.dtype == want_t and t.shape == (n,) and t.is_contiguous(),
              f"t must be contiguous ({n},) {want_t}")
-    xi_shape = (n, kt) if family == "softmax" else (n,)
+    xi_shape = (n, kt) if softmax else (n,)
     _require(xi.dtype == torch.float32 and xi.shape == xi_shape
              and xi.is_contiguous(), f"xi must be contiguous {xi_shape} float32")
-    _require(idx.dtype == torch.int32 and idx.dim() == 2 and idx.stride(1) == 1,
-             "idx must be (K, C) int32 with unit slot stride")
     _require(n_bright.dtype == torch.int64 and n_bright.shape == (k,)
              and n_bright.is_contiguous(), f"n_bright must be ({k},) int64")
-    th_shape = (k, kt, d) if family == "softmax" else (k, d)
+    th_shape = (k, kt, d) if softmax else (k, d)
     _require(theta.dtype == torch.float32 and theta.shape == th_shape
              and theta.is_contiguous(), f"theta must be contiguous {th_shape} f32")
-    _require(kt <= _MAX_CLASSES and kt * d * 4 <= 48 * 1024,
-             f"{kt} classes × D={d} exceed the kernel's shared memory")
-    _require(0 < c and 0 < k and 0 < n, "empty buffer")
+    _require(kt <= _MAX_CLASSES and kt * d * 4 <= _SMEM_BYTES,
+             f"theta's {kt} classes × D={d} exceed the kernel's {_MAX_CLASSES} "
+             "classes or its shared memory")
+    _require(c > 0 and k > 0 and n > 0, f"empty buffer (K={k}, C={c}, N={n})")
+    raise ValueError("bright_glm: operands refused: " + _build.describe(
+        x=x, t=t, xi=xi, idx=idx, n_bright=n_bright, theta=theta))
+
+
+def _launch(x, t, xi, idx, n_bright, theta, family, nu, sigma):
+    global launch_count
+    # What the kernel reads, as one expression: device, dtype, shape,
+    # stride and shared-memory size. Only if it fails does _refuse run the
+    # checks one by one to name the operand.
+    di = x.get_device()
+    softmax = family == "softmax"
+    ok = (x.dim() == 2 and idx.dim() == 2
+          and theta.dim() == (3 if softmax else 2))
+    if ok:
+        (n, d), (k, c) = x.shape, idx.shape
+        kt = theta.shape[1] if softmax else 1
+        ok = (t.get_device() == di and xi.get_device() == di
+              and idx.get_device() == di and n_bright.get_device() == di
+              and theta.get_device() == di
+              and x.dtype == torch.float32 and x.is_contiguous()
+              and t.dtype == (torch.int64 if softmax else torch.float32)
+              and t.shape == (n,) and t.is_contiguous()
+              and xi.dtype == torch.float32 and xi.is_contiguous()
+              and xi.shape == ((n, kt) if softmax else (n,))
+              and idx.dtype == torch.int32 and idx.stride(1) == 1
+              and n_bright.dtype == torch.int64 and n_bright.shape == (k,)
+              and n_bright.is_contiguous()
+              and theta.dtype == torch.float32 and theta.is_contiguous()
+              and theta.shape == ((k, kt, d) if softmax else (k, d))
+              and kt <= _MAX_CLASSES and kt * d * 4 <= _SMEM_BYTES
+              and c > 0 and k > 0 and n > 0)
+    if not ok:
+        _refuse(x, t, xi, idx, n_bright, theta, softmax)
     lib = _build.library()
-    delta = torch.empty(k, c, dtype=torch.float32, device=dev)
-    partials = torch.empty(k, -(-c // BLOCK_ROWS), dtype=torch.float32,
-                           device=dev)
-    total = torch.empty(k, dtype=torch.float32, device=dev)
+    stream = _build.stream_ptr(x.device)
+    arrivals = _arrivals.get((di, stream))
+    if arrivals is None or arrivals.numel() < k:
+        arrivals = torch.zeros(k, dtype=torch.int32, device=x.device)
+        _arrivals[(di, stream)] = arrivals
+    # One allocation: δ (K, C), the totals (K,), then the block partials.
+    nblk = -(-c // BLOCK_ROWS)
+    buf = torch.empty(k * (c + 1 + nblk), dtype=torch.float32,
+                      device=x.device)
+    delta = buf.as_strided((k, c), (c, 1))
+    total = buf.as_strided((k,), (1,), k * c)
+    ptr = buf.data_ptr()
     code = lib.bright_glm_launch(
         x.data_ptr(), t.data_ptr(), xi.data_ptr(), idx.data_ptr(),
-        idx.stride(0), n_bright.data_ptr(), theta.data_ptr(),
-        delta.data_ptr(), partials.data_ptr(), total.data_ptr(),
-        k, c, n, d, kt, _FAMILY_CODE[family], float(nu), float(sigma),
-        (float(nu) + 1.0) / 2.0, _build.stream_ptr(dev),
+        idx.stride(0), n_bright.data_ptr(), theta.data_ptr(), ptr,
+        ptr + 4 * k * (c + 1), ptr + 4 * k * c, arrivals.data_ptr(), k, c, n,
+        d, kt, _FAMILY_CODE[family], nu, sigma, (nu + 1.0) / 2.0, stream,
     )
     launch_count += 1
     _build.check(code, "bright_glm")
@@ -138,5 +187,9 @@ def bright_glm(x, t, xi, idx, n_bright, theta, family="logistic", nu=4.0,
     """
     if family not in FAMILIES:
         raise ValueError(f"unknown family {family!r}; expected {FAMILIES}")
-    return _BrightGLM.apply(theta, x, t, xi, idx, n_bright, family,
-                            float(nu), float(sigma))
+    nu, sigma = float(nu), float(sigma)
+    if torch.is_grad_enabled() and theta.requires_grad:
+        return _BrightGLM.apply(theta, x, t, xi, idx, n_bright, family, nu,
+                                sigma)
+    # No gradient is asked for (RWMH, or under no_grad): skip autograd.
+    return _forward(x, t, xi, idx, n_bright, theta, family, nu, sigma)

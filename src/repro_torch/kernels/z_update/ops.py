@@ -18,6 +18,26 @@ from repro_torch.kernels.z_update.ref import q_threshold_bits, z_candidates_ref
 
 launch_count = 0  # kernel launches through this wrapper (one per call)
 _TILE = 2048  # kTile in csrc/z_update.cu
+_MAX_N = (1 << 30) - 1  # a status word holds a count in 30 bits
+_CTL_WORDS = 2  # int64 words of per-chain control (ticket, arrivals, epoch)
+# The kernel's look-back workspace, one per (device, stream): K rows of
+# control words, then K rows of tile status words. Zeroed once and left
+# clean by every call (csrc/z_update.cu); grown, zeroed, when a call has
+# more chains or tiles than it holds. Calls on one stream run in order and
+# share it.
+_workspaces: dict[tuple[int, int], tuple[torch.Tensor, int, int]] = {}
+
+
+def _workspace(dev, di, stream, k, ntiles):
+    ws = _workspaces.get((di, stream))
+    if ws is None or ws[1] < k or ws[2] < ntiles:
+        k_cap = max(k, ws[1] if ws else 0)
+        t_cap = max(ntiles, ws[2] if ws else 0)
+        buf = torch.zeros(k_cap * (_CTL_WORDS + t_cap), dtype=torch.int64,
+                          device=dev)
+        ws = (buf, k_cap, t_cap)
+        _workspaces[(di, stream)] = ws
+    return ws
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -25,31 +45,62 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"z_candidates: {msg}")
 
 
+def _refuse(arr, num, key_words, cap):
+    """The launch's checks one at a time, once their combined test failed:
+    raises naming the first operand the kernel cannot read."""
+    dev = arr.device
+    for name, a in (("num", num), ("key_words", key_words)):
+        _require(a.device == dev, f"{name} is on {a.device}, arr on {dev}")
+    _require(arr.dim() == 2 and arr.dtype == torch.int32
+             and arr.stride(1) == 1,
+             "arr must be (K, N) int32 with unit position stride")
+    k, n = arr.shape
+    _require(n <= _MAX_N, f"arr has N={n}; the kernel's counts hold "
+             f"N <= {_MAX_N}")
+    _require(num.dtype == torch.int64 and num.shape == (k,)
+             and num.is_contiguous(), f"num must be contiguous ({k},) int64")
+    _require(key_words.dtype == torch.int64 and key_words.shape == (k, 2)
+             and key_words.is_contiguous(),
+             f"key_words must be contiguous ({k}, 2) int64")
+    _require(cap > 0, f"capacity must be > 0, got {cap}")
+    _require(k > 0 and n > 0, f"empty partition arrays (K={k}, N={n})")
+    raise ValueError("z_candidates: operands refused: " + _build.describe(
+        arr=arr, num=num, key_words=key_words))
+
+
 def _launch(arr, num, key_words, q_db, cand_capacity):
     global launch_count
-    k, n = arr.shape
-    dev = arr.device
-    _require(arr.dtype == torch.int32 and arr.stride(1) == 1,
-             "arr must be (K, N) int32 with unit position stride")
-    _require(num.device == dev and num.dtype == torch.int64
-             and num.shape == (k,) and num.is_contiguous(),
-             f"num must be ({k},) int64 on {dev}")
-    _require(key_words.device == dev and key_words.dtype == torch.int64
-             and key_words.shape == (k, 2) and key_words.is_contiguous(),
-             f"key_words must be contiguous ({k}, 2) int64 on {dev}")
-    _require(k > 0 and n > 0 and cand_capacity > 0, "empty operand")
+    cap = int(cand_capacity)
+    di = arr.get_device()
+    ok = arr.dim() == 2
+    if ok:
+        k, n = arr.shape
+        ok = (arr.dtype == torch.int32 and arr.stride(1) == 1
+              and num.get_device() == di and num.dtype == torch.int64
+              and num.shape == (k,) and num.is_contiguous()
+              and key_words.get_device() == di
+              and key_words.dtype == torch.int64
+              and key_words.shape == (k, 2) and key_words.is_contiguous()
+              and k > 0 and 0 < n <= _MAX_N and cap > 0)
+    if not ok:
+        _refuse(arr, num, key_words, cap)
     lib = _build.library()
-    cand = torch.empty(k, cand_capacity, dtype=torch.int32, device=dev)
-    count = torch.empty(k, dtype=torch.int32, device=dev)
-    tiles = torch.empty(k, -(-n // _TILE), dtype=torch.int32, device=dev)
+    stream = _build.stream_ptr(arr.device)
+    ntiles = -(-n // _TILE)
+    buf, k_cap, t_cap = _workspace(arr.device, di, stream, k, ntiles)
+    ctl = buf.data_ptr()
+    # One allocation: cand (K, cap), then count (K,).
+    buf = torch.empty(k * (cap + 1), dtype=torch.int32, device=arr.device)
+    ptr = buf.data_ptr()
     code = lib.z_candidates_launch(
-        arr.data_ptr(), arr.stride(0), num.data_ptr(), key_words.data_ptr(), cand.data_ptr(),
-        count.data_ptr(), tiles.data_ptr(), k, n, q_threshold_bits(q_db),
-        int(cand_capacity), _build.stream_ptr(dev),
+        arr.data_ptr(), arr.stride(0), num.data_ptr(), key_words.data_ptr(),
+        ptr, ptr + 4 * k * cap, ctl, ctl + 8 * _CTL_WORDS * k_cap, t_cap, k,
+        n, q_threshold_bits(q_db), cap, stream,
     )
     launch_count += 1
     _build.check(code, "z_candidates")
-    return cand, count
+    return (buf.as_strided((k, cap), (cap, 1)),
+            buf.as_strided((k,), (1,), k * cap))
 
 
 def z_candidates(arr, num, key_words, q_db: float, cand_capacity: int):

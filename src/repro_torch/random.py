@@ -64,8 +64,9 @@ def uniform(k, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:
     """float32 U[minval, maxval) on the 23-bit mantissa grid, as jax."""
     b = bits(k, shape)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
+    # torch.full, not torch.tensor: no host-to-device copy, no stream wait.
+    lo = torch.full((), minval, dtype=torch.float32, device=k.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=k.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 
@@ -101,7 +102,7 @@ def normal(k, shape=()) -> torch.Tensor:
 def bernoulli(k, p: float, shape=()) -> torch.Tensor:
     """Booleans ``uniform(k, shape) < p`` with ``p`` rounded to float32."""
     u = uniform(k, shape)
-    return u < torch.tensor(p, dtype=torch.float32, device=u.device)
+    return u < torch.full((), p, dtype=torch.float32, device=u.device)
 
 
 def randint(k, shape, minval: int, maxval: int) -> torch.Tensor:

@@ -106,3 +106,75 @@ def test_plain_total_and_gradient_are_capacity_invariant():
 def test_wrapper_rejects_unknown_family():
     with pytest.raises(ValueError):
         tops.bright_glm(*_torch(*_inputs("logistic", 1, 8)), family="probit")
+
+
+@pytest.mark.parametrize("family", ["logistic", "student_t", "softmax"])
+def test_no_grad_fast_path_equals_autograd_path(family, monkeypatch):
+    """Without a gradient to take, the wrapper calls the forward directly;
+    what it returns is exactly what the ``autograd.Function`` returns."""
+    *ops, theta = _torch(*_inputs(family, 2, 24, seed=3))
+    th = theta.clone().requires_grad_(True)
+    slow = tops.bright_glm(*ops, th, family=family, **KW[family])
+    assert slow[1].grad_fn is not None
+
+    def no_autograd(*args):
+        raise AssertionError("the no-grad path went through autograd")
+
+    monkeypatch.setattr(tops._BrightGLM, "apply", no_autograd)
+    fast = tops.bright_glm(*ops, theta, family=family, **KW[family])
+    with torch.no_grad():
+        fast_ng = tops.bright_glm(*ops, th, family=family, **KW[family])
+    for f in (fast, fast_ng):
+        assert all(o.grad_fn is None for o in f)
+        assert all(torch.equal(a, b.detach()) for a, b in zip(f, slow))
+
+
+# Each bad operand, and what the refusal must name.
+_FAULTS = {"x_dtype": "x", "x_rank": "x", "t_shape": "t", "t_dtype": "t",
+           "xi_strided": "xi", "idx_stride": "idx", "idx_dtype": "idx",
+           "n_bright_dtype": "n_bright", "n_bright_shape": "n_bright",
+           "theta_shape": "theta", "theta_strided": "theta",
+           "classes": "theta's", "shared_memory": "theta's", "empty": "empty"}
+
+
+@pytest.mark.parametrize("fault", _FAULTS)
+def test_kernel_path_refuses_bad_operands_before_launch(fault):
+    """The card path's checks, run on CPU tensors (which pass its device
+    checks), refuse each bad operand with a ValueError before the library is
+    built or the arrival workspace is touched, naming the operand."""
+    family = "softmax" if fault in ("classes", "shared_memory") else "logistic"
+    x, t, xi, idx, nb, theta = _torch(*_inputs(family, 2, 24))
+    if fault == "x_dtype":
+        x = x.double()
+    elif fault == "x_rank":
+        x = x[None]
+    elif fault == "t_shape":
+        t = t[:-1]
+    elif fault == "t_dtype":
+        t = t.double()
+    elif fault == "xi_strided":
+        xi = torch.stack([xi, xi], 1)[:, 0]
+    elif fault == "idx_stride":
+        idx = idx.t().contiguous().t()
+    elif fault == "idx_dtype":
+        idx = idx.long()
+    elif fault == "n_bright_dtype":
+        nb = nb.int()
+    elif fault == "n_bright_shape":
+        nb = nb[:1]
+    elif fault == "theta_shape":
+        theta = theta[:, :-1].contiguous()
+    elif fault == "theta_strided":
+        theta = theta.t().contiguous().t()
+    elif fault == "classes":  # 17 classes > the kernel's 16
+        xi = torch.zeros(N, 17)
+        theta = torch.zeros(2, 17, D)
+    elif fault == "shared_memory":  # Kt·D floats > 48 KiB
+        x = torch.zeros(N, 4097)
+        theta = torch.zeros(2, KC, 4097)
+    elif fault == "empty":
+        idx, nb, theta = idx[:0], nb[:0], theta[:0]
+    before = dict(tops._arrivals)
+    with pytest.raises(ValueError, match=rf"^bright_glm: {_FAULTS[fault]} "):
+        tops._launch(x, t, xi, idx, nb, theta, family, 4.0, 1.0)
+    assert tops._arrivals == before

@@ -110,6 +110,161 @@ def test_z_candidates_kernel_matches_plain_bitwise(dev, n, frac, q_db, cap):
     assert torch.equal(cand, c_ref) and torch.equal(count, n_ref)
 
 
+def _device_kernels(fn, reps=10, tries=5):
+    """Names of the device activities (kernels, copies, memsets) that each
+    of ``reps`` warm calls of ``fn`` puts on the card, from one profiler
+    trace a call. The profiler now and then records nothing for a call; such
+    a call is traced again, up to ``tries`` times. Returns the names a call
+    and the number of calls made, the warm one and the retraced included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm: the build and the persistent workspaces
+    torch.cuda.synchronize()
+    calls, made = [], 1
+    for _ in range(reps):
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            made += 1
+            names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            if names:
+                break
+        calls.append(names)
+    return calls, made
+
+
+@pytest.mark.parametrize("kernel", ["bright_glm", "z_candidates"])
+def test_one_device_kernel_per_call(dev, kernel):
+    """Each wrapper call runs exactly one device kernel, under its own name
+    — no second pass, no memset of the workspace — and ``launch_count``
+    counts that one."""
+    if kernel == "bright_glm":
+        x, t, xi, arr, nb, theta = _bright_inputs("logistic", 12214, 51, 2,
+                                                  512, dev)
+        fn = lambda: bops.bright_glm(x, t, xi, arr[:, :512], nb, theta)
+        ops, name = bops, "bright_glm_kernel"
+    else:
+        g = torch.Generator().manual_seed(3)
+        arr = torch.stack([torch.randperm(12214, generator=g)
+                           for _ in range(2)]).to(torch.int32).to(dev)
+        num = torch.tensor([244, 0], device=dev)
+        kw = torch.randint(0, 2**32, (2, 2), generator=g).to(dev)
+        fn = lambda: zops.z_candidates(arr, num, kw, 0.01, 512)
+        ops, name = zops, "z_candidates_kernel"
+    before = ops.launch_count
+    calls, made = _device_kernels(fn, reps=10)
+    assert ops.launch_count - before == made
+    assert all(len(c) == 1 and name in c[0] for c in calls), calls
+
+
+@pytest.mark.parametrize("family", ["logistic", "softmax"])
+def test_bright_glm_many_blocks_repeated_is_bitwise_stable(dev, family):
+    """8,192 blocks per chain, K = 3, 2,000 calls: the total that the last
+    block of each chain sums (after the others' fences) never differs from
+    the first call's, and the first call agrees with the plain version."""
+    c = 65536
+    x, t, xi, arr, nb, theta = _bright_inputs(family, 70000, 51, 3, c, dev)
+    nb = torch.tensor([c, c // 3, 0], device=dev)
+    idx = arr[:, :c]
+    d0, t0 = bops.bright_glm(x, t, xi, idx, nb, theta, family=family)
+    d_ref, t_ref = bright_glm_ref(x, t, xi, idx, nb, theta, family=family)
+    torch.testing.assert_close(d0, d_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(t0, t_ref, rtol=1e-5, atol=1e-5)
+    diff = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(2000):
+        d, tot = bops.bright_glm(x, t, xi, idx, nb, theta, family=family)
+        diff += (d != d0).sum() + (tot != t0).sum()
+    assert int(diff) == 0
+
+
+@pytest.mark.parametrize("cap", [28125, 1000])  # N / 64; count > cap
+def test_z_candidates_large_n_repeated_is_bitwise(dev, cap):
+    """N = 1.8M (879 tiles per chain), K = 2, 1,000 calls with fresh key
+    words: the look-back offsets and the count are bitwise the plain
+    version's in every call, also when the count overflows the buffer."""
+    n = 1_800_000
+    g = torch.Generator().manual_seed(11)
+    arr = torch.stack([torch.randperm(n, generator=g) for _ in range(2)])
+    arr = arr.to(torch.int32).to(dev)
+    num = torch.tensor([n // 50, 0], device=dev)
+    kw0 = torch.randint(0, 2**32, (2, 2), generator=g).to(dev)
+    diff = torch.zeros((), dtype=torch.int64, device=dev)
+    over = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(1000):
+        kw = (kw0 + i) & 0xFFFFFFFF
+        cand, count = zops.z_candidates(arr, num, kw, 0.01, cap)
+        c_ref, n_ref = z_candidates_ref(arr, num, kw, 0.01, cap)
+        diff += (cand != c_ref).sum() + (count != n_ref).sum()
+        over += (count > cap).sum()
+    assert int(diff) == 0
+    assert int(over) == (2000 if cap == 1000 else 0)
+
+
+def test_workspaces_come_back_clean_across_shapes(dev):
+    """Calls alternating N = 12,214 / 1.8M and K = 1 / 2 / 3 share each
+    kernel's persistent workspace; every call is still exact."""
+    g = torch.Generator().manual_seed(12)
+    arrs = {n: torch.stack([torch.randperm(n, generator=g) for _ in range(3)])
+            .to(torch.int32).to(dev) for n in (12214, 1_800_000)}
+    kw = torch.randint(0, 2**32, (3, 2), generator=g).to(dev)
+    x, t, xi, barr, _, theta = _bright_inputs("logistic", 12214, 51, 3, 512,
+                                              dev)
+    nb = torch.tensor([500, 77, 0], device=dev)
+    first = {}
+    for rep in range(4):
+        for n in (12214, 1_800_000):
+            for k in (1, 2, 3):
+                num = torch.tensor([n // 50, 0, 7][:k], device=dev)
+                cap = 512 if n == 12214 else n // 64
+                cand, count = zops.z_candidates(arrs[n][:k], num, kw[:k],
+                                                0.01, cap)
+                c_ref, n_ref = z_candidates_ref(arrs[n][:k], num, kw[:k],
+                                                0.01, cap)
+                assert torch.equal(cand, c_ref) and torch.equal(count, n_ref)
+                c = 512 if n == 12214 else 8192
+                bidx = barr[:k, :c]
+                out = bops.bright_glm(x, t, xi, bidx, nb[:k], theta[:k])
+                if (k, c) in first:
+                    assert all(torch.equal(a, b)
+                               for a, b in zip(out, first[(k, c)]))
+                else:
+                    ref = bright_glm_ref(x, t, xi, bidx, nb[:k], theta[:k])
+                    torch.testing.assert_close(out[1], ref[1], rtol=1e-5,
+                                               atol=1e-5)
+                    first[(k, c)] = out
+
+
+def test_flymc_step_never_waits_on_the_card(dev):
+    """FlyMC steps (K = 2, RWMH) issue their work without making the host
+    wait for the device: under ``set_sync_debug_mode("error")`` a host-to-
+    device copy of a Python scalar or a read-back raises."""
+    data = logistic_data(jr.key(0), n=3000, d=9)
+    model = GLMModel.logistic(data)
+    tuned = model.map_tuned(model.map_estimate(jr.key(1), steps=100))
+    alg = api.firefly(tuned, kernel="rwmh", capacity=512, cand_capacity=512,
+                      q_db=0.02, step_size=0.05, adapt_target="auto",
+                      num_warmup=20, device="cuda")
+    k_init, k_steps = jr.split(jr.key(7))
+    state = alg.init(jr.split(k_init, 2),
+                     torch.stack([alg.default_position] * 2))
+    keys = jr.split(k_steps, 2)
+    b0, z0 = bops.launch_count, zops.launch_count
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            state, stats = alg.step(keys, state)
+            keys = state.rng
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bops.launch_count - b0 == 8 and zops.launch_count - z0 == 4
+    assert bool(torch.isfinite(state.sampler.theta).all())
+    assert bool(torch.isfinite(stats.joint_lp).all())
+
+
 def _run(model, cap, key, n_iter, **kw):
     alg = api.firefly(model, kernel="rwmh", capacity=cap, cand_capacity=cap,
                       q_db=0.02, step_size=0.05, adapt_target="auto",

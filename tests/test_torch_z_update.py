@@ -66,3 +66,43 @@ def test_chain_batched_equals_per_chain():
     for i in range(3):
         c1, n1 = tops.z_candidates(ta[i:i + 1], tn[i:i + 1], tk[i:i + 1], 0.03, 64)
         assert torch.equal(c1[0], cand[i]) and int(n1[0]) == int(count[i])
+
+
+# Each bad operand, and what the refusal must name.
+_FAULTS = {"arr_dtype": "arr", "arr_rank": "arr", "arr_stride": "arr",
+           "num_dtype": "num", "num_shape": "num", "kw_shape": "key_words",
+           "kw_dtype": "key_words", "kw_strided": "key_words",
+           "capacity": "capacity", "empty": "empty"}
+
+
+@pytest.mark.parametrize("fault", _FAULTS)
+def test_kernel_path_refuses_bad_operands_before_launch(fault):
+    """The card path's checks, run on CPU tensors (which pass its device
+    checks), refuse each bad operand with a ValueError before the library is
+    built or the look-back workspace is touched, naming the operand."""
+    arr, num, kw = _torch(*_case(300, 2, 0.1, seed=4))
+    cap = 16
+    if fault == "arr_dtype":
+        arr = arr.long()
+    elif fault == "arr_rank":
+        arr = arr[0]
+    elif fault == "arr_stride":
+        arr = arr.t().contiguous().t()
+    elif fault == "num_dtype":
+        num = num.int()
+    elif fault == "num_shape":
+        num = num[:1]
+    elif fault == "kw_shape":
+        kw = torch.cat([kw, kw[:, :1]], 1)
+    elif fault == "kw_dtype":
+        kw = kw.int()
+    elif fault == "kw_strided":
+        kw = kw.t().contiguous().t()
+    elif fault == "capacity":
+        cap = 0
+    elif fault == "empty":
+        arr, num, kw = arr[:0], num[:0], kw[:0]
+    before = dict(tops._workspaces)
+    with pytest.raises(ValueError, match=rf"^z_candidates: {_FAULTS[fault]} "):
+        tops._launch(arr, num, kw, 0.05, cap)
+    assert tops._workspaces == before
