@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``, at
 first use), then runs four paths — the FlyMC chain, the recurrentgemma-9b
 and the rwkv6-7b LM serving paths, and the recurrentgemma-9b training step —
-each with its kernels (six in all):
+each with its kernels (six sources; ``rglru_scan.cu`` holds a forward and a
+backward kernel):
 
 1. holds each kernel against its plain PyTorch version on the card and
    times it: ``ms`` is the kernels' device time per call (torch.profiler;
@@ -30,7 +31,9 @@ each with its kernels (six in all):
    K/V; a wrapped and a partly filled ring; one f32 case with G=4, Hk=2,
    D=128), with ``scaled_dot_product_attention`` as the library yardstick;
    ``rglru_scan`` (B=4, S=2304, C=4096; log a ≈ -5, the model's decays, and
-   ≈ -1e-6); ``rwkv6_scan`` (B=4, H=64, D=64 with a carried-in state: the
+   ≈ -1e-6; and at the training shape B=2, S=2048; h_final bitwise y[:, -1];
+   one device kernel a call; ``queued`` as for the FlyMC kernels);
+   ``rwkv6_scan`` (B=4, H=64, D=64 with a carried-in state: the
    path's 512-step time chunk with log w uniform in [-1, -1e-6], the edge
    decay log w ≡ -1, S=32 (chunk 32) and S=1), to rtol 1e-5 plus 1e-5 of
    the largest value (products in 3xTF32 on the tensor cores, float32
@@ -86,15 +89,19 @@ each with its kernels (six in all):
 10. checks the backwards on the card: ``FusedCE`` (f32, the path's shape)
    against autograd through the plain version over token chunks, dx and dw
    within 1e-4 of their largest value; ``RGLRUScan`` (B=2, S=2048, C=4096;
-   log a ≈ -5 and ≈ -1e-6 with h0) against autograd through the plain loop,
-   rtol 1e-5 plus 1e-5 of the largest value, its backward one more launch;
+   log a ≈ -5 and ≈ -1e-6 with h0; and B=4, S=2304) against autograd
+   through the plain loop, rtol 1e-5 plus 1e-5 of the largest value, its
+   backward one launch of ``rglru_scan_bwd_kernel`` and one device kernel a
+   call; prints that kernel's device time, the device time of all the
+   backward's work, the backward call's time and the plain backward's
+   (``rglru_bwd_ref``);
 11. drives the training path through ``repro_torch.launch.train.
    train_reduced`` at the published width cut to 3 layers (rglru, rglru,
    attn; 2.603 B params), f32 master weights and AdamW state, bf16
    compute, batch 2 × 2048 tokens, 6 steps: prints each step's loss, grad
    norm and lr, the median step ms after the first, tokens/s and peak
    memory, and checks a finite loss, 1 ``fused_ce`` and 4 ``rglru_scan``
-   launches per step;
+   launches per step (2 of them the backward kernel);
 12. a descent check: 8 ``make_train_step`` steps (warmup 1) on one fixed
    batch at that width; the last loss must be below the first.
 
@@ -180,12 +187,13 @@ def median_ms(fn, reps: int = 25, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, names, reps: int = 20):
+def device_ms(fn, names, reps: int = 20, fallback: bool = True):
     """Device time per call of the kernels whose names contain one of
     ``names`` (torch.profiler, CUDA activity). If the trace holds none of
     them, logs the kernel names it does hold and returns the time per call
     of ``reps`` back-to-back calls between two CUDA events instead (device
-    time plus any launch gaps); the log line says which."""
+    time plus any launch gaps; the log line says which), or None where
+    ``fallback`` is false."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -204,6 +212,8 @@ def device_ms(fn, names, reps: int = 20):
             total_us += us
     if total_us > 0:
         return total_us / reps / 1e3
+    if not fallback:
+        return None
     log(f"  profiler: no kernel named {names} among {len(seen)} keys "
         f"{sorted(seen, reverse=True)[:4]}; timing {reps} back-to-back calls "
         "with CUDA events")
@@ -783,24 +793,29 @@ def rglru_phase(name, b, s, c, log_a, with_h0, dev, gen):
     torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(hf, hf_ref, rtol=1e-5, atol=1e-5)
     err = float((y - y_ref).abs().max())
+    if not torch.equal(hf, y[:, -1]):
+        raise AssertionError(f"rglru_scan[{name}]: h_final is not y[:, -1]")
     call = lambda: ops.rglru_scan(la, bx, h0)
     ms = median_ms(call)
     dev_ms = device_ms(call, ("rglru_scan_kernel",))
+    queued = queued_ms(call)
     plain = median_ms(lambda: rglru_ref(la, bx, h0), reps=5, warm=1)
     b_ms, b_by = bound(3 * b * s * c * 4 + b * c * 4 * (2 if with_h0 else 1),
                        3.0 * b * s * c)
     log(f"rglru_scan[{name}: B={b} S={s} C={c} log_a≈{log_a:g} h0={with_h0}] "
-        f"max|Δ|={err:.3g}, call {ms:.4f} ms (device {dev_ms:.6f} ms), plain "
-        f"{plain:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        f"max|Δ|={err:.3g}, call {ms:.4f} ms (device {dev_ms:.6f} ms, queued "
+        f"{queued:.6f} ms), plain {plain:.4f} ms, bound {b_ms:.6f} ms "
+        f"({b_by})")
     return {"phase": name, "B": b, "S": s, "C": c, "log_a": log_a,
-            "max_abs_err": err, "ms": dev_ms, "call_ms": ms,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+            "max_abs_err": err, "ms": dev_ms, "queued_ms": queued,
+            "call_ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "device_kernels": device_kernels(call)}
 
 
 def lm_kernel_phases(dev):
-    """Both LM kernels at the shapes the serving path gives them, read off
+    """``decode_attention`` at the shapes the serving path gives it, read off
     the published config: MQA heads of the local attention over a full
-    window, and the RG-LRU width over the serving prompt."""
+    window (the RG-LRU scan: :func:`rglru_kernel_phases`)."""
     from repro_torch.configs import get_config
 
     cfg = get_config(ARCH)
@@ -816,14 +831,40 @@ def lm_kernel_phases(dev):
         decode_attention_phase("f32-gqa", SERVE_BATCH, 8, 2, 128, w // 2,
                                w // 2 - 324, None, torch.float32, dev, gen),
     ]
+    torch.cuda.empty_cache()
+    return attn
+
+
+def rglru_kernel_phases(dev):
+    """The RG-LRU scan's forward and backward kernels at the RG-LRU width
+    of the published config: forwards at the serving prompt (the model's
+    decays; the slowest with h0) and at the training shape; backwards at
+    the training shape (both decays) and at the serving prompt's. Runs on
+    another tree's ``src`` too, to compare trees in one call (SKILL.md).
+    Returns (forward phases, backward phases)."""
+    from repro_torch.configs import get_config
+
+    r = get_config(ARCH).rnn_dim
+    gen = torch.Generator().manual_seed(12)
+    s_train = TRAIN_SEQ - 1
     scan = [
-        rglru_phase("path", SERVE_BATCH, SERVE_PROMPT, cfg.rnn_dim, -5.0,
-                    False, dev, gen),
-        rglru_phase("slow-decay", SERVE_BATCH, SERVE_PROMPT, cfg.rnn_dim,
-                    -1e-6, True, dev, gen),
+        rglru_phase("path", SERVE_BATCH, SERVE_PROMPT, r, -5.0, False, dev,
+                    gen),
+        rglru_phase("slow-decay", SERVE_BATCH, SERVE_PROMPT, r, -1e-6, True,
+                    dev, gen),
+        rglru_phase("train", TRAIN_BATCH, s_train, r, -5.0, False, dev, gen),
+    ]
+    cgen = torch.Generator().manual_seed(15)
+    scan_bwd = [
+        rglru_grad_phase("backward", TRAIN_BATCH, s_train, r, -5.0, False,
+                         dev, cgen),
+        rglru_grad_phase("backward-slow-decay", TRAIN_BATCH, s_train, r,
+                         -1e-6, True, dev, cgen),
+        rglru_grad_phase("backward-prefill-shape", SERVE_BATCH, SERVE_PROMPT,
+                         r, -5.0, False, dev, cgen),
     ]
     torch.cuda.empty_cache()
-    return attn, scan
+    return scan, scan_bwd
 
 
 def serve_exactness(dev):
@@ -1232,11 +1273,20 @@ def fused_ce_grad_phase(t, d, v, dev, gen):
 
 
 def rglru_grad_phase(name, b, s, c, log_a, with_h0, dev, gen):
-    """``RGLRUScan``'s backward (one more scan launch, reversed in time)
+    """``RGLRUScan``'s backward (one launch of ``rglru_scan_bwd_kernel``)
     against autograd through the plain loop: ∂log_a, ∂b (and ∂h0) to rtol
-    1e-5 plus 1e-5 of the largest value."""
+    1e-5 plus 1e-5 of the largest value. ``bwd_ms`` is the backward
+    kernel's device time a call (profiler; None on a tree whose trace holds
+    no such kernel), ``bwd_device_ms`` the device
+    time of every kernel the backward runs (cotangents handed straight to
+    it: on a tree whose backward is the forward kernel run reversed, its
+    scan and tensor ops), ``bwd_call_ms`` the gradient of the loss Σ ḡ·h +
+    Σ ḡ_final·h_final, its own products included (CUDA events)."""
     from repro_torch.kernels.rglru_scan import ops
+    from repro_torch.kernels.rglru_scan import ref as plain
     from repro_torch.kernels.rglru_scan.ref import rglru_ref
+
+    fused = hasattr(ops, "rglru_scan_backward")  # absent on older trees
 
     la = (log_a * (0.9 + 0.2 * torch.rand(b, s, c, generator=gen))).to(dev)
     bx = torch.randn(b, s, c, generator=gen).to(dev)
@@ -1270,24 +1320,43 @@ def rglru_grad_phase(name, b, s, c, log_a, with_h0, dev, gen):
         err = max(err, float((a - ref).abs().max()))
     del ref_out, ref_ins, want
     bwd = lambda: torch.autograd.grad(out, ins, retain_graph=True)
-    bwd_ms = median_ms(bwd, reps=10, warm=2)
+    call_ms = median_ms(bwd, reps=10, warm=2)
+    ins2 = [a.detach().clone().requires_grad_() for a in ins]  # the scan alone
+    y, hf = ops.rglru_scan(ins2[0], ins2[1], ins2[2] if with_h0 else None)
+    only = lambda: torch.autograd.grad((y, hf), ins2, (gh, gl),
+                                       retain_graph=True)
+    kernel_ms = device_ms(only, ("rglru_scan_bwd_kernel",), fallback=False)
+    all_ms = device_ms(only, ("",))
+    phase = {}
+    if fused:
+        h = y.detach()
+        direct = lambda: ops.rglru_scan_backward(la, h, h0, gh, gl)
+        phase["bwd_plain_ms"] = median_ms(
+            lambda: plain.rglru_bwd_ref(la, h, h0, gh, gl), reps=5, warm=1)
+        phase["device_kernels"] = device_kernels(direct)
     # bytes: log_a, the saved h and ḡ read, ∂log_a and ∂b written
     b_ms, b_by = bound(5 * b * s * c * 4 + b * c * 4 * (3 if with_h0 else 2),
                        6.0 * b * s * c)
+    kernel = ("no rglru_scan_bwd_kernel ran" if kernel_ms is None
+              else f"backward kernel {kernel_ms:.6f} ms")
     log(f"rglru_scan backward[{name}: B={b} S={s} C={c} log_a≈{log_a:g} "
-        f"h0={with_h0}] max|Δ|={err:.3g}, backward call {bwd_ms:.4f} ms, "
-        f"bound {b_ms:.6f} ms ({b_by})")
+        f"h0={with_h0}] max|Δ|={err:.3g}, {kernel}, "
+        f"all the backward's device work {all_ms:.6f} ms, backward call "
+        f"{call_ms:.4f} ms, plain {phase.get('bwd_plain_ms', float('nan')):.4f}"
+        f" ms, bound {b_ms:.6f} ms ({b_by})")
+    del out, ins, ins2, y, hf
     torch.cuda.empty_cache()
     return {"phase": name, "B": b, "S": s, "C": c, "log_a": log_a,
-            "max_abs_err": err, "bwd_call_ms": bwd_ms, "bound_ms": b_ms,
-            "bound_by": b_by}
+            "max_abs_err": err, "bwd_ms": kernel_ms, "bwd_device_ms": all_ms,
+            "bwd_call_ms": call_ms, "bound_ms": b_ms, "bound_by": b_by,
+            **phase}
 
 
 def train_kernel_phases(dev):
     """fused_ce at the training path's shape (T = 4096 tokens of the
     published width and vocab; bf16 in the path's rounding mode and in the
-    float32-products mode, f32, and a ragged T), FusedCE's and RGLRUScan's
-    backwards."""
+    float32-products mode, f32, and a ragged T) and FusedCE's backward
+    (RGLRUScan's: :func:`rglru_kernel_phases`)."""
     from repro_torch.configs import get_config
 
     cfg = get_config(ARCH)
@@ -1303,14 +1372,7 @@ def train_kernel_phases(dev):
                        gen, round_logits=True),
     ]
     ce_grad = fused_ce_grad_phase(CE_TOKENS, d, v, dev, gen)
-    cgen = torch.Generator().manual_seed(15)
-    scan_bwd = [
-        rglru_grad_phase("backward", TRAIN_BATCH, TRAIN_SEQ - 1, cfg.rnn_dim,
-                         -5.0, False, dev, cgen),
-        rglru_grad_phase("backward-slow-decay", TRAIN_BATCH, TRAIN_SEQ - 1,
-                         cfg.rnn_dim, -1e-6, True, dev, cgen),
-    ]
-    return ce, ce_grad, scan_bwd
+    return ce, ce_grad
 
 
 def train_path(dev):
@@ -1326,18 +1388,20 @@ def train_path(dev):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    cops.launch_count = rops.launch_count = 0
+    cops.launch_count = rops.launch_count = rops.bwd_launch_count = 0
     aops.launch_count = wops.launch_count = 0
     model, hist = train_reduced(ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
                                 seq=TRAIN_SEQ, log_every=TRAIN_STEPS, seed=0,
                                 full=True, n_layers=TRAIN_LAYERS,
                                 dtype=torch.bfloat16, device=dev)
     launches = {"fused_ce": cops.launch_count, "rglru_scan": rops.launch_count,
+                "rglru_scan_bwd": rops.bwd_launch_count,
                 "decode_attention": aops.launch_count,
                 "rwkv6_scan": wops.launch_count}
     peak = torch.cuda.max_memory_allocated(dev)
     n_rglru = layer_kinds(model.cfg).count("rglru")
     want = {"fused_ce": TRAIN_STEPS, "rglru_scan": 2 * n_rglru * TRAIN_STEPS,
+            "rglru_scan_bwd": n_rglru * TRAIN_STEPS,
             "decode_attention": 0, "rwkv6_scan": 0}
     if launches != want:
         raise AssertionError(f"training launches {launches}, want {want}")
@@ -1357,7 +1421,8 @@ def train_path(dev):
         f"grad norm {[round(h['grad_norm'], 4) for h in hist]}, lr {lrs}; "
         f"launches per step: "
         f"fused_ce {launches['fused_ce'] / TRAIN_STEPS:g}, rglru_scan "
-        f"{launches['rglru_scan'] / TRAIN_STEPS:g}")
+        f"{launches['rglru_scan'] / TRAIN_STEPS:g} (of which backward "
+        f"{launches['rglru_scan_bwd'] / TRAIN_STEPS:g})")
     return launches, model, {"step_ms": step_ms,
                              "tokens_per_s": tokens / step_ms * 1e3,
                              "peak_gib": peak / 2**30}
@@ -1453,9 +1518,10 @@ def main() -> int:
                 log("  ptxas: " + line.strip())
 
     bright, z, mnist = kernel_phases(dev)
-    attn, scan = lm_kernel_phases(dev)
+    attn = lm_kernel_phases(dev)
+    scan, scan_bwd = rglru_kernel_phases(dev)
     wkv = rwkv_kernel_phases(dev)
-    ce, ce_grad, scan_bwd = train_kernel_phases(dev)
+    ce, ce_grad = train_kernel_phases(dev)
     launches = main_path(mnist)
     waits = step_syncs(mnist)
     if waits:
@@ -1478,9 +1544,11 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
-    for p in bright + z:
+    for p in bright + z + scan + scan_bwd:
         one_kernel_a_call(p, "bright_glm_kernel" if p in bright
-                          else "z_candidates_kernel")
+                          else "z_candidates_kernel" if p in z
+                          else "rglru_scan_kernel" if p in scan
+                          else "rglru_scan_bwd_kernel")
         del p["device_kernels"]  # checked; too long for the kernels line
     main_b = next(p for p in bright if p["phase"] == "logistic")
     main_z = next(p for p in z if p["phase"] == "mnist")
@@ -1516,10 +1584,15 @@ def main() -> int:
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:61",
          "launches": serve_launches["rglru_scan"],
          "launches_train": train_launches["rglru_scan"],
+         "launches_bwd_train": train_launches["rglru_scan_bwd"],
          "max_abs_err": max(p["max_abs_err"] for p in scan + scan_bwd),
          "ms": scan[0]["ms"], "call_ms": scan[0]["call_ms"],
          "plain_ms": scan[0]["plain_ms"], "bound_ms": scan[0]["bound_ms"],
          "bound_by": scan[0]["bound_by"], "library_ms": None,
+         "bwd_ms": scan_bwd[0]["bwd_ms"],
+         "bwd_call_ms": scan_bwd[0]["bwd_call_ms"],
+         "bwd_bound_ms": scan_bwd[0]["bound_ms"],
+         "bwd_plain_ms": scan_bwd[0]["bwd_plain_ms"],
          "phases": scan + scan_bwd},
         {"name": "rwkv6_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rwkv6_scan.cu",

@@ -58,14 +58,17 @@
 // ceiling.
 //
 // The descriptors hold the base pointers, so they are encoded per call
-// (cuTensorMapEncodeTiled, taken through cudaGetDriverEntryPoint: no -lcuda)
-// and passed by value as __grid_constant__ parameters.
+// (cuTensorMapEncodeTiled, taken through cudaGetDriverEntryPoint: no -lcuda;
+// the barrier and TMA helpers are in tma.cuh) and passed by value as
+// __grid_constant__ parameters.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -226,59 +229,6 @@ constexpr int kStageBytes = kXBytes + (kWV / kBoxV) * kBoxBytes;  // 48 KB
 constexpr int kWgThreads = 384;  // consumer warpgroups 0, 1; producer 2
 constexpr int kWgmmaSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
 static_assert(kSplitCols % kWV == 0, "a split is whole tiles");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed. A
-// wait longer than ~2^34 cycles (seconds) can only be a broken pipeline:
-// trap, so the launch fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  while (true) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
 
 // A wgmma shared-memory descriptor for a 128-byte swizzled operand: start
 // address, leading and stride byte offsets (16-byte units), layout type 1.
@@ -522,32 +472,6 @@ __global__ void ce_merge_kernel(const float* __restrict__ part,
   lse[t] = m + logf(se);
   const int lab = labels[t];
   tgt[t] = (lab >= 0 && lab < V) ? ptg[(size_t)(lab / kSplitCols) * T + t] : 0.f;
-}
-
-// cuTensorMapEncodeTiled (libcuda), looked up through the CUDA runtime.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A row-major (rows, cols) bf16 matrix read in (box_rows, box_cols) boxes,

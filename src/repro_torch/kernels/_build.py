@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` file is compiled for ``sm_90a`` by its own ``nvcc``
 process (all started together), linked into ``build/repro_torch/
 libkernels.so`` at the root of the checkout, and loaded with ``ctypes``. The
-sources are the only inputs; the build runs at first use and is skipped when
-a library built from the same sources and flags is already there. No fast
+sources (``*.cu`` and the ``*.cuh`` headers they include) are the only
+inputs; the build runs at first use and is skipped when a library built from
+the same sources and flags is already there. No fast
 math: δ feeds accept decisions.
 
 Each C entry point takes device pointers (``tensor.data_ptr()``) and the
@@ -61,7 +62,7 @@ def build() -> Path:
     sources = sorted(CSRC.glob("*.cu"))
     so = BUILD_DIR / "libkernels.so"
     stamp = BUILD_DIR / "libkernels.sha256"
-    digest = _digest(sources)
+    digest = _digest(sources + sorted(CSRC.glob("*.cuh")))
     if so.exists() and stamp.exists() and stamp.read_text() == digest:
         build_seconds = None
         return so
@@ -119,6 +120,12 @@ def _declare(lib) -> None:
         i, i, i, p,  # B S C stream
     ]
     lib.rglru_scan_launch.restype = i
+    lib.rglru_scan_bwd_launch.argtypes = [
+        p, p, p, p, p,  # log_a g_h h h0 (or null) g_last (or null)
+        p, p, p,  # d_log_a (or null) d_bx d_h0 (or null)
+        i, i, i, p,  # B S C stream
+    ]
+    lib.rglru_scan_bwd_launch.restype = i
     lib.rwkv6_scan_launch.argtypes = [
         p, p, p, p, p, p,  # r k v logw u state0 (or null)
         p, p,  # y state

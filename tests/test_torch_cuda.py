@@ -24,7 +24,7 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.fused_ce import ops as cops
 from repro_torch.kernels.fused_ce.ref import fused_ce_ref
 from repro_torch.kernels.rglru_scan import ops as rops
-from repro_torch.kernels.rglru_scan.ref import rglru_ref
+from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref, rglru_ref
 from repro_torch.kernels.rwkv6_scan import ops as wops
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_chunked_ref
 from repro_torch.kernels.z_update import ops as zops
@@ -384,7 +384,9 @@ def test_decode_attention_split_kernel_fully_masked_row(dev):
 
 @pytest.mark.parametrize("b,s,c,log_a,with_h0", [
     (2, 64, 96, -1.0, False),
-    (3, 37, 130, -0.3, True),
+    (3, 37, 130, -0.3, True),  # C % 4 != 0: the cp.async route
+    (2, 5, 36, -0.5, True),  # C % 32 != 0 on the TMA route, S < one stage
+    (1, 2047, 4096, -5.25, False),  # S not a multiple of the stage
     (4, 2304, 4096, -5.25, False),  # the serving path, the model's decays
     (4, 2304, 4096, -1e-6, True),  # slowest decay the clip allows
 ])
@@ -402,6 +404,83 @@ def test_rglru_scan_kernel_matches_plain(dev, b, s, c, log_a, with_h0):
     # the same float32 operations in the same order as the plain loop
     torch.testing.assert_close(y, y_ref, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(hf, hf_ref, rtol=1e-6, atol=1e-6)
+
+
+def _rglru_inputs(b, s, c, log_a, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    la = (log_a * (0.9 + 0.2 * torch.rand(b, s, c, generator=g))).to(dev)
+    bx = torch.randn(b, s, c, generator=g).to(dev)
+    h0 = torch.randn(b, c, generator=g).to(dev)
+    gh = torch.randn(b, s, c, generator=g).to(dev)
+    gl = torch.randn(b, c, generator=g).to(dev)
+    return la, bx, h0, gh, gl
+
+
+@pytest.mark.parametrize("b,s,c", [(2, 300, 64), (3, 37, 130), (2, 5, 36)])
+def test_rglru_scan_kernel_h_final_and_split_bitwise(dev, b, s, c):
+    """h_final is bitwise y[:, -1]; scanning [0, s0) and then [s0, S) from
+    the first part's h_final is bitwise one scan of [0, S), on both routes
+    (C = 130 stages by cp.async), with the split inside a stage."""
+    la, bx, h0, _, _ = _rglru_inputs(b, s, c, -0.7, dev, seed=s + c)
+    for first in (None, h0):
+        y, hf = rops.rglru_scan(la, bx, first)
+        assert torch.equal(hf, y[:, -1])
+        s0 = s // 3 + 1
+        y1, h1 = rops.rglru_scan(la[:, :s0].contiguous(),
+                                 bx[:, :s0].contiguous(), first)
+        y2, h2 = rops.rglru_scan(la[:, s0:].contiguous(),
+                                 bx[:, s0:].contiguous(), h1)
+        assert torch.equal(torch.cat([y1, y2], 1), y)
+        assert torch.equal(h2, hf)
+
+
+@pytest.mark.parametrize("b,s,c", [(2, 2047, 4096), (3, 37, 130)])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("with_g_last", [False, True])
+def test_rglru_scan_bwd_kernel_matches_plain_bitwise(dev, b, s, c, with_h0,
+                                                     with_g_last):
+    """The backward kernel against ``rglru_bwd_ref`` on the card, at the
+    training path's shape (the TMA route) and a ragged one (C = 130, the
+    cp.async route): bitwise. Both take the same float32 operations in the
+    same order — expf against torch's exp, each multiply and add rounded —
+    so nothing is left to a tolerance. g_last None is a zero cotangent."""
+    la, bx, h0, gh, gl = _rglru_inputs(b, s, c, -5.25 if s > 100 else -0.4,
+                                       dev, seed=7 * s + c)
+    h0 = h0 if with_h0 else None
+    gl = gl if with_g_last else None
+    h, _ = rglru_ref(la, bx, h0)
+    before = (rops.launch_count, rops.bwd_launch_count)
+    got = rops.rglru_scan_backward(la, h, h0, gh, gl)
+    torch.cuda.synchronize()
+    assert (rops.launch_count, rops.bwd_launch_count) == (before[0] + 1,
+                                                          before[1] + 1)
+    want = rglru_bwd_ref(la, h, h0, gh, gl)
+    assert got[2] is None if h0 is None else torch.equal(got[2], want[2])
+    for a, w in zip(got[:2], want[:2]):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, w), float((a - w).abs().max())
+    d_la, d_bx, d_h0 = rops.rglru_scan_backward(la, h, h0, gh, gl,
+                                                needs=(False, True, False))
+    assert d_la is None and d_h0 is None and torch.equal(d_bx, want[1])
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_rglru_scan_one_kernel_per_call(dev, direction):
+    """Each wrapper call runs exactly one device kernel under its own name:
+    the backward's reversal, decays and products live in the kernel, with no
+    other tensor op."""
+    la, bx, h0, gh, gl = _rglru_inputs(2, 2047, 4096, -5.25, dev, seed=5)
+    if direction == "forward":
+        fn = lambda: rops.rglru_scan(la, bx, h0)
+        name = "rglru_scan_kernel"
+    else:
+        h, _ = rops.rglru_scan(la, bx, h0)
+        fn = lambda: rops.rglru_scan_backward(la, h, h0, gh, None)
+        name = "rglru_scan_bwd_kernel"
+    before = rops.launch_count
+    calls, made = _device_kernels(fn, reps=10)
+    assert rops.launch_count - before == made
+    assert all(len(c) == 1 and name in c[0] for c in calls), calls
 
 
 def test_serve_full_width_on_card(dev):
@@ -609,7 +688,7 @@ def test_fused_ce_gradient_on_card(dev):
 
 @pytest.mark.parametrize("log_a,with_h0", [(-5.25, False), (-1e-6, True)])
 def test_rglru_scan_gradient_on_card(dev, log_a, with_h0):
-    """RGLRUScan's backward launches the same kernel once more; its
+    """RGLRUScan's backward is one launch of the backward kernel; its
     gradients match autograd through the plain loop."""
     g = torch.Generator().manual_seed(3)
     b, s, c = 2, 200, 96
@@ -620,11 +699,12 @@ def test_rglru_scan_gradient_on_card(dev, log_a, with_h0):
     gl = torch.randn(b, c, generator=g).to(dev)
     ins = [a.clone().requires_grad_() for a in (la, bx)] + (
         [h0.clone().requires_grad_()] if with_h0 else [])
-    before = rops.launch_count
+    before, bwd_before = rops.launch_count, rops.bwd_launch_count
     y, hf = rops.rglru_scan(*ins[:2], ins[2] if with_h0 else None)
     ((y * gh).sum() + (hf * gl).sum()).backward()
     torch.cuda.synchronize()
     assert rops.launch_count == before + 2
+    assert rops.bwd_launch_count == bwd_before + 1
     ref_ins = [a.clone().requires_grad_() for a in (la, bx)] + (
         [h0.clone().requires_grad_()] if with_h0 else [])
     y2, hf2 = rglru_ref(*ref_ins[:2], ref_ins[2] if with_h0 else None)

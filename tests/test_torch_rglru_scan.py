@@ -14,7 +14,7 @@ from repro.kernels.rglru_scan.ops import rglru_scan as jax_kernel
 from repro.kernels.rglru_scan.ref import rglru_ref as jax_ref
 from repro.models.layers import _rglru_scan as jax_model_scan
 from repro_torch.kernels.rglru_scan import ops
-from repro_torch.kernels.rglru_scan.ref import rglru_ref
+from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref, rglru_ref
 
 
 def _np(*arrays):
@@ -145,17 +145,73 @@ def test_scan_gradients_match_jax_grad(log_a, with_h0):
 
 
 def test_scan_backward_is_one_more_scan(monkeypatch):
-    """The backward runs the same scan once more (on the card: the same
-    kernel), so a forward and backward through the wrapper call the scan
-    twice and nothing else."""
+    """The backward is one more scan, reversed in time: on the CPU a
+    forward and backward through the wrapper call the forward scan once and
+    the plain backward (``rglru_bwd_ref``, whose reversed scan is that one
+    more scan) once, and nothing else."""
     la, bx, h0, g_h, g_last = _grad_inputs(-1.0, seed=2, s=20, c=8)
     calls = []
-    real = ops._scan
+    real_scan, real_bwd = ops._scan, ops.rglru_bwd_ref
 
-    def counting(*args):
-        calls.append(args[0].shape)
-        return real(*args)
+    def counting_scan(*args):
+        calls.append(("scan", args[0].shape))
+        return real_scan(*args)
 
-    monkeypatch.setattr(ops, "_scan", counting)
+    def counting_bwd(*args):
+        calls.append(("bwd", args[0].shape))
+        return real_bwd(*args)
+
+    monkeypatch.setattr(ops, "_scan", counting_scan)
+    monkeypatch.setattr(ops, "rglru_bwd_ref", counting_bwd)
     _torch_grads(ops.rglru_scan, la, bx, h0, g_h, g_last)
-    assert calls == [(2, 20, 8), (2, 20, 8)]
+    assert calls == [("scan", (2, 20, 8)), ("bwd", (2, 20, 8))]
+
+
+@pytest.mark.parametrize("log_a", [-5.25, -1e-6])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_bwd_ref_matches_jax_grad(log_a, with_h0):
+    """``rglru_bwd_ref`` alone (the backward kernel's yardstick on the card),
+    fed the plain forward's h, against jax.grad of the model's
+    ``layers._rglru_scan``: ∂log_a, ∂b and ∂h0, at the model's decays and
+    at the slowest the clip allows. 1e-5 relative plus 1e-5 of the largest
+    value, as the gradient cases above."""
+    la, bx, h0, g_h, g_last = _grad_inputs(log_a, seed=int(-log_a * 5) + 9)
+    h0 = h0 if with_h0 else None
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    h, _ = rglru_ref(t(la), t(bx), t(h0))
+    d_la, d_bx, d_h0 = rglru_bwd_ref(t(la), h, t(h0), t(g_h), t(g_last))
+    got = [d_la.numpy(), d_bx.numpy()] + ([d_h0.numpy()] if with_h0 else [])
+    want = _jax_scan_grads(la, bx, h0, g_h, g_last)
+    assert len(got) == len(want)
+    for a, w in zip(got, want):
+        assert np.isfinite(a).all()
+        np.testing.assert_allclose(a, w, rtol=1e-5,
+                                   atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_cpu_backward_goes_through_bwd_ref(with_h0):
+    """On the CPU the wrapper's backward is ``rglru_bwd_ref`` itself: no
+    launch is counted, its gradients are bitwise the plain backward's, and
+    an unused h_final (its cotangent None, not materialised) gives the same
+    gradients as a zero cotangent."""
+    la, bx, h0, g_h, _ = _grad_inputs(-1.0, seed=4, s=33, c=12)
+    h0 = h0 if with_h0 else None
+    before = (ops.launch_count, ops.bwd_launch_count)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (la, bx)]
+    th0 = None if h0 is None else torch.from_numpy(h0).requires_grad_()
+    h, _ = ops.rglru_scan(*ts, th0)  # h_final unused: g_last is None
+    (h * torch.from_numpy(g_h)).sum().backward()
+    assert (ops.launch_count, ops.bwd_launch_count) == before
+    got = [a.grad for a in ts + ([] if th0 is None else [th0])]
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    hp, _ = rglru_ref(t(la), t(bx), t(h0))
+    zero = torch.zeros(la.shape[0], la.shape[2])
+    want = rglru_bwd_ref(t(la), hp, t(h0), t(g_h), zero)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    nothing = rglru_bwd_ref(t(la), hp, t(h0), t(g_h), None)
+    assert all(torch.equal(a, w) for a, w in zip(nothing, want))
+    d_la, d_bx, d_h0 = ops.rglru_scan_backward(
+        t(la), hp, t(h0), t(g_h), None, needs=(False, True, True))
+    assert d_la is None and torch.equal(d_bx, want[1])
+    assert (d_h0 is None) == (h0 is None)
