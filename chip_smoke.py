@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``, at
-first use), then runs four paths — the FlyMC chain, the recurrentgemma-9b
-and the rwkv6-7b LM serving paths, and the recurrentgemma-9b training step —
+first use), then runs its paths — the FlyMC chain (RWMH, MALA, HMC and the
+paper's robust-regression slice path), the recurrentgemma-9b and the
+rwkv6-7b LM serving paths, and the recurrentgemma-9b training step —
 each with its kernels (six sources; ``rglru_scan.cu`` holds a forward and a
 backward kernel):
 
@@ -49,9 +50,22 @@ backward kernel):
    (split-R̂ < 1.1, posterior means within 4 Monte-Carlo standard errors);
 3. runs the gradient path: softmax/MALA at the CIFAR width through the
    bright-GLM ``autograd.Function``;
-4. checks exactness on the card: a run at capacity 64 (overflow re-runs)
-   equals the run at 512 bitwise, and two batched chains equal the chains
-   run one at a time;
+4. checks exactness on the card for RWMH, slice sampling and HMC: a run at
+   capacity 64 (overflow re-runs) equals the run at 512 bitwise, and two
+   batched chains equal the chains run one at a time; then runs HMC at the
+   MNIST width (FlyMC and full-data: split-R̂, accept rate, ms/iter,
+   queries/iter; launch counts; no host wait a step), the main path's
+   configuration on the plain engines and in explicit mode beside the
+   kernel engines (ms/iter; no kernel launch), and the paper's
+   robust-regression experiment at the OPV width: ``robust_data`` (N =
+   1.8M, D = 57, ν = 4), ``GLMModel.robust`` MAP-tuned (600 Adam steps),
+   ``api.firefly(kernel="slice")`` over 2 chains from θ_MAP for 200
+   iterations: ms/iter, queries/iter, bright count, grown capacity, density
+   evaluations a step and each chain's ``n_evals``, host waits a step (the
+   sync debug mode's count held to ``samplers.waits``), the posterior-mean
+   RMSE against θ_true (below 0.02), launch counts worked out from the
+   steps, inits and slice trips, and the full-data slice chain's
+   queries/iter;
 5. checks the serving contract at recurrentgemma-9b's published width in
    float32: prefill 2100 tokens, decode one, and compare the logits with the
    full forward over 2101 tokens (rtol/atol 2e-3) and the greedy token with
@@ -155,6 +169,14 @@ RWKV_EXACT_BATCH, RWKV_EXACT_PROMPT, RWKV_EXACT_STEPS = 2, 1024, 64
 # AdamW moments (137 GB) do not fit one 80 GB card.
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 3, 2, 2049, 6
 DESCENT_STEPS = 8
+# Robust-regression path (paper §4.3): OPV width, slice sampling, from θ_MAP.
+# The posterior mean at N = 1.8M lies within ~1e-3 of θ_true; 0.02 is the
+# limit, far below the O(1) error of a sampler gone astray.
+ROBUST_ITERS, ROBUST_BURN, ROBUST_FULL_ITERS = 200, 50, 3
+ROBUST_RMSE_MAX = 0.02
+# HMC path at the MNIST width, and the plain-engine yardstick.
+HMC_WARMUP, HMC_SAMPLES, HMC_LEAPFROG = 60, 150, 10
+PLAIN_ITERS = 100
 CE_TOKENS = TRAIN_BATCH * (TRAIN_SEQ - 1)  # fused_ce's T on the path: 4096
 
 
@@ -484,6 +506,21 @@ def _mean_se(theta: np.ndarray):
     return flat.reshape(-1, flat.shape[2]).mean(0), np.array(se)
 
 
+def _reset_launches() -> None:
+    from repro_torch.kernels.bright_glm import ops as bops
+    from repro_torch.kernels.z_update import ops as zops
+
+    bops.launch_count = 0
+    zops.launch_count = 0
+
+
+def _launches() -> dict:
+    from repro_torch.kernels.bright_glm import ops as bops
+    from repro_torch.kernels.z_update import ops as zops
+
+    return {"bright_glm": bops.launch_count, "z_update": zops.launch_count}
+
+
 def _flymc_vs_regular(data, warmup, samples, key0):
     """MAP-tune, run FlyMC (warmup, then a resumed sampling run with
     streaming collectors) and the full-data baseline from the same start.
@@ -491,8 +528,6 @@ def _flymc_vs_regular(data, warmup, samples, key0):
     from repro_torch import api
     from repro_torch import random as jr
     from repro_torch.core import diagnostics
-    from repro_torch.kernels.bright_glm import ops as bops
-    from repro_torch.kernels.z_update import ops as zops
     from repro_torch.models.bayes_glm import GLMModel
 
     n, d = data.x.shape
@@ -503,8 +538,7 @@ def _flymc_vs_regular(data, warmup, samples, key0):
                       cand_capacity=CAPACITY, q_db=0.01, step_size=0.03,
                       adapt_target="auto", num_warmup=warmup)
 
-    bops.launch_count = 0
-    zops.launch_count = 0
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     warm = api.sample(alg, jr.key(key0 + 1), warmup, num_chains=CHAINS,
@@ -518,7 +552,7 @@ def _flymc_vs_regular(data, warmup, samples, key0):
     )
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    launches = {"bright_glm": bops.launch_count, "z_update": zops.launch_count}
+    launches = _launches()
     steps = warm.steps_run + tr.steps_run
     want = {"bright_glm": 2 * steps + warm.inits_run + tr.inits_run,
             "z_update": steps}
@@ -577,14 +611,46 @@ def main_path(mnist):
     return r["launches"]
 
 
-def step_syncs(mnist):
-    """Four FlyMC steps at the MNIST width (K = 2, RWMH) under
-    ``torch.cuda.set_sync_debug_mode("warn")``: returns the lines that issued
-    an operation making the host wait for the card, with their counts. A
-    step without them can be captured as a graph."""
+def _syncs(alg, position=None, steps: int = 4):
+    """``steps`` steps of ``alg`` (K = 2, from ``position``, after 3 warm
+    steps) under ``torch.cuda.set_sync_debug_mode("warn")``: returns the
+    lines that issued an operation making the host wait for the card, with
+    their counts, and the slice steps' own count of their waits over those
+    steps. A step without waits can be captured as a graph."""
     import warnings
     from collections import Counter
 
+    from repro_torch import random as jr
+    from repro_torch.core import samplers
+
+    position = alg.default_position if position is None else position
+    k_init, k_steps = jr.split(jr.key(12))
+    state = alg.init(jr.split(k_init, CHAINS), torch.stack([position] * CHAINS))
+    keys = jr.split(k_steps, CHAINS)
+    for _ in range(3):
+        state, _ = alg.step(keys, state)
+        keys = state.rng
+    torch.cuda.synchronize()
+    w0 = samplers.waits
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(steps):
+                state, _ = alg.step(keys, state)
+                keys = state.rng
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # The sync warning itself, not the notice that the mode is a prototype.
+    sites = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                    if "called a synchronizing CUDA operation"
+                    in str(w.message))
+    return dict(sites), samplers.waits - w0
+
+
+def step_syncs(mnist):
+    """Four FlyMC steps at the MNIST width (K = 2, RWMH): the lines that
+    made the host wait for the card (none is the contract)."""
     from repro_torch import api
     from repro_torch import random as jr
     from repro_torch.models.bayes_glm import GLMModel
@@ -594,30 +660,10 @@ def step_syncs(mnist):
     alg = api.firefly(tuned, kernel="rwmh", capacity=CAPACITY,
                       cand_capacity=CAPACITY, q_db=0.01, step_size=0.03,
                       adapt_target="auto", num_warmup=50)
-    k_init, k_steps = jr.split(jr.key(12))
-    state = alg.init(jr.split(k_init, CHAINS),
-                     torch.stack([alg.default_position] * CHAINS))
-    keys = jr.split(k_steps, CHAINS)
-    for _ in range(3):
-        state, _ = alg.step(keys, state)
-        keys = state.rng
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for _ in range(4):
-                state, _ = alg.step(keys, state)
-                keys = state.rng
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    # The sync warning itself, not the notice that the mode is a prototype.
-    sites = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
-                    if "called a synchronizing CUDA operation"
-                    in str(w.message))
+    sites, _ = _syncs(alg)
     log(f"FlyMC steps [MNIST width, {CHAINS} chains, 4 steps]: operations "
-        f"that wait for the card: {dict(sites) or 'none'}")
-    return dict(sites)
+        f"that wait for the card: {sites or 'none'}")
+    return sites
 
 
 def convergence_path():
@@ -640,8 +686,6 @@ def gradient_path():
     from repro_torch import api
     from repro_torch import random as jr
     from repro_torch.data import softmax_data
-    from repro_torch.kernels.bright_glm import ops as bops
-    from repro_torch.kernels.z_update import ops as zops
     from repro_torch.models.bayes_glm import GLMModel
 
     data = softmax_data(jr.key(5), n=N_CIFAR, d=D_CIFAR, k=K_CIFAR)
@@ -651,14 +695,13 @@ def gradient_path():
     alg = api.firefly(tuned, kernel="mala", capacity=1024, cand_capacity=1024,
                       q_db=0.01, step_size=0.002, adapt_target="auto",
                       num_warmup=50)
-    bops.launch_count = 0
-    zops.launch_count = 0
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tr = api.sample(alg, jr.key(7), 100, num_chains=2, init_position=theta_map)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / 100
-    launches = {"bright_glm": bops.launch_count, "z_update": zops.launch_count}
+    launches = _launches()
     want = {"bright_glm": 3 * tr.steps_run + tr.inits_run,
             "z_update": tr.steps_run}
     if launches != want:
@@ -677,6 +720,13 @@ def gradient_path():
     return launches
 
 
+EXACT_RUNS = (  # θ-kernel, its knobs, iterations
+    ("rwmh", {"step_size": 0.02}, 150),
+    ("slice", {"step_size": 0.05}, 40),
+    ("hmc", {"step_size": 0.005, "kernel_params": (("n_leapfrog", 5),)}, 24),
+)
+
+
 def exactness(mnist):
     from repro_torch import api
     from repro_torch import random as jr
@@ -685,33 +735,326 @@ def exactness(mnist):
     model = GLMModel.logistic(mnist)
     tuned = model.map_tuned(model.map_estimate(jr.key(2), steps=200))
 
-    def run(cap, key, n, **kw):
-        alg = api.firefly(tuned, kernel="rwmh", capacity=cap, cand_capacity=cap,
-                          q_db=0.01, step_size=0.02, adapt_target="auto",
-                          num_warmup=50)
-        return api.sample(alg, key, n, **kw)
+    for kernel, kw, iters in EXACT_RUNS:
+        def run(cap, cand, key, n, **sample_kw):
+            alg = api.firefly(tuned, kernel=kernel, capacity=cap,
+                              cand_capacity=cand, q_db=0.01,
+                              adapt_target="auto", num_warmup=50, **kw)
+            return api.sample(alg, key, n, **sample_kw)
 
-    key = jr.key(11)
-    big = run(CAPACITY, key, 150, num_chains=2)
-    small = run(64, key, 150, num_chains=2, chunk_size=25)
-    if not small.steps_run > 150:
-        raise AssertionError("capacity 64 never overflowed")
-    if not torch.equal(big.theta, small.theta):
-        raise AssertionError("capacity 64 run differs from capacity 512 run")
-    for a, b in zip(big.stats, small.stats):
-        if not torch.equal(a, b):
-            raise AssertionError("capacity 64 stats differ from capacity 512")
-    k_init, k_steps = jr.split(key)
-    init_keys, chain_keys = jr.split(k_init, 2), jr.split(k_steps, 2)
-    alg = big.algorithm
-    for c in range(2):
-        st = alg.init(init_keys[c:c + 1], alg.default_position[None])
-        one = api.sample(alg, chain_keys[c], 150, init_state=st)
-        if not torch.equal(one.theta[0], big.theta[c]):
-            raise AssertionError(f"chain {c} alone differs from the batched run")
-    log(f"exactness: capacity 64 ({small.steps_run} steps run, grown to "
-        f"{small.algorithm.spec.capacity}) == capacity 512, bitwise; 2 batched "
-        f"chains == chains run alone, bitwise")
+        key = jr.key(11)
+        big = run(CAPACITY, CAPACITY, key, iters, num_chains=2)
+        # ~120 dark→bright candidates a step overflow 8 slots: re-runs
+        small = run(64, 8, key, iters, num_chains=2, chunk_size=iters // 6)
+        if not small.steps_run > iters:
+            raise AssertionError(f"{kernel}: capacity 64 never overflowed")
+        if not torch.equal(big.theta, small.theta):
+            raise AssertionError(f"{kernel}: capacity 64 run differs from "
+                                 "capacity 512 run")
+        for a, b in zip(big.stats, small.stats):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{kernel}: capacity 64 stats differ "
+                                     "from capacity 512")
+        k_init, k_steps = jr.split(key)
+        init_keys, chain_keys = jr.split(k_init, 2), jr.split(k_steps, 2)
+        alg = big.algorithm
+        for c in range(2):
+            st = alg.init(init_keys[c:c + 1], alg.default_position[None])
+            one = api.sample(alg, chain_keys[c], iters, init_state=st)
+            if not torch.equal(one.theta[0], big.theta[c]):
+                raise AssertionError(f"{kernel}: chain {c} alone differs from "
+                                     "the batched run")
+        if not np.isfinite(big.theta.cpu().numpy()).all():
+            raise AssertionError(f"{kernel}: non-finite samples")
+        log(f"exactness [{kernel}, {iters} iters]: capacity 64 "
+            f"({small.steps_run} steps run, grown to "
+            f"{small.algorithm.spec.capacity}) == capacity 512, bitwise; 2 "
+            "batched chains == chains run alone, bitwise")
+
+
+# ---------------------------------------------------------------------------
+# 5. The robust-regression path, the HMC path, the plain engines
+# ---------------------------------------------------------------------------
+
+
+def robust_kernels_held(spec, data, stats, fs, key):
+    """Both kernels held against their plain versions at the shapes the
+    robust path gave them, on its final state ``fs``: ``bright_glm`` on the
+    bright buffer at the grown capacity, where the stored δ (the slice
+    step's carry) and the stored log-density must also agree with a fresh
+    evaluation at the stored θ; then a candidate draw at the grown
+    candidate capacity, and ``bright_glm`` on those candidates. Returns
+    the largest |δ − δ_plain|.
+
+    The candidates' total (which the path discards) is held against the
+    plain sum of the kernel's own δ, not against the plain total: most of
+    the ~q_db·N candidates have δ near 0, where log(expm1 δ) turns two
+    float32 evaluations of δ that agree to ~1e-6 into terms that differ by
+    up to O(1), so the two totals differ by ~1e-3 relative while every δ
+    and the summation agree. The smoke prints that difference."""
+    from repro_torch import random as jr
+    from repro_torch.core import brightness, flymc
+    from repro_torch.core.numerics import key_words_of
+    from repro_torch.kernels.bright_glm import ops as bops
+    from repro_torch.kernels.bright_glm.ref import (bright_glm_ref,
+                                                    total_of_delta)
+    from repro_torch.kernels.z_update import ops as zops
+    from repro_torch.kernels.z_update.ref import z_candidates_ref
+
+    close = dict(rtol=1e-5, atol=1e-5)
+    kw = dict(family="student_t", **spec.bound.fused_kernel_kwargs())
+    theta = fs.sampler.theta
+    idx, mask = brightness.bright_buffer(fs.bright, spec.capacity)
+    args = (data.x, data.t, data.xi, idx, fs.bright.num, theta)
+    delta, total = bops.bright_glm(*args, **kw)
+    d_ref, t_ref = bright_glm_ref(*args, **kw)
+    torch.testing.assert_close(delta, d_ref, **close)
+    torch.testing.assert_close(total, t_ref, **close)
+    carry = float((fs.sampler.aux - delta).abs()[mask].max())
+    torch.testing.assert_close(fs.sampler.aux[mask], delta[mask], **close)
+    f = flymc.make_joint_logpost(spec, data, stats, idx, fs.bright.num)
+    lp, _ = f(theta)
+    torch.testing.assert_close(fs.sampler.lp, lp, **close)
+    errs = [float((delta - d_ref).abs().max())]
+
+    cap = spec.cand_capacity
+    words = key_words_of(jr.split(key, theta.shape[0]))
+    cand, n_cand = zops.z_candidates(fs.bright.arr, fs.bright.num, words,
+                                     spec.q_db, cap)
+    c_ref, n_ref = z_candidates_ref(fs.bright.arr, fs.bright.num, words,
+                                    spec.q_db, cap)
+    if not (torch.equal(cand, c_ref) and torch.equal(n_cand, n_ref)):
+        raise AssertionError("robust path: z_update at the grown candidate "
+                             "capacity differs from its plain version")
+    nb = torch.clamp(n_cand, max=cap).to(torch.int64)
+    args = (data.x, data.t, data.xi, cand, nb, theta)
+    delta, total = bops.bright_glm(*args, **kw)
+    d_ref, t_ref = bright_glm_ref(*args, **kw)
+    torch.testing.assert_close(delta, d_ref, **close)
+    torch.testing.assert_close(total, total_of_delta(delta, nb), **close)
+    errs.append(float((delta - d_ref).abs().max()))
+    rel = ((total - t_ref).abs() / t_ref.abs()).tolist()
+    log(f"robust path kernels held on the final state: bright_glm at C="
+        f"{spec.capacity} (bright {fs.bright.num.tolist()}) and at the "
+        f"candidates' C={cap} ({n_cand.tolist()} drawn, z_update bitwise) "
+        f"within 1e-5 of plain, max|δ-δ_plain| {max(errs):.3g}; stored δ "
+        f"vs fresh max {carry:.3g}, stored lp {fs.sampler.lp.tolist()} vs "
+        f"fresh {lp.tolist()}; the candidates' total {total.tolist()}, "
+        f"plain {t_ref.tolist()} (relative {rel}), smallest δ "
+        f"{float(d_ref[:, :int(nb.min())].min()):.3g}")
+    return max(errs)
+
+
+def robust_path():
+    """The paper's third experiment (§4.3) at the OPV width: robust
+    Student-t regression (ν = 4, σ = 1, Laplace prior), MAP-tuned bounds,
+    FlyMC with slice sampling, 2 chains from θ_MAP; then a few iterations
+    of the full-data slice chain. Returns the FlyMC run's kernel launches
+    and the largest |δ − δ_plain| of ``robust_kernels_held``."""
+    from repro_torch import api
+    from repro_torch import random as jr
+    from repro_torch.core import brightness, flymc, samplers
+    from repro_torch.data import robust_data
+    from repro_torch.models.bayes_glm import GLMModel
+
+    data, theta_true = robust_data(jr.key(30), n=N_OPV, d=D_OPV, nu=4.0)
+    model = GLMModel.robust(data, nu=4.0, sigma=1.0, prior_scale=1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    theta_map = model.map_estimate(jr.key(31), steps=600, lr=0.02)
+    tuned = model.map_tuned(theta_map)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    alg = api.firefly(tuned, kernel="slice", capacity=2048, cand_capacity=2048,
+                      q_db=0.01, step_size=0.05)
+
+    _reset_launches()
+    w0 = samplers.waits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = api.sample(alg, jr.key(32), ROBUST_ITERS, num_chains=CHAINS,
+                    init_position=theta_map)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = _launches()
+    trips = samplers.waits - w0  # density evaluations, all chains at once
+    want = {"bright_glm": trips + tr.steps_run + tr.inits_run,
+            "z_update": tr.steps_run}
+    if launches != want or min(launches.values()) == 0:
+        raise AssertionError(f"robust path launches {launches}; want {want}")
+
+    theta = tr.theta.cpu().numpy()
+    if theta.shape != (CHAINS, ROBUST_ITERS, D_OPV) or not np.isfinite(
+            theta).all():
+        raise AssertionError(f"bad robust-path samples {theta.shape}")
+    # a slice step moves its chain unless shrinkage hits its cap
+    moved = (np.abs(np.diff(theta, axis=1)).max(-1) > 0).mean(1)
+    if not (moved > 0.5).all():
+        raise AssertionError(f"robust-path chains moved on {moved} of steps")
+    truth = theta_true.cpu().numpy()
+    post = theta[:, ROBUST_BURN:].reshape(-1, D_OPV).mean(0)
+    rmse = float(np.sqrt(np.mean((post - truth) ** 2)))
+    map_rmse = float(np.sqrt(np.mean((theta_map.cpu().numpy() - truth) ** 2)))
+    st = tr.stats
+    q = float(st.lik_queries[:, ROBUST_BURN:].double().mean())
+    bright = float(st.n_bright[:, ROBUST_BURN:].double().mean())
+
+    fs, spec = tr.final_state, tr.algorithm.spec
+    err = robust_kernels_held(spec, tuned.data, tuned.stats, fs, jr.key(35))
+
+    # n_evals of each chain: ten slice steps from the chain's final state
+    idx, _ = brightness.bright_buffer(fs.bright, spec.capacity)
+    f = flymc.make_joint_logpost(spec, tuned.data, tuned.stats, idx,
+                                 fs.bright.num)
+    keys = jr.split(jr.key(33), CHAINS)
+    sampler, evals = fs.sampler, []
+    for i in range(10):
+        sampler, info = samplers.slice_step(f, jr.fold_in(keys, i), sampler,
+                                            torch.exp(fs.log_step))
+        evals.append(info.n_evals)
+    n_evals = torch.stack(evals).double()
+
+    sites, waited = _syncs(tr.algorithm, theta_map)
+    if sum(sites.values()) != waited:
+        raise AssertionError(f"slice steps waited at {sites}, but counted "
+                             f"{waited} loop checks")
+
+    base = api.regular_mcmc(model, kernel="slice", step_size=0.05)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ref = api.sample(base, jr.key(34), ROBUST_FULL_ITERS, num_chains=CHAINS,
+                     init_position=theta_map)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    q_full = float(ref.stats.lik_queries.double().mean())
+    log(f"robust path [Student-t N={N_OPV} D={D_OPV}, slice, {CHAINS} chains, "
+        f"{ROBUST_ITERS} iters, burn {ROBUST_BURN}]: ms/iter "
+        f"{(t1 - t0) * 1e3 / ROBUST_ITERS:.3f} (init and growth included); "
+        f"queries/iter {q:.1f}; bright {bright:.1f}; capacity grown to "
+        f"{spec.capacity} ({tr.inits_run} inits, {tr.steps_run} steps run); "
+        f"density evaluations a step {trips / tr.steps_run:.3f} (all chains "
+        f"at once), n_evals a chain a step {float(n_evals.mean()):.2f} "
+        f"(per chain {n_evals.mean(0).tolist()}); host waits a step "
+        f"{waited / 4:.2f} at {sites}; posterior-mean RMSE vs θ_true "
+        f"{rmse:.5f} (θ_MAP {map_rmse:.5f}, MAP {map_s:.1f} s); steps on "
+        f"which each chain moved {moved.tolist()}; launches "
+        f"{launches}; full-data slice: queries/iter {q_full:.0f}, ms/iter "
+        f"{(t3 - t2) * 1e3 / ROBUST_FULL_ITERS:.3f}")
+    if not rmse < ROBUST_RMSE_MAX:
+        raise AssertionError(f"robust posterior-mean RMSE {rmse} >= "
+                             f"{ROBUST_RMSE_MAX}")
+    # ~q_db·N candidates a step, plus n_evals · bright: far below the
+    # full-data chain's n_evals · N
+    if not q < 2 * spec.q_db * N_OPV:
+        raise AssertionError(f"robust FlyMC queries/iter {q} >= 2·q_db·N")
+    return launches, err
+
+
+def hmc_path(mnist):
+    """FlyMC with HMC at the MNIST width, beside the full-data HMC chain:
+    2 chains from θ_MAP, step size adapted in warmup. HMC's gradients go
+    through the bright-GLM ``autograd.Function``. Returns its launches."""
+    from repro_torch import api
+    from repro_torch import random as jr
+    from repro_torch.core import diagnostics
+    from repro_torch.models.bayes_glm import GLMModel
+
+    model = GLMModel.logistic(mnist)
+    theta_map = model.map_estimate(jr.key(40), steps=400)
+    tuned = model.map_tuned(theta_map)
+    kw = dict(kernel="hmc", step_size=0.005, adapt_target="auto",
+              num_warmup=HMC_WARMUP,
+              kernel_params=(("n_leapfrog", HMC_LEAPFROG),))
+    iters = HMC_WARMUP + HMC_SAMPLES
+    alg = api.firefly(tuned, capacity=CAPACITY, cand_capacity=CAPACITY,
+                      q_db=0.01, **kw)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = api.sample(alg, jr.key(41), iters, num_chains=CHAINS,
+                    init_position=theta_map)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = _launches()
+    want = {"bright_glm": (HMC_LEAPFROG + 3) * tr.steps_run + tr.inits_run,
+            "z_update": tr.steps_run}
+    if launches != want:
+        raise AssertionError(f"HMC path launches {launches}; want {want}")
+    theta = tr.theta.cpu().numpy()
+    if not np.isfinite(theta).all():
+        raise AssertionError("HMC path produced non-finite samples")
+    moved = float((np.abs(np.diff(theta, axis=1)).max(-1) > 0).mean())
+    if not moved > 0.0:
+        raise AssertionError("FlyMC HMC never accepted")
+    sites, _ = _syncs(tr.algorithm, theta_map)
+    if sites:
+        raise AssertionError(f"the FlyMC HMC step waits for the card: {sites}")
+
+    base = api.regular_mcmc(model, **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ref = api.sample(base, jr.key(42), iters, num_chains=CHAINS,
+                     init_position=theta_map)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    ref_theta = ref.theta.cpu().numpy()
+    log(f"HMC path [logistic N={N_MNIST} D={D_MNIST}, {HMC_LEAPFROG} leapfrog "
+        f"steps, {CHAINS} chains, {HMC_WARMUP} warmup + {HMC_SAMPLES} "
+        f"samples]: split-R̂ flymc "
+        f"{diagnostics.split_r_hat(theta[:, HMC_WARMUP:]):.4f}, regular "
+        f"{diagnostics.split_r_hat(ref_theta[:, HMC_WARMUP:]):.4f}; accept "
+        f"flymc {float(tr.stats.accept_prob[:, HMC_WARMUP:].mean()):.3f} "
+        f"(moved {moved:.3f}), regular "
+        f"{float(ref.stats.accept_prob[:, HMC_WARMUP:].mean()):.3f}; "
+        f"queries/iter flymc "
+        f"{float(tr.stats.lik_queries[:, HMC_WARMUP:].double().mean()):.1f}, "
+        f"regular {float(ref.stats.lik_queries.double().mean()):.0f}; ms/iter "
+        f"flymc {(t1 - t0) * 1e3 / iters:.3f}, regular "
+        f"{(t3 - t2) * 1e3 / iters:.3f}; bright "
+        f"{float(tr.stats.n_bright.double().mean()):.1f}; host waits a step: "
+        f"{sites or 'none'}; launches {launches}")
+    return launches
+
+
+def plain_engines(mnist):
+    """The main path's configuration on the plain engines
+    (``backend="jnp", z_backend="jnp"``) and in explicit mode, beside the
+    kernel engines: ms/iter and queries/iter, a yardstick for the path."""
+    from repro_torch import api
+    from repro_torch import random as jr
+    from repro_torch.models.bayes_glm import GLMModel
+
+    model = GLMModel.logistic(mnist)
+    theta_map = model.map_estimate(jr.key(2), steps=200)
+    tuned = model.map_tuned(theta_map)
+    runs = (("kernels", {}),
+            ("plain", {"backend": "jnp", "z_backend": "jnp"}),
+            ("explicit", {"backend": "jnp", "z_backend": "jnp",
+                          "mode": "explicit"}))
+    out = {}
+    for name, kw in runs:
+        alg = api.firefly(tuned, kernel="rwmh", capacity=CAPACITY,
+                          cand_capacity=CAPACITY, q_db=0.01, step_size=0.03,
+                          adapt_target="auto", num_warmup=50, **kw)
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = api.sample(alg, jr.key(50), PLAIN_ITERS, num_chains=CHAINS,
+                        init_position=theta_map)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / PLAIN_ITERS
+        launches = _launches()
+        if name != "kernels" and any(launches.values()):
+            raise AssertionError(f"{name} engines launched {launches}")
+        if not np.isfinite(tr.theta.cpu().numpy()).all():
+            raise AssertionError(f"{name} engines produced bad samples")
+        out[name] = ms
+        log(f"engines [{name}, logistic N={N_MNIST} D={D_MNIST}, RWMH, "
+            f"{CHAINS} chains, {PLAIN_ITERS} iters]: ms/iter {ms:.3f}, "
+            f"queries/iter {float(tr.stats.lik_queries.double().mean()):.1f}, "
+            f"bright {float(tr.stats.n_bright.double().mean()):.1f}, "
+            f"launches {launches}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1529,7 +1872,11 @@ def main() -> int:
     convergence_path()
     gradient_path()
     exactness(mnist)
+    hmc_launches = hmc_path(mnist)
+    plain_engines(mnist)
     del mnist
+    torch.cuda.empty_cache()
+    robust_launches, robust_err = robust_path()
     torch.cuda.empty_cache()
 
     serve_exactness(dev)
@@ -1557,7 +1904,11 @@ def main() -> int:
          "source": "src/repro_torch/csrc/bright_glm.cu",
          "replaces": "src/repro/kernels/bright_glm/kernel.py:173",
          "launches": launches["bright_glm"],
-         "max_abs_err": max(p["max_abs_err"] for p in bright),
+         "launches_robust": robust_launches["bright_glm"],
+         "launches_hmc": hmc_launches["bright_glm"],
+         "max_abs_err": max([p["max_abs_err"] for p in bright]
+                            + [robust_err]),
+         "max_abs_err_robust": robust_err,
          "ms": main_b["ms"], "call_ms": main_b["call_ms"],
          "plain_ms": main_b["plain_ms"],
          "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
@@ -1565,7 +1916,9 @@ def main() -> int:
         {"name": "z_update", "route": "cuda",
          "source": "src/repro_torch/csrc/z_update.cu",
          "replaces": "src/repro/kernels/z_update/kernel.py:129",
-         "launches": launches["z_update"], "max_abs_err": 0.0,
+         "launches": launches["z_update"],
+         "launches_robust": robust_launches["z_update"],
+         "launches_hmc": hmc_launches["z_update"], "max_abs_err": 0.0,
          "ms": main_z["ms"], "call_ms": main_z["call_ms"],
          "plain_ms": main_z["plain_ms"],
          "bound_ms": main_z["bound_ms"], "bound_by": main_z["bound_by"],

@@ -4,6 +4,7 @@
 from repro_torch.api.algorithm import (
     MCMCState,
     SamplingAlgorithm,
+    algorithm_from_spec,
     firefly,
     regular_mcmc,
 )
@@ -18,6 +19,7 @@ __all__ = [
     "RHat",
     "SamplingAlgorithm",
     "Trace",
+    "algorithm_from_spec",
     "firefly",
     "regular_mcmc",
     "sample",

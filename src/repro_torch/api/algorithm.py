@@ -59,6 +59,7 @@ def firefly(
     cand_capacity: int = 1024,
     q_db: float = 0.01,
     mode: str = "implicit",
+    resample_fraction: float = 0.1,
     step_size: float = 0.1,
     adapt_target: float | str | None = None,
     num_warmup: int = 1000,
@@ -70,12 +71,18 @@ def firefly(
     """Build the FlyMC sampling algorithm (paper §2–3).
 
     ``model`` carries ``.bound/.log_prior/.data`` (and optionally
-    ``.stats``), e.g. :class:`repro_torch.models.bayes_glm.GLMModel`. The
-    engines are the two kernels (``backend="pallas"``,
-    ``z_backend="fused"``, the defaults); the others raise
-    ``NotImplementedError`` until ported. ``adapt_target="auto"`` adapts the
-    step size toward the kernel's standard accept rate during the first
-    ``num_warmup`` iterations only.
+    ``.stats``), e.g. :class:`repro_torch.models.bayes_glm.GLMModel`.
+    ``kernel`` names a θ-kernel ("rwmh", "mala", "slice", "hmc").
+    ``adapt_target="auto"`` adapts the step size toward the kernel's
+    standard accept rate during the first ``num_warmup`` iterations only.
+
+    The engines default to the two kernels, the port's path on the card:
+    ``backend="pallas"`` (the fused bright-GLM kernel; the bound needs a
+    fused family) and ``z_backend="fused"`` (the streamed candidate kernel).
+    The reference defaults to ``backend="jnp", z_backend="jnp"``, the plain
+    engines, which take any bound: pass both for the reference's default
+    chain. ``mode="explicit"`` (Algorithm 1, resampling a random
+    ``resample_fraction`` of z each step) needs ``z_backend="jnp"``.
     """
     dev = resolve_device(device)
     if model is not None:
@@ -88,10 +95,21 @@ def firefly(
     if data.x.device != dev:
         raise ValueError(f"data is on {data.x.device}, but device={dev}")
     bound = bounds_lib.get_bound(bound)
-    if bounds_lib.fused_family_of(bound) is None:
+    if backend not in ("jnp", "pallas"):
+        raise ValueError(f"unknown backend {backend!r}; expected 'jnp' or 'pallas'")
+    if backend == "pallas" and bounds_lib.fused_family_of(bound) is None:
         raise ValueError(
-            f"the kernel engine needs a FusedBound; {type(bound).__name__} "
-            "has no usable fused_family hook"
+            f"backend='pallas' needs a FusedBound; {type(bound).__name__} "
+            "has no usable fused_family hook (backend='jnp' takes any bound)"
+        )
+    if z_backend not in ("jnp", "fused"):
+        raise ValueError(
+            f"unknown z_backend {z_backend!r}; expected 'jnp' or 'fused'")
+    if z_backend == "fused" and mode != "implicit":
+        raise ValueError(
+            "z_backend='fused' requires mode='implicit' (the fused engine "
+            "streams Algorithm 2's sparse dark→bright candidate proposals; "
+            "Algorithm 1's explicit Gibbs resampling has no such stream)"
         )
     if stats is None:
         stats = bound.suffstats(data)
@@ -102,9 +120,9 @@ def firefly(
     spec = FlyMCSpec(
         bound=bound, log_prior=log_prior, kernel=kernel,
         capacity=min(int(capacity), n), cand_capacity=min(int(cand_capacity), n),
-        q_db=q_db, mode=mode, kernel_kwargs=tuple(kernel_params),
-        adapt_target=adapt_target, backend=backend, z_backend=z_backend,
-        num_warmup=int(num_warmup),
+        q_db=q_db, mode=mode, resample_fraction=resample_fraction,
+        kernel_kwargs=tuple(kernel_params), adapt_target=adapt_target,
+        backend=backend, z_backend=z_backend, num_warmup=int(num_warmup),
     )
     return _firefly_from_spec(spec, data, stats, step_size)
 
@@ -148,6 +166,13 @@ def _firefly_from_spec(spec: FlyMCSpec, data: GLMData, stats: CollapsedStats,
         resize=resize, init_overflow=init_overflow,
         default_position=default_position, spec=spec,
     )
+
+
+def algorithm_from_spec(spec: FlyMCSpec, data: GLMData, stats: CollapsedStats,
+                        step_size: float = 0.1) -> SamplingAlgorithm:
+    """Wrap a :class:`FlyMCSpec` as a SamplingAlgorithm on the data's
+    device."""
+    return _firefly_from_spec(spec, data, stats, step_size)
 
 
 # ---------------------------------------------------------------------------

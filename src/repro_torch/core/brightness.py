@@ -21,6 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class BrightState(NamedTuple):
     arr: torch.Tensor  # (K, N) int32 permutation, bright indices first
@@ -40,6 +42,16 @@ def scatter_drop(base: torch.Tensor, index: torch.Tensor, src) -> torch.Tensor:
     return buf.scatter(1, index, src.to(base.dtype))[:, :n]
 
 
+def init(n: int, num_chains: int = 1, bright: bool = False,
+         device="cuda") -> BrightState:
+    """All-dark (default) or all-bright partitions for ``num_chains`` chains."""
+    dev = resolve_device(device)
+    idx = torch.arange(n, dtype=torch.int32, device=dev).expand(num_chains, n)
+    num = torch.full((num_chains,), n if bright else 0, dtype=torch.int64,
+                     device=dev)
+    return BrightState(arr=idx.clone(), tab=idx.clone(), num=num)
+
+
 def from_z(z: torch.Tensor) -> BrightState:
     """Build the partitions from a (K, N) boolean brightness mask (stable)."""
     z = z.to(torch.bool)
@@ -56,6 +68,51 @@ def from_z(z: torch.Tensor) -> BrightState:
 def z_of(state: BrightState) -> torch.Tensor:
     """(K, N) boolean brightness: z[k, n] = (position of n) < num[k]."""
     return state.tab < state.num[:, None]
+
+
+def _swap(state: BrightState, datum, pos, boundary, other, move,
+          num) -> BrightState:
+    """Per chain where ``move``: ``datum`` (at ``pos``) and ``other`` (at
+    ``boundary``) trade places, and the count becomes ``num``."""
+    n = state.arr.shape[1]
+    b = boundary.clamp(0, n - 1)
+    arr = state.arr.scatter(1, b, datum.to(torch.int32))
+    arr = arr.scatter(1, pos, other.to(torch.int32))
+    tab = state.tab.scatter(1, datum, b.to(torch.int32))
+    tab = tab.scatter(1, other, pos.to(torch.int32))
+    keep = move[:, None]
+    return BrightState(arr=torch.where(keep, arr, state.arr),
+                       tab=torch.where(keep, tab, state.tab),
+                       num=torch.where(move, num, state.num))
+
+
+def brighten(state: BrightState, datum: torch.Tensor) -> BrightState:
+    """The paper's O(1) swap: z[k, datum[k]] = 1 (no-op where already
+    bright). ``datum`` is (K,)."""
+    n = state.arr.shape[1]
+    d = datum.to(torch.int64)[:, None]
+    pos = state.tab.gather(1, d).to(torch.int64)
+    boundary = state.num[:, None]  # first dark slot
+    other = state.arr.gather(1, boundary.clamp(max=n - 1)).to(torch.int64)
+    move = (pos >= boundary)[:, 0]
+    return _swap(state, d, pos, boundary, other, move, state.num + 1)
+
+
+def darken(state: BrightState, datum: torch.Tensor) -> BrightState:
+    """The paper's O(1) swap: z[k, datum[k]] = 0 (no-op where already dark).
+    ``datum`` is (K,)."""
+    d = datum.to(torch.int64)[:, None]
+    pos = state.tab.gather(1, d).to(torch.int64)
+    boundary = state.num[:, None] - 1  # last bright slot
+    other = state.arr.gather(1, boundary.clamp(min=0)).to(torch.int64)
+    move = (pos <= boundary)[:, 0]
+    return _swap(state, d, pos, boundary, other, move, state.num - 1)
+
+
+def batch_update(state: BrightState, z_new: torch.Tensor) -> BrightState:
+    """Replace the whole partition given a new (K, N) boolean z."""
+    del state
+    return from_z(z_new)
 
 
 def apply_flips(
@@ -142,6 +199,25 @@ def bright_buffer(state: BrightState, capacity: int):
     idx = state.arr[:, :capacity]
     slots = torch.arange(idx.shape[1], device=idx.device)
     return idx, slots[None] < state.num[:, None]
+
+
+def dark_buffer(state: BrightState, capacity: int):
+    """``(idx, mask)`` over the dark tail ``arr[:, num : num + capacity]``.
+
+    The start is clamped to ``[0, N - min(capacity, N)]``, so a buffer wider
+    than the dark tail takes bright slots, masked; a ``capacity`` above N
+    pads with masked zeros, as the reference does.
+    """
+    k, n = state.arr.shape
+    cap = min(capacity, n)
+    start = state.num.clamp(0, n - cap)[:, None]
+    offset = start + torch.arange(cap, device=state.arr.device)[None]
+    idx = state.arr.gather(1, offset)
+    mask = offset >= state.num[:, None]
+    if capacity > n:
+        idx = torch.nn.functional.pad(idx, (0, capacity - n))
+        mask = torch.nn.functional.pad(mask, (0, capacity - n))
+    return idx, mask
 
 
 def check_invariants(state: BrightState) -> bool:

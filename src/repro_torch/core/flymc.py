@@ -2,20 +2,24 @@
 
 Port of :mod:`repro.core.flymc`, chain-batched: every state tensor carries a
 leading ``(K, ...)`` chain axis, and each step makes one launch of each
-kernel for all K chains. This slice ports the kernelized engines, which are
-the defaults here:
+kernel for all K chains. Every engine and mode of the reference is here:
 
-* ``backend="pallas"`` — the θ-update's bright buffer and the z-update's
-  candidates go through the fused bright-GLM kernel
+* ``backend="pallas"`` (the default) — the θ-update's bright buffer and the
+  z-update's candidates go through the fused bright-GLM kernel
   (:func:`repro_torch.kernels.bright_glm.ops.bright_glm`); the name is the
-  reference's, the kernel is ``csrc/bright_glm.cu``;
-* ``z_backend="fused"`` — the streamed candidate kernel
+  reference's, the kernel is ``csrc/bright_glm.cu``. ``backend="jnp"``
+  gathers the rows and evaluates ``bound.log_lik − bound.log_bound`` in
+  plain PyTorch, so it takes any :class:`~repro_torch.core.bounds.Bound`;
+* ``z_backend="fused"`` (the default) — the streamed candidate kernel
   (:func:`repro_torch.kernels.z_update.ops.z_candidates`) with per-datum
-  counter uniforms and O(changed) partition updates.
+  counter uniforms and O(changed) partition updates. ``z_backend="jnp"`` is
+  the reference's plain implicit engine: length-N ``jax.random`` uniforms, a
+  cumsum compaction of the candidates and a partition rebuilt from z;
+* ``mode="explicit"`` — Algorithm 1's Gibbs resampling of a random
+  ``resample_fraction`` of the data (plain; it needs ``z_backend="jnp"``).
 
-The plain θ-engine (``backend="jnp"``), the plain implicit z-engine
-(``z_backend="jnp"``) and explicit mode raise ``NotImplementedError`` until a
-later slice ports them (ROADMAP queue 1, item 7).
+The reference defaults to the plain engines; the port defaults to the
+kernels, which are its path on the card.
 
 Exactness: uniforms are keyed on datum indices, the bright-GLM total is
 summed in a fixed block order and every other float reduction is a
@@ -35,6 +39,7 @@ from repro_torch import random as jr
 from repro_torch.core import brightness, samplers
 from repro_torch.core.bounds import CollapsedStats, GLMData, fused_family_of
 from repro_torch.core.numerics import (
+    _DELTA_FLOOR,
     DRAW_BRIGHT,
     DRAW_DARKEN,
     counter_uniform,
@@ -45,8 +50,6 @@ from repro_torch.core.numerics import (
 from repro_torch.kernels.bright_glm.ops import bright_glm
 from repro_torch.kernels.z_update.ops import z_candidates
 
-_NOT_PORTED = "is not ported to repro_torch yet (ROADMAP queue 1, item 7)"
-
 
 @dataclasses.dataclass(frozen=True)
 class FlyMCSpec:
@@ -54,25 +57,17 @@ class FlyMCSpec:
 
     bound: Any
     log_prior: Callable[[torch.Tensor], torch.Tensor]
-    kernel: str = "rwmh"  # θ-operator: rwmh | mala
+    kernel: str = "rwmh"  # θ-operator: rwmh | mala | slice | hmc
     capacity: int = 1024  # bright-buffer capacity C
     cand_capacity: int = 1024  # dark→bright candidate buffer capacity
     q_db: float = 0.01  # dark→bright proposal probability (Alg. 2)
-    mode: str = "implicit"  # z-kernel: implicit (Alg. 2)
+    mode: str = "implicit"  # z-kernel: implicit (Alg. 2) | explicit (Alg. 1)
+    resample_fraction: float = 0.1  # explicit mode: fraction of data per round
     kernel_kwargs: tuple = ()
     adapt_target: float | None = None
-    backend: str = "pallas"  # θ-update engine: the fused bright-GLM kernel
-    z_backend: str = "fused"  # z-update engine: the streamed candidate kernel
+    backend: str = "pallas"  # θ-update engine: pallas (the kernel) | jnp
+    z_backend: str = "fused"  # z-update engine: fused (the kernel) | jnp
     num_warmup: int = 1000
-
-    def __post_init__(self):
-        # Only the kernel engines are ported; the others must not run silently.
-        if self.mode != "implicit":
-            raise NotImplementedError(f"mode={self.mode!r} (Algorithm 1) {_NOT_PORTED}")
-        if self.backend != "pallas":
-            raise NotImplementedError(f"backend={self.backend!r} {_NOT_PORTED}")
-        if self.z_backend != "fused":
-            raise NotImplementedError(f"z_backend={self.z_backend!r} {_NOT_PORTED}")
 
     def needs_grad(self) -> bool:
         return samplers.get_kernel(self.kernel).needs_grad
@@ -112,24 +107,53 @@ def _family(spec: FlyMCSpec) -> str:
     return fam
 
 
+def _rows_delta(bound, data: GLMData, theta, idx):
+    """δ = log L − log B on each chain's gathered rows (the plain engine):
+    ``idx`` (K, S) datum ids, clamped, → (K, S). Chains are evaluated one
+    at a time, so a chain's δ does not depend on how many ride along."""
+    i = _clamped(idx, data.x.shape[0])
+    out = []
+    for k in range(theta.shape[0]):
+        rows = GLMData(data.x[i[k]], data.t[i[k]], data.xi[i[k]])
+        th = theta[k:k + 1]
+        out.append(bound.log_lik(th, rows) - bound.log_bound(th, rows))
+    return torch.cat(out)
+
+
 def make_joint_logpost(spec, data: GLMData, stats: CollapsedStats,
                        bright_idx, n_bright) -> samplers.LogDensityFn:
     """f(θ) -> (joint log posterior (K,), δ on the bright buffer (K, C)).
 
     ``bright_idx`` (K, C) int32 slots with the first ``n_bright[k]`` valid
-    (a prefix, as :func:`brightness.bright_buffer` produces); the fused
-    kernel evaluates only those rows plus the O(D²) collapsed product.
+    (a prefix, as :func:`brightness.bright_buffer` produces); only those
+    rows are evaluated, plus the O(D²) collapsed product. ``spec.backend``
+    picks the fused kernel (``"pallas"``) or the plain rows (``"jnp"``).
     """
-    fam = _family(spec)
-    kw = spec.bound.fused_kernel_kwargs()
+    if spec.backend == "pallas":
+        fam = _family(spec)
+        kw = spec.bound.fused_kernel_kwargs()
 
-    def f(theta):
-        delta, s = bright_glm(data.x, data.t, data.xi, bright_idx, n_bright,
-                              theta, family=fam, **kw)
+        def f(theta):
+            delta, s = bright_glm(data.x, data.t, data.xi, bright_idx, n_bright,
+                                  theta, family=fam, **kw)
+            lp = spec.log_prior(theta) + spec.bound.collapsed(theta, stats) + s
+            return lp, delta
+
+        return f
+    if spec.backend != "jnp":
+        raise ValueError(
+            f"unknown backend {spec.backend!r}; expected 'jnp' or 'pallas'"
+        )
+    slots = torch.arange(bright_idx.shape[1], device=bright_idx.device)
+    mask = slots[None] < n_bright[:, None]
+
+    def f_rows(theta):
+        delta = _rows_delta(spec.bound, data, theta, bright_idx)
+        s = tree_sum(torch.where(mask, log_expm1(delta), torch.zeros_like(delta)))
         lp = spec.log_prior(theta) + spec.bound.collapsed(theta, stats) + s
         return lp, delta
 
-    return f
+    return f_rows
 
 
 def _refresh_sampler(spec, data, stats, theta, bright, delta_full):
@@ -148,10 +172,63 @@ def _refresh_sampler(spec, data, stats, theta, bright, delta_full):
 
 
 def _candidate_delta(spec, data, theta, cand_idx, n_cand):
-    """δ on the compacted candidate buffer, through the same fused kernel."""
-    delta, _ = bright_glm(data.x, data.t, data.xi, cand_idx, n_cand, theta,
-                          family=_family(spec), **spec.bound.fused_kernel_kwargs())
-    return delta
+    """δ on the compacted candidate buffer, through the θ-update's engine."""
+    if spec.backend == "pallas":
+        delta, _ = bright_glm(data.x, data.t, data.xi, cand_idx, n_cand, theta,
+                              family=_family(spec),
+                              **spec.bound.fused_kernel_kwargs())
+        return delta
+    return _rows_delta(spec.bound, data, theta, cand_idx)
+
+
+def _implicit_z_update(spec, data, key, theta, bright, delta_full,
+                       delta_bright):
+    """Algorithm 2 by the reference's plain engine. Returns
+    (z_new (K, N), delta_full, queries (K,), overflow (K,)).
+
+    Length-N uniforms from ``split(key, 3)`` gathered by datum; the
+    candidates compacted by a cumsum with padding index N, whose gathers
+    clamp and whose scatters are dropped (the reference's δ there is NaN or
+    garbage, masked out of everything it stores)."""
+    n = data.x.shape[0]
+    ks = jr.split(key, 3)
+    k_bd, k_cand, k_db = ks[:, 0], ks[:, 1], ks[:, 2]
+    dt = delta_full.dtype
+    dev = delta_full.device
+    z = brightness.z_of(bright)
+    log_q = torch.log(torch.full((), spec.q_db, dtype=dt, device=dev))
+
+    # --- bright → dark (free: reuses cached δ) -----------------------------
+    idx_b, mask_b = brightness.bright_buffer(bright, spec.capacity)
+    ib = idx_b.to(torch.int64)
+    u1 = jr.uniform(k_bd, (n,)).gather(1, ib)
+    darken = mask_b & (torch.log(u1) + log_expm1(delta_bright) < log_q)
+    z = z.scatter(1, ib, z.gather(1, ib) & ~darken)
+
+    # --- dark → bright (candidates pay a likelihood query each) ------------
+    cap = spec.cand_capacity
+    u2 = jr.uniform(k_cand, (n,))
+    cand = ~brightness.z_of(bright) & (
+        u2 < torch.full((), spec.q_db, dtype=dt, device=dev))
+    n_cand = cand.sum(1)
+    overflow_c = n_cand > cap
+    pos = torch.cumsum(cand, dim=1) - 1
+    scatter_to = torch.where(cand, pos, torch.full_like(pos, cap))
+    ids = torch.arange(n, dtype=torch.int32, device=dev).expand_as(pos)
+    cand_idx = brightness.scatter_drop(
+        torch.full((z.shape[0], cap), n, dtype=torch.int32, device=dev),
+        scatter_to, ids)
+    mask_c = torch.arange(cap, device=dev)[None] < n_cand[:, None]
+    delta_c = _candidate_delta(spec, data, theta, cand_idx,
+                               torch.clamp(n_cand, max=cap))
+    cand_cl = _clamped(cand_idx, n)
+    u3 = jr.uniform(k_db, (n,)).gather(1, cand_cl)
+    brighten = mask_c & (torch.log(u3) + log_q < log_expm1(delta_c))
+    z = brightness.scatter_drop(z, cand_idx, z.gather(1, cand_cl) | brighten)
+    delta_full = brightness.scatter_drop(
+        delta_full, cand_idx,
+        torch.where(mask_c, delta_c, delta_full.gather(1, cand_cl)))
+    return z, delta_full, n_cand, overflow_c
 
 
 def _fused_z_update(spec, data, key, theta, bright, delta_full, delta_bright):
@@ -188,6 +265,26 @@ def _fused_z_update(spec, data, key, theta, bright, delta_full, delta_bright):
     return bright_new, delta_full, n_cand.to(torch.int64), overflow_c
 
 
+def _explicit_z_update(spec, data, key, theta, bright, delta_full):
+    """Algorithm 1 lines 3–6: Gibbs resampling of a random subset of
+    ``r = max(1, round(N·resample_fraction))`` data, drawn without
+    replacement (a permutation slice: its scatters never collide).
+    Returns (z_new (K, N), delta_full, queries (K,), overflow (K,))."""
+    n = data.x.shape[0]
+    r = max(1, int(round(n * spec.resample_fraction)))
+    ks = jr.split(key)
+    k_idx, k_z = ks[:, 0], ks[:, 1]
+    idx = jr.permutation(k_idx, n)[:, :r].to(torch.int64)
+    delta = _rows_delta(spec.bound, data, theta, idx)
+    # p(z=1) = (L-B)/L = -expm1(-δ)
+    p_bright = -torch.expm1(-torch.clamp(delta, min=_DELTA_FLOOR))
+    z_idx = jr.uniform(k_z, (r,)) < p_bright
+    z = brightness.z_of(bright).scatter(1, idx, z_idx)
+    delta_full = delta_full.scatter(1, idx, delta)
+    queries = torch.full_like(bright.num, r)
+    return z, delta_full, queries, torch.zeros_like(queries, dtype=torch.bool)
+
+
 def flymc_step(spec, data: GLMData, stats: CollapsedStats,
                state: FlyMCState) -> tuple[FlyMCState, StepStats]:
     """θ-update followed by z-update (paper §2 alternation), K chains."""
@@ -206,10 +303,28 @@ def flymc_step(spec, data: GLMData, stats: CollapsedStats,
     )
 
     # ---- z | θ -------------------------------------------------------------
-    bright_new, delta_full, queries_z, overflow_c = _fused_z_update(
-        spec, data, key_z, new_sampler.theta, state.bright, delta_full,
-        new_sampler.aux,
-    )
+    if spec.mode == "implicit" and spec.z_backend == "fused":
+        bright_new, delta_full, queries_z, overflow_c = _fused_z_update(
+            spec, data, key_z, new_sampler.theta, state.bright, delta_full,
+            new_sampler.aux,
+        )
+    elif spec.mode == "implicit":
+        z_new, delta_full, queries_z, overflow_c = _implicit_z_update(
+            spec, data, key_z, new_sampler.theta, state.bright, delta_full,
+            new_sampler.aux,
+        )
+        bright_new = brightness.from_z(z_new)
+    elif spec.z_backend == "fused":
+        raise ValueError(
+            "z_backend='fused' requires mode='implicit' (Algorithm 1's "
+            "explicit Gibbs resampling re-evaluates a dense subset, so "
+            "there is no sparse candidate stream to fuse)"
+        )
+    else:
+        z_new, delta_full, queries_z, overflow_c = _explicit_z_update(
+            spec, data, key_z, new_sampler.theta, state.bright, delta_full
+        )
+        bright_new = brightness.from_z(z_new)
     overflow = overflow_c | (bright_new.num > spec.capacity)
     refreshed, extra_q = _refresh_sampler(
         spec, data, stats, new_sampler.theta, bright_new, delta_full

@@ -8,7 +8,7 @@ raises); a CPU tensor goes to the plain version in :mod:`.ref`. Chains are
 the leading axis of ``idx``, ``n_bright`` and ``theta``; ``x``, ``t`` and
 ``xi`` are shared by every chain and never broadcast.
 
-The gradient (MALA) is a ``torch.autograd.Function`` whose forward is the
+The gradient (MALA, HMC) is a ``torch.autograd.Function`` whose forward is the
 kernel and whose backward re-evaluates the rows with the plain version, as
 the reference's ``custom_vjp`` does; it is taken with respect to θ only.
 The row cotangents are summed into θ with ``tree_sum`` over the slot axis,
@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.numerics import tree_sum
+from repro_torch.core.numerics import log_expm1, tree_sum
 from repro_torch.kernels import _build
 from repro_torch.kernels.bright_glm.ref import (
     BLOCK_ROWS,
@@ -27,7 +27,6 @@ from repro_torch.kernels.bright_glm.ref import (
     bright_glm_ref,
     delta_of_scores,
     row_scores,
-    total_of_delta,
 )
 
 _FAMILY_CODE = {"logistic": 0, "student_t": 1, "softmax": 2}
@@ -158,14 +157,20 @@ class _BrightGLM(torch.autograd.Function):
         with torch.enable_grad():
             scores = row_scores(rows, theta, family).detach().requires_grad_()
             delta = delta_of_scores(scores, t[i], xi[i], family, nu, sigma)
-            total = total_of_delta(delta, n_bright)
             outs, grads = [], []
             if g_delta is not None:
                 outs.append(delta)
                 grads.append(g_delta)
             if g_total is not None:
-                outs.append(total)
-                grads.append(g_total)
+                # The total is Σ log_expm1(δ) over the first n_bright slots,
+                # so its cotangent there is g_total and 0 past them: what
+                # autograd through total_of_delta's blocked sum gives, with
+                # none of its per-row nodes.
+                slots = torch.arange(delta.shape[1], device=delta.device)
+                valid = slots[None] < n_bright.to(torch.int64)[:, None]
+                outs.append(log_expm1(delta))
+                grads.append(torch.where(valid, g_total[:, None],
+                                         torch.zeros_like(delta)))
             (g_scores,) = torch.autograd.grad(outs, (scores,), grads)
         if family == "softmax":  # (K, C, Kc) ⊗ (K, C, D) → (K, Kc, D)
             prod = g_scores[:, :, :, None] * rows[:, :, None, :]

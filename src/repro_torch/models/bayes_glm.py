@@ -18,6 +18,7 @@ import torch
 
 from repro_torch import random as jr
 from repro_torch.core import bounds as bounds_lib
+from repro_torch.core import flymc
 from repro_torch.core.bounds import GLMData
 from repro_torch.device import resolve_device
 
@@ -105,3 +106,29 @@ class GLMModel:
         """Retighten bounds at θ_MAP and rebuild suff-stats (one-time cost)."""
         data = self.bound.tighten(theta_map, self.data)
         return dataclasses.replace(self, data=data, stats=self.bound.suffstats(data))
+
+    # ---- api glue ------------------------------------------------------------
+
+    def algorithm(self, **kw):
+        """FlyMC SamplingAlgorithm over this model (see ``api.firefly``)."""
+        from repro_torch import api
+
+        return api.firefly(self, **{"device": self.device, **kw})
+
+    def baseline(self, **kw):
+        """Full-data MCMC SamplingAlgorithm (see ``api.regular_mcmc``)."""
+        from repro_torch import api
+
+        return api.regular_mcmc(self, **{"device": self.device, **kw})
+
+    def flymc_spec(self, kernel: str = "rwmh", capacity: int = 1024,
+                   cand_capacity: int = 1024, q_db: float = 0.01,
+                   mode: str = "implicit", **kw) -> flymc.FlyMCSpec:
+        """A :class:`FlyMCSpec` over this model (for
+        ``api.algorithm_from_spec``); capacities are capped at N."""
+        n = self.data.x.shape[0]
+        return flymc.FlyMCSpec(
+            bound=self.bound, log_prior=self.log_prior, kernel=kernel,
+            capacity=min(capacity, n), cand_capacity=min(cand_capacity, n),
+            q_db=q_db, mode=mode, **kw,
+        )

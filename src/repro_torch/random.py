@@ -4,7 +4,8 @@ A key is an int64 tensor of shape ``(..., 2)`` holding the two uint32 words
 of a jax threefry key; leading axes batch keys (one row per chain). Every
 function here reproduces jax 0.9.0's ``threefry2x32`` implementation with
 ``jax_threefry_partitionable=True`` bit for bit: ``split``, ``fold_in``,
-``bits``, ``uniform``, ``bernoulli`` and ``randint`` match exactly;
+``bits``, ``uniform``, ``bernoulli``, ``randint`` and ``permutation`` match
+exactly;
 ``normal`` goes through ``erfinv``, whose float32 implementations differ
 between the libraries by a few ulps.
 
@@ -115,3 +116,25 @@ def randint(k, shape, minval: int, maxval: int) -> torch.Tensor:
     off = (((hi_bits % span) * mult) & M32) + (lo_bits % span)
     off = (off & M32) % span
     return (off + int(minval)).to(torch.int32)
+
+
+_UINT32_MAX = np.iinfo(np.uint32).max
+
+
+def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, jnp.arange(n))``: ``(..., 2)`` keys →
+    ``(..., n)`` int32 permutations.
+
+    jax's shuffle: ``ceil(3·ln n / ln(2³²−1))`` rounds, each splitting the
+    key, drawing 32 bits a position and stably sorting by them. The bits are
+    sorted as int64: an int32 view would put the values ≥ 2³¹ first.
+    """
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(_UINT32_MAX)))
+    x = torch.arange(n, dtype=torch.int32, device=k.device)
+    x = x.expand(k.shape[:-1] + (n,))
+    for _ in range(rounds):
+        ks = split(k)
+        k, sub = ks[..., 0, :], ks[..., 1, :]
+        order = torch.sort(bits(sub, (n,)), dim=-1, stable=True).indices
+        x = x.gather(-1, order)
+    return x

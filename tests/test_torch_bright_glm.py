@@ -178,3 +178,41 @@ def test_kernel_path_refuses_bad_operands_before_launch(fault):
     with pytest.raises(ValueError, match=rf"^bright_glm: {_FAULTS[fault]} "):
         tops._launch(x, t, xi, idx, nb, theta, family, 4.0, 1.0)
     assert tops._arrivals == before
+
+
+@pytest.mark.parametrize("family", ["logistic", "student_t", "softmax"])
+@pytest.mark.parametrize("with_delta", [False, True])
+def test_backward_equals_autograd_through_the_blocked_total_bitwise(
+        family, with_delta):
+    """The ``autograd.Function``'s backward hands the total's cotangent to
+    each valid slot directly. Taking the slot cotangents by autograd through
+    ``total_of_delta`` (its blocked sum) instead gives the same θ-gradient,
+    bit for bit."""
+    from repro_torch.core.numerics import tree_sum
+    from repro_torch.kernels.bright_glm.ref import (
+        delta_of_scores,
+        row_scores,
+        total_of_delta,
+    )
+
+    x, t, xi, idx, nb, theta = _torch(*_inputs(family, 3, 40, seed=5))
+    g = torch.Generator().manual_seed(1)
+    g_delta = torch.randn(idx.shape, generator=g)
+    g_total = torch.randn(3, generator=g)
+    th = theta.clone().requires_grad_(True)
+    delta, total = tops.bright_glm(x, t, xi, idx, nb, th, family=family,
+                                   **KW[family])
+    outs, cots = ([delta, total], [g_delta, g_total]) if with_delta else (
+        [total], [g_total])
+    (got,) = torch.autograd.grad(outs, th, cots)
+
+    i = idx.to(torch.int64).clamp(0, N - 1)
+    rows = x[i]
+    scores = row_scores(rows, theta, family).requires_grad_()
+    d = delta_of_scores(scores, t[i], xi[i], family, **KW[family])
+    r_outs = [d, total_of_delta(d, nb)] if with_delta else [
+        total_of_delta(d, nb)]
+    (g_scores,) = torch.autograd.grad(r_outs, scores, cots)
+    prod = (g_scores[:, :, :, None] * rows[:, :, None, :]
+            if family == "softmax" else g_scores[:, :, None] * rows)
+    assert torch.equal(got, tree_sum(prod, dim=1))

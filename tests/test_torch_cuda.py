@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain version, the
-exactness contracts of a short chain run on the device, the full-width
+exactness contracts of a short chain run on the device, one slice and one
+HMC step on the card against the CPU, the full-width
 recurrentgemma serving path, the rwkv6 serving path, and the training path
 (the ``FusedCE`` and ``RGLRUScan`` gradients, the reduced trainer).
 
@@ -9,6 +10,8 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +19,7 @@ import torch
 from repro_torch import api
 from repro_torch import random as jr
 from repro_torch.configs import get_reduced
-from repro_torch.data import logistic_data
+from repro_torch.data import logistic_data, robust_data
 from repro_torch.kernels.bright_glm import ops as bops
 from repro_torch.kernels.bright_glm.ref import bright_glm_ref
 from repro_torch.kernels.decode_attention import ops as aops
@@ -34,6 +37,7 @@ from repro_torch.launch.train import train_reduced
 from repro_torch.models import serving as SV
 from repro_torch.models import transformer as T
 from repro_torch.models.bayes_glm import GLMModel
+from _torch_grad_invariance import assert_bound_gradients_batch_invariant
 
 pytestmark = pytest.mark.cuda
 KW = {"logistic": {}, "student_t": {"nu": 4.0, "sigma": 1.5}, "softmax": {}}
@@ -263,6 +267,88 @@ def test_flymc_step_never_waits_on_the_card(dev):
     assert bops.launch_count - b0 == 8 and zops.launch_count - z0 == 4
     assert bool(torch.isfinite(state.sampler.theta).all())
     assert bool(torch.isfinite(stats.joint_lp).all())
+
+
+def test_flymc_hmc_step_never_waits_on_the_card(dev):
+    """FlyMC HMC steps (K = 2, 3 leapfrog steps, gradients through the
+    bright-GLM ``autograd.Function``) never make the host wait either."""
+    data = logistic_data(jr.key(0), n=3000, d=9)
+    model = GLMModel.logistic(data)
+    tuned = model.map_tuned(model.map_estimate(jr.key(1), steps=100))
+    alg = api.firefly(tuned, kernel="hmc", capacity=512, cand_capacity=512,
+                      q_db=0.02, step_size=0.02, adapt_target="auto",
+                      num_warmup=20, kernel_params=(("n_leapfrog", 3),),
+                      device="cuda")
+    k_init, k_steps = jr.split(jr.key(7))
+    state = alg.init(jr.split(k_init, 2),
+                     torch.stack([alg.default_position] * 2))
+    keys = jr.split(k_steps, 2)
+    b0, z0 = bops.launch_count, zops.launch_count
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            state, stats = alg.step(keys, state)
+            keys = state.rng
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # a step: 3 leapfrog gradients, the end point, the candidates, the refresh
+    assert bops.launch_count - b0 == 4 * 6 and zops.launch_count - z0 == 4
+    assert bool(torch.isfinite(state.sampler.theta).all())
+    assert bool(torch.isfinite(stats.joint_lp).all())
+
+
+@pytest.mark.parametrize("family", ["logistic", "softmax", "student_t"])
+@pytest.mark.parametrize("d", [9, 57, 256])
+def test_bound_gradients_are_batch_invariant_on_card(dev, family, d):
+    """On the card too, autograd's gradient of the collapsed bound does not
+    change with the chain count (MALA's and HMC's batched == solo)."""
+    assert_bound_gradients_batch_invariant(family, d, dev)
+
+
+def _moved(tree, dev):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    return type(tree)(*(_moved(a, dev) for a in tree))
+
+
+@pytest.mark.parametrize("kernel", ["slice", "hmc"])
+def test_slice_and_hmc_steps_on_card_match_the_cpu(dev, kernel):
+    """One FlyMC step of each new θ-kernel on the card (the two kernels)
+    and on the CPU (their plain versions) from the same state: the same
+    decisions, density evaluations and partition, θ to rounding."""
+    cpu = torch.device("cpu")
+    if kernel == "slice":
+        data, _ = robust_data(jr.key(0, device=cpu), n=3000, d=9, device=cpu)
+        model = GLMModel.robust(data, device=cpu)
+        kw = {"step_size": 0.05}
+    else:
+        model = GLMModel.logistic(logistic_data(jr.key(0, device=cpu), n=3000,
+                                                d=9, device=cpu), device=cpu)
+        kw = {"step_size": 0.02, "kernel_params": (("n_leapfrog", 4),)}
+    th_map = model.map_estimate(jr.key(1, device=cpu), steps=100)
+    tuned = model.map_tuned(th_map)
+    on_card = dataclasses.replace(tuned, data=_moved(tuned.data, dev),
+                                  stats=_moved(tuned.stats, dev))
+    algs = [api.firefly(m, kernel=kernel, capacity=512, cand_capacity=512,
+                        q_db=0.02, device=m.device, **kw)
+            for m in (tuned, on_card)]
+    k_init, k_steps = jr.split(jr.key(7, device=cpu))
+    state = algs[0].init(jr.split(k_init, 2), torch.stack([th_map] * 2))
+    keys = jr.split(k_steps, 2)
+    for _ in range(3):
+        outs = [alg.step(_moved(keys, d), _moved(state, d))
+                for alg, d in zip(algs, (cpu, dev))]
+        (ref, ref_stats), (new, stats) = outs
+        assert torch.equal(stats.lik_queries.cpu(), ref_stats.lik_queries)
+        assert torch.equal(stats.n_bright.cpu(), ref_stats.n_bright)
+        assert torch.equal(new.bright.arr.cpu(), ref.bright.arr)
+        moved_ref = (ref.sampler.theta != state.sampler.theta).any(-1)
+        moved_new = (new.sampler.theta.cpu() != state.sampler.theta).any(-1)
+        assert torch.equal(moved_new, moved_ref)
+        torch.testing.assert_close(new.sampler.theta.cpu(), ref.sampler.theta,
+                                   rtol=1e-5, atol=1e-6)
+        state, keys = ref, ref.rng
 
 
 def _run(model, cap, key, n_iter, **kw):

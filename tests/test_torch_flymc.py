@@ -196,13 +196,35 @@ def test_resume_equals_contiguous(tuned):
     assert torch.equal(whole.theta, torch.cat([a.theta, b.theta], dim=1))
 
 
-def test_unported_engines_raise(tuned):
-    for kw in ({"backend": "jnp"}, {"z_backend": "jnp"}, {"mode": "explicit"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.firefly(tuned, device=CPU, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.sample(api.firefly(tuned, kernel="slice", device=CPU),
-                   jr.key(0, device=CPU), 2, device=CPU)
+def test_fused_z_with_explicit_mode_raises_like_the_reference(tuned):
+    with pytest.raises(ValueError, match="requires mode='implicit'"):
+        api.firefly(tuned, mode="explicit", device=CPU)
+    spec = tflymc.FlyMCSpec(bound=tuned.bound, log_prior=tuned.log_prior,
+                            capacity=64, cand_capacity=64, mode="explicit")
+    alg = api.algorithm_from_spec(spec, tuned.data, tuned.stats)
+    with pytest.raises(ValueError, match="requires mode='implicit'"):
+        api.sample(alg, jr.key(0, device=CPU), 1, device=CPU)
+
+
+def test_no_firefly_knob_of_the_reference_raises_not_implemented(tuned):
+    import inspect
+
+    # Every knob but axis_names, the distributed one (ROADMAP queue 1).
+    ref = set(inspect.signature(japi.firefly).parameters) - {"axis_names"}
+    assert ref <= set(inspect.signature(api.firefly).parameters)
+    engines = [dict(backend=b, z_backend=z) for b in ("jnp", "pallas")
+               for z in ("jnp", "fused")]
+    engines += [dict(backend=b, z_backend="jnp", mode="explicit",
+                     resample_fraction=0.05) for b in ("jnp", "pallas")]
+    for kw in engines:
+        for kernel in ("rwmh", "mala", "slice", "hmc"):
+            alg = api.firefly(tuned, kernel=kernel, capacity=64,
+                              cand_capacity=64, q_db=0.02, step_size=0.02,
+                              kernel_params=(("n_leapfrog", 2),)
+                              if kernel == "hmc" else (), device=CPU, **kw)
+            tr = api.sample(alg, jr.key(0, device=CPU), 2, num_chains=2,
+                            device=CPU)
+            assert bool(torch.isfinite(tr.theta).all()), (kernel, kw)
 
 
 # ---------------------------------------------------------------------------
