@@ -66,18 +66,38 @@ backward kernel):
    RMSE against θ_true (below 0.02), launch counts worked out from the
    steps, inits and slice trips, and the full-data slice chain's
    queries/iter;
-5. checks the serving contract at recurrentgemma-9b's published width in
+5. drives the FlyMC sampling service (``repro_torch.serve.Service``) on a
+   JAX-free copy of ``benchmarks/_util.py::job_mix``'s five kinds at the
+   paper's widths: 8 jobs (logistic MNIST with 1 and 2 chains, softmax
+   CIFAR-3, robust OPV, and a 2-chain logistic job stopped on batch-means
+   ESS, its target the ESS a solo probe run reads at the first check, so
+   that it stops early), a slot budget of 8 chains (the mix has 11, so jobs
+   queue and join between chunks), 128 samples in chunks of 32, the kernel
+   engines; and the same jobs one after another through ``api.sample``.
+   An instrumented service run (sync debug mode, counted launches) warms
+   both sides; then sequential, service, service, sequential, timed.
+   Prints the service's wall seconds beside the sequential runs', committed
+   chain-samples/s and the re-run share of the lane-steps, latency p50/p95,
+   mean slot occupancy, overflow re-runs and grown capacities, ms per
+   lane-step, host waits a group chunk, launches and the ESS job's
+   committed count and ESS. Checks every service run's results bitwise the
+   solo runs', no fault event and every job retired on ``max_samples`` or
+   ``converged``, the ESS job stopped early, the launches against the
+   engines' lane-steps and inits, one host wait a group chunk without
+   overflow, and both kernels against their plain versions on each
+   group's final lane;
+6. checks the serving contract at recurrentgemma-9b's published width in
    float32: prefill 2100 tokens, decode one, and compare the logits with the
    full forward over 2101 tokens (rtol/atol 2e-3) and the greedy token with
    the forward's argmax;
-6. drives the serving path once through ``repro_torch.launch.serve.serve``
+7. drives the serving path once through ``repro_torch.launch.serve.serve``
    at the published width in bfloat16 (38 layers, d_model 4096, vocab
    256,000, seeded random weights): batch 4, a 2304-token prompt (longer
    than the 2048 window, so the ring wraps), 32 greedy tokens; prints
    prefill ms, decode ms/token, tokens/s and peak memory, and checks 26
    ``rglru_scan`` launches per prefill and 12 ``decode_attention`` launches
    per decode step;
-7. checks the rwkv6-7b serving contract at its published width in float32
+8. checks the rwkv6-7b serving contract at its published width in float32
    (32 layers, d_model 4096, 64 heads × 64, d_ff 14,336, vocab 65,536;
    the init's zero token-shift mixes, decay LoRA and bonus overwritten with
    seeded random values): prefill 1024 tokens (two 512-step time chunks,
@@ -86,11 +106,11 @@ backward kernel):
    position (rtol/atol 2e-3; the forward runs 17 time chunks of 64) and
    each greedy token against the forward's argmax; 64 ``rwkv6_scan``
    launches in the prefill, none in decode;
-8. drives the rwkv6-7b serving path once through ``serve`` at the published
+9. drives the rwkv6-7b serving path once through ``serve`` at the published
    width in bfloat16: batch 4, a 2048-token prompt, 32 greedy tokens;
    prints prefill ms, decode ms/token, tokens/s and peak memory, and checks
    128 ``rwkv6_scan`` launches (32 layers × 4 time chunks of the prefill);
-9. holds ``fused_ce`` against its plain version at the training path's
+10. holds ``fused_ce`` against its plain version at the training path's
    shape (T = 4096 tokens, D = 4096, V = 256,000; bf16 inputs in the path's
    mode, which rounds each logit to bf16, and in the float32-products mode,
    f32 inputs, and a ragged T = 4095 in the path's mode; labels at vocab
@@ -100,7 +120,7 @@ backward kernel):
    library yardstick (its max|Δ nll| printed) and the bound at the bf16
    tensor-core peak (bf16 inputs: the TMA-fed ``wgmma`` kernel, its TFLOP/s
    printed) or the f32 CUDA-core peak (f32 inputs);
-10. checks the backwards on the card: ``FusedCE`` (f32, the path's shape)
+11. checks the backwards on the card: ``FusedCE`` (f32, the path's shape)
    against autograd through the plain version over token chunks, dx and dw
    within 1e-4 of their largest value; ``RGLRUScan`` (B=2, S=2048, C=4096;
    log a ≈ -5 and ≈ -1e-6 with h0; and B=4, S=2304) against autograd
@@ -109,14 +129,14 @@ backward kernel):
    call; prints that kernel's device time, the device time of all the
    backward's work, the backward call's time and the plain backward's
    (``rglru_bwd_ref``);
-11. drives the training path through ``repro_torch.launch.train.
+12. drives the training path through ``repro_torch.launch.train.
    train_reduced`` at the published width cut to 3 layers (rglru, rglru,
    attn; 2.603 B params), f32 master weights and AdamW state, bf16
    compute, batch 2 × 2048 tokens, 6 steps: prints each step's loss, grad
    norm and lr, the median step ms after the first, tokens/s and peak
    memory, and checks a finite loss, 1 ``fused_ce`` and 4 ``rglru_scan``
    launches per step (2 of them the backward kernel);
-12. a descent check: 8 ``make_train_step`` steps (warmup 1) on one fixed
+13. a descent check: 8 ``make_train_step`` steps (warmup 1) on one fixed
    batch at that width; the last loss must be below the first.
 
 Any failure raises (nonzero exit, no result line). The build's ptxas
@@ -177,6 +197,13 @@ ROBUST_RMSE_MAX = 0.02
 # HMC path at the MNIST width, and the plain-engine yardstick.
 HMC_WARMUP, HMC_SAMPLES, HMC_LEAPFROG = 60, 150, 10
 PLAIN_ITERS = 100
+# The sampling service: job_mix's five kinds at the paper's widths, 8 jobs,
+# 8 chain slots (the mix has 11 chains), 128 samples in chunks of 32. The
+# timed comparison with the sequential solo runs alternates the two sides
+# (sequential, service, service, sequential) after an instrumented service
+# run that warms both.
+SERVICE_SLOTS, SERVICE_SAMPLES, SERVICE_CHUNK, SERVICE_WARMUP = 8, 128, 32, 100
+SERVICE_REASONS = ("max_samples", "converged")
 CE_TOKENS = TRAIN_BATCH * (TRAIN_SEQ - 1)  # fused_ce's T on the path: 4096
 
 
@@ -777,9 +804,11 @@ def exactness(mnist):
 # ---------------------------------------------------------------------------
 
 
-def robust_kernels_held(spec, data, stats, fs, key):
+def robust_kernels_held(spec, data, stats, fs, key, family="student_t",
+                        label="robust path"):
     """Both kernels held against their plain versions at the shapes the
-    robust path gave them, on its final state ``fs``: ``bright_glm`` on the
+    robust path (or a ``family`` service lane, ``label``) gave them, on its
+    final state ``fs``: ``bright_glm`` on the
     bright buffer at the grown capacity, where the stored δ (the slice
     step's carry) and the stored log-density must also agree with a fresh
     evaluation at the stored θ; then a candidate draw at the grown
@@ -802,7 +831,7 @@ def robust_kernels_held(spec, data, stats, fs, key):
     from repro_torch.kernels.z_update.ref import z_candidates_ref
 
     close = dict(rtol=1e-5, atol=1e-5)
-    kw = dict(family="student_t", **spec.bound.fused_kernel_kwargs())
+    kw = dict(family=family, **spec.bound.fused_kernel_kwargs())
     theta = fs.sampler.theta
     idx, mask = brightness.bright_buffer(fs.bright, spec.capacity)
     args = (data.x, data.t, data.xi, idx, fs.bright.num, theta)
@@ -824,7 +853,7 @@ def robust_kernels_held(spec, data, stats, fs, key):
     c_ref, n_ref = z_candidates_ref(fs.bright.arr, fs.bright.num, words,
                                     spec.q_db, cap)
     if not (torch.equal(cand, c_ref) and torch.equal(n_cand, n_ref)):
-        raise AssertionError("robust path: z_update at the grown candidate "
+        raise AssertionError(f"{label}: z_update at the grown candidate "
                              "capacity differs from its plain version")
     nb = torch.clamp(n_cand, max=cap).to(torch.int64)
     args = (data.x, data.t, data.xi, cand, nb, theta)
@@ -834,7 +863,7 @@ def robust_kernels_held(spec, data, stats, fs, key):
     torch.testing.assert_close(total, total_of_delta(delta, nb), **close)
     errs.append(float((delta - d_ref).abs().max()))
     rel = ((total - t_ref).abs() / t_ref.abs()).tolist()
-    log(f"robust path kernels held on the final state: bright_glm at C="
+    log(f"{label} kernels held on the final state: bright_glm at C="
         f"{spec.capacity} (bright {fs.bright.num.tolist()}) and at the "
         f"candidates' C={cap} ({n_cand.tolist()} drawn, z_update bitwise) "
         f"within 1e-5 of plain, max|δ-δ_plain| {max(errs):.3g}; stored δ "
@@ -948,6 +977,336 @@ def robust_path():
     if not q < 2 * spec.q_db * N_OPV:
         raise AssertionError(f"robust FlyMC queries/iter {q} >= 2·q_db·N")
     return launches, err
+
+
+def service_mix(seed: int = 0, n_jobs: int = 8):
+    """A JAX-free copy of ``benchmarks/_util.py::job_mix``'s five kinds at
+    the paper's widths: job i is kind i % 5 — logistic K = 1 (MNIST),
+    logistic K = 2 (MNIST), softmax (CIFAR-3), robust (OPV, ν = 4), and
+    logistic K = 2 stopped on batch-means ESS (min_ess = max_samples / 3,
+    checked every 2 chunks, collectors trace + R̂ + ESS; ``service_path``
+    lowers the target to one the job reaches). Each job has its own dataset
+    (key 1000·seed + i) and seed + i as its chain seed; ``capacity =
+    cand_capacity = n // 4``; the kernel engines and RWMH, the Job's
+    defaults."""
+    from repro_torch import api
+    from repro_torch import random as jr
+    from repro_torch.data import logistic_data, robust_data, softmax_data
+    from repro_torch.serve import Job, TerminationPolicy
+
+    fixed = TerminationPolicy(max_samples=SERVICE_SAMPLES)
+    conv = TerminationPolicy(
+        max_samples=SERVICE_SAMPLES, min_samples=max(2, SERVICE_SAMPLES // 8),
+        min_ess=max(8.0, SERVICE_SAMPLES / 3), check_every=2)
+    jobs = []
+    for i in range(n_jobs):
+        key = jr.key(1000 * seed + i)
+        kind = i % 5
+        n = {2: N_CIFAR, 3: N_OPV}.get(kind, N_MNIST)
+        common = dict(seed=seed + i, capacity=max(32, n // 4),
+                      cand_capacity=max(32, n // 4),
+                      num_warmup=SERVICE_WARMUP)
+        if kind in (0, 1):
+            jobs.append(Job(job_id=f"logistic{'2c' * kind}-{i}",
+                            family="logistic", num_chains=1 + kind,
+                            data=logistic_data(key, n=n, d=D_MNIST),
+                            policy=fixed, **common))
+        elif kind == 2:
+            jobs.append(Job(job_id=f"softmax-{i}", family="softmax",
+                            data=softmax_data(key, n=n, d=D_CIFAR,
+                                              k=K_CIFAR),
+                            n_classes=K_CIFAR, policy=fixed, **common))
+        elif kind == 3:
+            data, _ = robust_data(key, n=n, d=D_OPV)
+            jobs.append(Job(job_id=f"robust-{i}", family="robust", data=data,
+                            policy=fixed, **common))
+        else:
+            jobs.append(Job(
+                job_id=f"logistic-conv-{i}", family="logistic", num_chains=2,
+                data=logistic_data(key, n=n, d=D_MNIST), policy=conv,
+                collectors={"trace": api.FullTrace(), "rhat": api.RHat(),
+                            "ess": api.BatchMeansESS()}, **common))
+    return jobs
+
+
+def _ess_checks(job, stop_at=None):
+    """One job alone through ``api.sample``, with the service's
+    TerminationPolicy check at every boundary (the same peeks at the same
+    boundaries). Returns (results, committed, the ESS totals read at the
+    check boundaries). ``stop_at`` is the ESS target (None: never stop)."""
+    from repro_torch import api
+    from repro_torch import random as jr
+    from repro_torch.serve import build_algorithm
+
+    p = job.policy
+    seen = {"chunks": 0, "committed": 0, "totals": []}
+
+    def check(ev):
+        seen["chunks"] += 1
+        seen["committed"] = ev.committed
+        if p.min_ess is None or ev.committed < max(p.min_samples, 1):
+            return False
+        if seen["chunks"] % p.check_every:
+            return False
+        ess = np.asarray(ev.peek("ess")["ess"], np.float64)
+        total = float(np.nansum(ess)) if np.isfinite(ess).any() else 0.0
+        seen["totals"].append(total)
+        return stop_at is not None and total >= stop_at
+
+    tr = api.sample(build_algorithm(job), jr.key(job.seed), p.max_samples,
+                    num_chains=job.num_chains, chunk_size=SERVICE_CHUNK,
+                    collectors=dict(job.collectors), on_chunk=check)
+    return tr.results, seen["committed"], seen["totals"]
+
+
+def _solo_service_job(job):
+    """One job alone through ``api.sample``, stopped where the service's
+    TerminationPolicy stops it. Returns (results, committed)."""
+    results, committed, _ = _ess_checks(job, job.policy.min_ess)
+    return results, committed
+
+
+def _reachable_ess_target(jobs):
+    """The mix with its ESS job's target lowered to the ESS total a solo
+    probe run reads at the first check boundary, so that the job stops
+    there, early: at the paper's widths RWMH from θ = 0 never reaches
+    ``max_samples / 3`` (ESS ~31 a chain after 256 samples on an H100),
+    and the early stop is what the job exists to exercise."""
+    import dataclasses
+
+    out = []
+    for job in jobs:
+        if job.policy.min_ess is not None:
+            _, _, totals = _ess_checks(job)
+            if not totals or not totals[0] > 0:
+                raise AssertionError(f"ESS probe of {job.job_id} read "
+                                     f"{totals} at its check boundaries")
+            job = dataclasses.replace(job, policy=dataclasses.replace(
+                job.policy, min_ess=totals[0]))
+        out.append(job)
+    return out
+
+
+def _sequential(jobs):
+    """The jobs one after another through ``api.sample``: ({job_id:
+    (results, committed)}, wall s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = {job.job_id: _solo_service_job(job) for job in jobs}
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _serviced(jobs, hold=None):
+    """The jobs through one ``Service``: (service, {job_id: JobResult},
+    wall s, {job_id: s from the first submit to retirement}). The service
+    is put in ``hold["svc"]`` before it runs, for instrumentation."""
+    from repro_torch.serve import Service
+
+    svc = Service(slot_budget=SERVICE_SLOTS, chunk_size=SERVICE_CHUNK)
+    if hold is not None:
+        hold["svc"] = svc
+    done_at = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for job in jobs:
+        svc.submit(job)
+
+    def on_update(u):
+        if getattr(u, "done", False):
+            torch.cuda.synchronize()
+            done_at[u.job_id] = time.perf_counter() - t0
+
+    res = svc.run(on_update=on_update)
+    torch.cuda.synchronize()
+    return svc, res, time.perf_counter() - t0, done_at
+
+
+def _check_service_run(name, svc, res, jobs, solo):
+    """Raise unless the run had no fault event, every job retired on
+    ``max_samples`` or ``converged``, and every JobResult is bitwise its
+    solo run (results and committed count)."""
+    if svc.faults:
+        raise AssertionError(f"{name}: fault events {svc.faults}")
+    reasons = {j.job_id: res[j.job_id].reason for j in jobs}
+    if any(r not in SERVICE_REASONS for r in reasons.values()):
+        raise AssertionError(f"{name}: retirement reasons {reasons}")
+    bad = [j.job_id for j in jobs
+           if not (_results_equal(res[j.job_id].results, solo[j.job_id][0])
+                   and res[j.job_id].committed == solo[j.job_id][1])]
+    if bad:
+        raise AssertionError(f"{name}: results differ from solo runs: {bad}")
+
+
+def _results_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_results_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_results_equal(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if a is None or b is None:
+        return a is None and b is None
+    return bool(np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True))
+
+
+def service_path():
+    """The sampling service at the paper's widths: the mix of
+    :func:`service_mix` through ``repro_torch.serve.Service`` with a slot
+    budget of 8 chains (below the mix's 11, so jobs queue and join between
+    chunks), beside the same jobs run one after another through
+    ``api.sample``.
+
+    First an instrumented service run, the phase's main path: launches
+    counted from 0, every group chunk under ``set_sync_debug_mode("warn")``,
+    occupancy and re-run lane-steps recorded. Its launches are worked out
+    from the engines' counted lane-steps and inits, and a group chunk
+    without overflow must wait on the card once. Then, warm, the timed
+    comparison without instrumentation: sequential, service, service,
+    sequential. Every service run must be bitwise the solo runs, with no
+    fault event (a retried chunk would hide a failed launch) and every job
+    retired on ``max_samples`` or ``converged``; the ESS job must stop
+    early. Both kernels are held against their plain versions on each
+    group's final lane at its grown capacities. Returns the instrumented
+    run's launches and the largest |δ − δ_plain|."""
+    import warnings
+
+    from repro_torch import random as jr
+    from repro_torch.serve import GroupEngine
+    from repro_torch.serve.faults import group_label
+    from repro_torch.serve.scheduler import Scheduler
+
+    jobs = _reachable_ess_target(service_mix())
+    conv = next(j for j in jobs if j.policy.min_ess is not None)
+
+    engines, evicted, chunks, occupancy = [], {}, [], {}
+    real_engine_for, real_evict = Scheduler._engine_for, Scheduler.evict
+    real_chunk = GroupEngine.run_chunk
+    current = {}
+
+    def engine_for(self, *a, **kw):
+        eng = real_engine_for(self, *a, **kw)
+        if all(e is not eng for e in engines):
+            engines.append(eng)
+        return eng
+
+    def evict(self, job_id):
+        eng, lane = real_evict(self, job_id)
+        evicted[eng.group_key] = (eng._alg.spec, lane)
+        return eng, lane
+
+    def run_chunk(self, cs):
+        svc = current["svc"]
+        occupancy.setdefault(svc._step_count, svc.scheduler.slots_used)
+        r0, s0, lanes = self.reruns, self.lane_steps, len(self._lanes)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = real_chunk(self, cs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        waits = sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+        chunks.append((self.reruns - r0, waits,
+                       self.lane_steps - s0 - cs * lanes))
+        return out
+
+    Scheduler._engine_for, Scheduler.evict = engine_for, evict
+    GroupEngine.run_chunk = run_chunk
+    try:
+        _reset_launches()
+        svc, res, instr_wall, _ = _serviced(jobs, hold=current)
+        launches = _launches()
+    finally:
+        Scheduler._engine_for, Scheduler.evict = real_engine_for, real_evict
+        GroupEngine.run_chunk = real_chunk
+
+    seq_walls, svc_walls, lat = [], [], []
+    solo = None
+    for side in ("sequential", "service", "service", "sequential"):
+        if side == "sequential":
+            out, wall = _sequential(jobs)
+            if solo is None:
+                solo = out
+            elif any(not _results_equal(out[k][0], solo[k][0])
+                     or out[k][1] != solo[k][1] for k in solo):
+                raise AssertionError("sequential solo runs differ between "
+                                     "repetitions")
+            seq_walls.append(wall)
+        else:
+            _reset_launches()
+            t_svc, t_res, wall, done_at = _serviced(jobs)
+            if _launches() != launches:
+                raise AssertionError(f"timed service run launched "
+                                     f"{_launches()}, the instrumented "
+                                     f"{launches}")
+            _check_service_run("timed service run", t_svc, t_res, jobs, solo)
+            svc_walls.append(wall)
+            lat.extend(done_at[j.job_id] for j in jobs)
+    _check_service_run("instrumented service run", svc, res, jobs, solo)
+    if not res[conv.job_id].committed < SERVICE_SAMPLES:
+        raise AssertionError(f"the ESS job ran to {res[conv.job_id].committed}"
+                             f" samples; its target {conv.policy.min_ess} "
+                             f"should stop it early")
+
+    lane_steps = sum(e.lane_steps for e in engines)
+    inits = sum(e.inits for e in engines)
+    want = {"bright_glm": 2 * lane_steps + inits, "z_update": lane_steps}
+    if launches != want or min(launches.values()) == 0:
+        raise AssertionError(f"service launches {launches}; want {want}")
+    clean = [w for r, w, _ in chunks if r == 0]
+    if not clean or any(w != 1 for w in clean):
+        raise AssertionError(f"group chunks without overflow waited "
+                             f"{sorted(set(clean))} times (want 1)")
+    counted = sum(e.waits for e in engines)
+    if counted != sum(e.chunks + e.reruns for e in engines):
+        raise AssertionError(f"engines counted {counted} waits")
+
+    errs = []
+    for key, (spec, lane) in evicted.items():
+        fam = {"logistic": "logistic", "softmax": "softmax",
+               "robust": "student_t"}[key[0][0]]
+        errs.append(robust_kernels_held(
+            spec, lane["data"], lane["stats"], lane["state"], jr.key(36),
+            family=fam, label=f"service lane {lane['job_id']}"))
+    torch.cuda.empty_cache()
+
+    rerun_steps = sum(x for _, _, x in chunks)
+    chain_samples = sum(res[j.job_id].committed * j.num_chains for j in jobs)
+    seq_s, svc_s = sum(seq_walls) / 2, sum(svc_walls) / 2
+    lat = np.array(lat)
+    ess = res[conv.job_id].results["ess"]["ess"]
+    groups = [(group_label(e.group_key), e.reruns, e.capacity, e.cand_capacity,
+               e.lane_steps, e.chunks) for e in engines]
+    log(f"service path [{len(jobs)} jobs (logistic MNIST {N_MNIST}x{D_MNIST}, "
+        f"softmax CIFAR-3 {N_CIFAR}x{D_CIFAR}, robust OPV {N_OPV}x{D_OPV}), "
+        f"slot budget {SERVICE_SLOTS} of "
+        f"{sum(j.num_chains for j in jobs)} chains, {SERVICE_SAMPLES} samples, "
+        f"chunk {SERVICE_CHUNK}; {card_line()}]: timed in the order "
+        f"sequential, service, service, sequential: service wall "
+        f"{[round(w, 3) for w in svc_walls]} s, sequential solo api.sample "
+        f"{[round(w, 3) for w in seq_walls]} s (ratio of means "
+        f"{svc_s / seq_s:.3f}); committed chain-samples/s service "
+        f"{chain_samples / svc_s:.1f}, sequential {chain_samples / seq_s:.1f} "
+        f"({chain_samples} chain-samples; re-run share of lane-steps "
+        f"{rerun_steps / lane_steps:.3f}); latency submit→retire p50 "
+        f"{np.percentile(lat, 50):.3f} s, p95 {np.percentile(lat, 95):.3f} s; "
+        f"instrumented run (first, cold) {instr_wall:.3f} s; mean slot "
+        f"occupancy {np.mean(list(occupancy.values())) / SERVICE_SLOTS:.3f} "
+        f"over {len(occupancy)} steps; ms per lane-step "
+        f"{svc_s * 1e3 / lane_steps:.3f} ({lane_steps} lane-steps, "
+        f"{rerun_steps} of them re-runs, {inits} inits); host waits a group "
+        f"chunk {counted / len(chunks):.3f} (sync debug: "
+        f"{sorted(set(w for _, w, _ in chunks))}, chunks without overflow "
+        f"{len(clean)} of {len(chunks)}); groups (label, re-runs, capacity, "
+        f"cand_capacity, lane-steps, chunks) {groups}; launches {launches}; "
+        f"auto-terminated {conv.job_id}: committed "
+        f"{res[conv.job_id].committed}, reason {res[conv.job_id].reason}, "
+        f"ESS {np.asarray(ess).tolist()} (target {conv.policy.min_ess})")
+    return launches, max(errs)
 
 
 def hmc_path(mnist):
@@ -1878,6 +2237,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     robust_launches, robust_err = robust_path()
     torch.cuda.empty_cache()
+    service_launches, service_err = service_path()
+    torch.cuda.empty_cache()
 
     serve_exactness(dev)
     serve_launches = serve_path(dev)
@@ -1906,9 +2267,11 @@ def main() -> int:
          "launches": launches["bright_glm"],
          "launches_robust": robust_launches["bright_glm"],
          "launches_hmc": hmc_launches["bright_glm"],
+         "launches_service": service_launches["bright_glm"],
          "max_abs_err": max([p["max_abs_err"] for p in bright]
-                            + [robust_err]),
+                            + [robust_err, service_err]),
          "max_abs_err_robust": robust_err,
+         "max_abs_err_service": service_err,
          "ms": main_b["ms"], "call_ms": main_b["call_ms"],
          "plain_ms": main_b["plain_ms"],
          "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
@@ -1918,7 +2281,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/z_update/kernel.py:129",
          "launches": launches["z_update"],
          "launches_robust": robust_launches["z_update"],
-         "launches_hmc": hmc_launches["z_update"], "max_abs_err": 0.0,
+         "launches_hmc": hmc_launches["z_update"],
+         "launches_service": service_launches["z_update"], "max_abs_err": 0.0,
          "ms": main_z["ms"], "call_ms": main_z["call_ms"],
          "plain_ms": main_z["plain_ms"],
          "bound_ms": main_z["bound_ms"], "bound_by": main_z["bound_by"],

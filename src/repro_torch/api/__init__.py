@@ -8,19 +8,43 @@ from repro_torch.api.algorithm import (
     firefly,
     regular_mcmc,
 )
-from repro_torch.api.collectors import FullTrace, OnlineMoments, QueryBudget, RHat
-from repro_torch.api.driver import Trace, sample
+from repro_torch.api.collectors import (
+    BatchMeansESS,
+    Collector,
+    FullTrace,
+    OnlineMoments,
+    PosteriorPredictive,
+    QueryBudget,
+    RHat,
+    ThinnedTrace,
+    peek,
+)
+from repro_torch.api.driver import (
+    ChunkEvent,
+    NonFiniteError,
+    Trace,
+    finite_lanes,
+    sample,
+)
 
 __all__ = [
+    "BatchMeansESS",
+    "ChunkEvent",
+    "Collector",
     "FullTrace",
     "MCMCState",
+    "NonFiniteError",
     "OnlineMoments",
+    "PosteriorPredictive",
     "QueryBudget",
     "RHat",
     "SamplingAlgorithm",
+    "ThinnedTrace",
     "Trace",
     "algorithm_from_spec",
+    "finite_lanes",
     "firefly",
+    "peek",
     "regular_mcmc",
     "sample",
 ]

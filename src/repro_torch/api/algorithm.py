@@ -32,6 +32,17 @@ class SamplingAlgorithm:
     doubled capacities, ``resize(state)`` reshapes a state for them without
     likelihood queries, ``init_overflow(state)`` flags a (K,) initial state
     that does not fit.
+
+    ``step_data(keys, state, data, stats)`` is ``step`` with the dataset
+    and its sufficient statistics passed in rather than closed over, and
+    ``data``/``stats`` are the ones ``step`` closes over. The serve group
+    engines run one spec over many lanes' datasets through it. The
+    reference threads data as an operand because XLA rounds a baked-in
+    dataset differently; eager PyTorch has no such constant folding, and
+    the operand form gives the closure form's bits (pinned in
+    ``tests/test_torch_collectors.py``). ``step_chains_data`` is the
+    reference's chain-batched operand form; the port's ``step`` is already
+    chain-batched, so it is the same callable as ``step_data``.
     """
 
     init: Callable[[torch.Tensor, Any], Any]
@@ -42,9 +53,28 @@ class SamplingAlgorithm:
     init_overflow: Callable[[Any], torch.Tensor] | None = None
     default_position: Any = None
     spec: Any = None
+    step_data: Callable[..., tuple[Any, StepStats]] | None = None
+    step_chains_data: Callable[..., tuple[Any, StepStats]] | None = None
+    data: Any = None
+    stats: Any = None
 
     def position_of(self, state) -> torch.Tensor:
         return state.sampler.theta
+
+    def output_structs(self, state):
+        """Zero tensors shaped like one step's outputs, with no step run:
+        ``(position (K, ...), StepStats of (K,) leaves)`` with the dtypes
+        ``step`` emits (counts int64, ``overflow`` bool, the rest the
+        log-density's float). What collectors size their carries from
+        before the first chunk (the reference's ``jax.eval_shape``)."""
+        lp = state.sampler.lp
+        count = torch.zeros(lp.shape, dtype=torch.int64, device=lp.device)
+        return (torch.zeros_like(self.position_of(state)),
+                StepStats(n_bright=count, lik_queries=count.clone(),
+                          accept_prob=torch.zeros_like(lp),
+                          overflow=torch.zeros(lp.shape, dtype=torch.bool,
+                                               device=lp.device),
+                          joint_lp=torch.zeros_like(lp)))
 
 
 def firefly(
@@ -135,10 +165,14 @@ def _firefly_from_spec(spec: FlyMCSpec, data: GLMData, stats: CollapsedStats,
         return flymc.init_chain_state(spec, data, stats, positions, keys,
                                       step_size=step_size)
 
+    def step_data(keys, state, data_, stats_):
+        # The operand form the serve group engines run (one spec, each
+        # lane's own dataset). The chain state's rng slot is overwritten with
+        # the driver's keys so the step is a pure function of its operands.
+        return flymc.flymc_step(spec, data_, stats_, state._replace(rng=keys))
+
     def step(keys, state):
-        # The chain state's rng slot is overwritten with the driver's keys so
-        # the step is a pure function of (keys, state).
-        return flymc.flymc_step(spec, data, stats, state._replace(rng=keys))
+        return step_data(keys, state, data, stats)
 
     grown = []
 
@@ -165,6 +199,8 @@ def _firefly_from_spec(spec: FlyMCSpec, data: GLMData, stats: CollapsedStats,
         init=init, step=step, device=dev, grow=grow if can_grow else None,
         resize=resize, init_overflow=init_overflow,
         default_position=default_position, spec=spec,
+        step_data=step_data, step_chains_data=step_data, data=data,
+        stats=stats,
     )
 
 

@@ -390,6 +390,80 @@ def init_chain_state(spec, data: GLMData, stats: CollapsedStats, theta0,
     )
 
 
+def init_chain(spec, data: GLMData, stats: CollapsedStats, theta0, key,
+               z0=None, step_size: float = 0.1):
+    """Deprecated host-side init of one chain; prefer ``api.firefly`` and
+    ``api.sample``, which initialize internally.
+
+    ``theta0`` is one θ and ``key`` one (2,) key; the state has the port's
+    leading chain axis of 1. Returns (state, setup likelihood queries,
+    spec), the spec grown until the initial bright set fits (one host read
+    a try)."""
+    n = data.x.shape[0]
+    theta0, key = theta0[None], key[None]
+    z0 = None if z0 is None else z0[None]
+    state = init_chain_state(spec, data, stats, theta0, key, z0, step_size)
+    while int(state.bright.num[0]) > spec.capacity:
+        spec = _grow(spec, n)
+        state = init_chain_state(spec, data, stats, theta0, key, z0, step_size)
+    return state, int(state.bright.num[0]), spec
+
+
+def run_chain(spec, data: GLMData, stats: CollapsedStats, state: FlyMCState,
+              num_iters: int, collect: Callable[[FlyMCState], Any] | None = None):
+    """Deprecated shim over the driver (``repro_torch.api.sample``) for one
+    chain (a state with a chain axis of 1, as :func:`init_chain` gives).
+
+    Returns the old shape: (samples, per-iteration trace dicts, total
+    queries, the possibly grown spec). The key is the state's ``rng``, and
+    the fold-in counter continues from the state's iteration, so a resumed
+    segment never replays the prefix's keys. A custom ``collect`` needs the
+    state after every step, so that path is a host loop with one read a
+    step; it keys and grows exactly as the driver does.
+    """
+    from repro_torch import api  # api is built on this module
+
+    alg = api.algorithm_from_spec(spec, data, stats)
+    key = state.rng[0]
+    if collect is not None:
+        return _run_chain_host(alg, key, state, num_iters, collect)
+    trace = api.sample(alg, key, num_iters, init_state=state,
+                       device=alg.device)
+    st = trace.stats
+    samples = list(trace.theta[0])
+    trace_dicts = [
+        {"n_bright": int(st.n_bright[0, i]),
+         "lik_queries": int(st.lik_queries[0, i]),
+         "accept_prob": float(st.accept_prob[0, i]),
+         "joint_lp": float(st.joint_lp[0, i])}
+        for i in range(num_iters)
+    ]
+    return samples, trace_dicts, trace.total_queries, trace.algorithm.spec
+
+
+def _run_chain_host(alg, key, state: FlyMCState, num_iters: int, collect):
+    """``run_chain(collect=...)``: a host loop, one read a step."""
+    samples, trace = [], []
+    total_queries = 0
+    offset = int(state.iteration[0])
+    chain_key = key[None]
+    for i in range(offset, offset + num_iters):
+        prev = state
+        new_state, st = alg.step(jr.fold_in(chain_key, i), state)
+        while bool(st.overflow.any()):
+            alg = alg.grow()
+            prev = alg.resize(prev)
+            new_state, st = alg.step(jr.fold_in(chain_key, i), prev)
+        state = new_state
+        total_queries += int(st.lik_queries[0])
+        samples.append(collect(state))
+        trace.append({"n_bright": int(st.n_bright[0]),
+                      "lik_queries": int(st.lik_queries[0]),
+                      "accept_prob": float(st.accept_prob[0]),
+                      "joint_lp": float(st.joint_lp[0])})
+    return samples, trace, total_queries, alg.spec
+
+
 def _grow(spec: FlyMCSpec, n: int) -> FlyMCSpec:
     return dataclasses.replace(
         spec,

@@ -121,6 +121,17 @@ class GLMModel:
 
         return api.regular_mcmc(self, **{"device": self.device, **kw})
 
+    def init_chain(self, spec, theta0, key, **kw):
+        """Deprecated: ``api.sample`` initializes internally
+        (:func:`repro_torch.core.flymc.init_chain`)."""
+        return flymc.init_chain(spec, self.data, self.stats, theta0, key, **kw)
+
+    def run_chain(self, spec, state, num_iters, **kw):
+        """Deprecated: delegates to the driver
+        (:func:`repro_torch.core.flymc.run_chain`)."""
+        return flymc.run_chain(spec, self.data, self.stats, state, num_iters,
+                               **kw)
+
     def flymc_spec(self, kernel: str = "rwmh", capacity: int = 1024,
                    cand_capacity: int = 1024, q_db: float = 0.01,
                    mode: str = "implicit", **kw) -> flymc.FlyMCSpec:
@@ -132,3 +143,21 @@ class GLMModel:
             capacity=min(capacity, n), cand_capacity=min(cand_capacity, n),
             q_db=q_db, mode=mode, **kw,
         )
+
+
+def run_regular_mcmc(model: GLMModel, theta0: torch.Tensor, key: torch.Tensor,
+                     num_iters: int, kernel: str = "rwmh",
+                     step_size: float = 0.05, **kernel_kwargs):
+    """Full-data MCMC baseline, one chain (deprecated shim over
+    ``api.regular_mcmc`` and ``api.sample``). Returns (samples, likelihood
+    queries per iteration)."""
+    from repro_torch import api
+
+    alg = api.regular_mcmc(model, kernel=kernel, step_size=step_size,
+                           kernel_params=tuple(kernel_kwargs.items()),
+                           device=model.device)
+    trace = api.sample(alg, key, num_iters, init_position=theta0,
+                       device=model.device)
+    samples = list(trace.theta[0])
+    queries = [int(q) for q in trace.stats.lik_queries[0].tolist()]
+    return samples, queries

@@ -380,6 +380,138 @@ def test_chain_on_card_is_capacity_and_batching_invariant(dev):
     assert np.isfinite(big.theta.cpu().numpy()).all()
 
 
+def _card_mix(dev, max_samples):
+    """``benchmarks/_util.py::job_mix``'s five kinds at its default sizes
+    (N = 2048, D = 16), JAX-free, on the kernel engines (the port's Job
+    defaults), plus a logistic lane at capacity = N (N = 96)."""
+    from repro_torch.data import softmax_data
+    from repro_torch.serve import Job, TerminationPolicy
+
+    n, d = 2048, 16
+    fixed = TerminationPolicy(max_samples=max_samples)
+    conv = TerminationPolicy(max_samples=max_samples, min_samples=8,
+                             min_ess=max_samples / 3, check_every=2)
+
+    def common(i, cap=max(32, n // 4)):
+        return dict(seed=i, capacity=cap, cand_capacity=cap, num_warmup=100)
+
+    key = lambda i: jr.key(i)
+    return [
+        Job(job_id="logistic-0", family="logistic",
+            data=logistic_data(key(0), n=n, d=d), policy=fixed, **common(0)),
+        Job(job_id="logistic2c-1", family="logistic", num_chains=2,
+            data=logistic_data(key(1), n=n, d=d), policy=fixed, **common(1)),
+        Job(job_id="softmax-2", family="softmax",
+            data=softmax_data(key(2), n=n, d=d, k=3), policy=fixed,
+            **common(2)),
+        Job(job_id="robust-3", family="robust",
+            data=robust_data(key(3), n=n, d=d)[0], policy=fixed, **common(3)),
+        Job(job_id="logistic-conv-4", family="logistic", num_chains=2,
+            data=logistic_data(key(4), n=n, d=d), policy=conv,
+            collectors={"trace": api.FullTrace(), "rhat": api.RHat(),
+                        "ess": api.BatchMeansESS()}, **common(4)),
+        Job(job_id="logistic-full-5", family="logistic",
+            data=logistic_data(key(5), n=96, d=d), policy=fixed,
+            **common(5, cap=96)),
+    ]
+
+
+def _card_solo(job, chunk):
+    """The job alone through ``api.sample``, stopped where the service's
+    policy stops it."""
+    from repro_torch.serve import build_algorithm
+
+    p, seen = job.policy, {"chunks": 0}
+
+    def stop(ev):
+        seen["chunks"] += 1
+        if p.min_ess is None or ev.committed < p.min_samples:
+            return False
+        if seen["chunks"] % p.check_every:
+            return False
+        ess = np.asarray(ev.peek("ess")["ess"], np.float64)
+        return float(np.nansum(ess)) >= p.min_ess
+
+    return api.sample(build_algorithm(job), jr.key(job.seed), p.max_samples,
+                      num_chains=job.num_chains, chunk_size=chunk,
+                      collectors=dict(job.collectors), on_chunk=stop).results
+
+
+def _same(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if a is None or b is None:
+        return a is None and b is None
+    return bool(np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True))
+
+
+def test_service_mix_packed_equals_solo_on_card(dev, monkeypatch):
+    """The mix through ``Service`` on the card with a budget below its
+    chains (jobs queue and join between chunks): every JobResult is
+    bitwise the solo run's, and the kernels launched exactly what the
+    engines' lane-steps and inits imply (two ``bright_glm`` a RWMH
+    lane-step and one an init, one ``z_update`` a lane-step)."""
+    from repro_torch.serve import Service
+    from repro_torch.serve.scheduler import Scheduler
+
+    chunk, jobs = 16, _card_mix(dev, 64)
+    engines = []
+    real = Scheduler._engine_for
+
+    def record(self, *a, **kw):
+        eng = real(self, *a, **kw)
+        if all(e is not eng for e in engines):
+            engines.append(eng)
+        return eng
+
+    monkeypatch.setattr(Scheduler, "_engine_for", record)
+    svc = Service(slot_budget=6, chunk_size=chunk)
+    b0, z0 = bops.launch_count, zops.launch_count
+    for j in jobs:
+        svc.submit(j)
+    res = svc.run()
+    steps = sum(e.lane_steps for e in engines)
+    inits = sum(e.inits for e in engines)
+    assert bops.launch_count - b0 == 2 * steps + inits
+    assert zops.launch_count - z0 == steps > 0
+    assert any(e.capacity == e._n for e in engines)  # the full lane ran
+    for j in jobs:
+        assert _same(res[j.job_id].results, _card_solo(j, chunk)), j.job_id
+
+
+def test_group_chunk_waits_on_the_card_once(dev):
+    """``GroupEngine.run_chunk`` without overflow makes the host wait on
+    the card exactly once (the flags read), counted under
+    ``set_sync_debug_mode("warn")``."""
+    import warnings
+
+    from repro_torch.serve import GroupEngine
+
+    base = _card_mix(dev, 64)[0]
+    jobs = [dataclasses.replace(base, job_id=f"l{i}", seed=i, capacity=2048,
+                                cand_capacity=2048) for i in range(3)]
+    eng = GroupEngine(jobs[0])
+    for j in jobs:
+        eng.admit(j)
+    eng.run_chunk(4)  # warm
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            reruns = eng.run_chunk(8)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert reruns == 0 and eng.waits == 2
+    assert len(waits) == 1, [f"{w.filename}:{w.lineno}" for w in waits]
+
+
 @pytest.mark.parametrize("b,h,hk,d,w,t,window,dtype", [
     (2, 8, 2, 128, 256, 200, None, torch.float32),
     (1, 4, 4, 64, 100, 80, 32, torch.bfloat16),  # W not a block multiple
@@ -550,22 +682,53 @@ def test_rglru_scan_bwd_kernel_matches_plain_bitwise(dev, b, s, c, with_h0,
     assert d_la is None and d_h0 is None and torch.equal(d_bx, want[1])
 
 
+def _rglru_kernels_a_call(direction):
+    """The device kernels of each of 10 traced rglru wrapper calls (see
+    :func:`_device_kernels`), the calls made and the launches counted."""
+    la, bx, h0, gh, gl = _rglru_inputs(2, 2047, 4096, -5.25,
+                                        torch.device("cuda"), seed=5)
+    if direction == "forward":
+        fn = lambda: rops.rglru_scan(la, bx, h0)
+    else:
+        h, _ = rops.rglru_scan(la, bx, h0)
+        fn = lambda: rops.rglru_scan_backward(la, h, h0, gh, None)
+    before = rops.launch_count
+    calls, made = _device_kernels(fn, reps=10)
+    return calls, made, rops.launch_count - before
+
+
 @pytest.mark.parametrize("direction", ["forward", "backward"])
 def test_rglru_scan_one_kernel_per_call(dev, direction):
     """Each wrapper call runs exactly one device kernel under its own name:
     the backward's reversal, decays and products live in the kernel, with no
-    other tensor op."""
-    la, bx, h0, gh, gl = _rglru_inputs(2, 2047, 4096, -5.25, dev, seed=5)
-    if direction == "forward":
-        fn = lambda: rops.rglru_scan(la, bx, h0)
-        name = "rglru_scan_kernel"
-    else:
-        h, _ = rops.rglru_scan(la, bx, h0)
-        fn = lambda: rops.rglru_scan_backward(la, h, h0, gh, None)
-        name = "rglru_scan_bwd_kernel"
-    before = rops.launch_count
-    calls, made = _device_kernels(fn, reps=10)
-    assert rops.launch_count - before == made
+    other tensor op.
+
+    The calls are traced in a process of their own. In a process that has
+    already run the FlyMC kernels' profiler checks above, the profiler
+    records the first traced rglru call and then nothing, however often a
+    call is retraced; a fresh process records every call, and so does the
+    same process one test later. The trace, not the kernel, is what the
+    earlier tests disturb, so this test does not share their process.
+    """
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    path = os.pathsep.join([str(here.parent / "src"), str(here)]
+                           + [os.environ.get("PYTHONPATH", "")])
+    code = ("import json, test_torch_cuda as t\n"
+            f"print(json.dumps(t._rglru_kernels_a_call({direction!r})))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=path))
+    assert out.returncode == 0, out.stderr[-4000:]
+    calls, made, launched = json.loads(out.stdout.strip().splitlines()[-1])
+    name = ("rglru_scan_kernel" if direction == "forward"
+            else "rglru_scan_bwd_kernel")
+    assert launched == made
     assert all(len(c) == 1 and name in c[0] for c in calls), calls
 
 
