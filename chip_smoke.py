@@ -86,18 +86,33 @@ backward kernel):
    engines' lane-steps and inits, one host wait a group chunk without
    overflow, and both kernels against their plain versions on each
    group's final lane;
-6. checks the serving contract at recurrentgemma-9b's published width in
+6. survives crashes on the card (``checkpoint_path``): the same jobs
+   through a ``Service`` that checkpoints after every step
+   (``repro_torch.checkpoint.Checkpointer``, keep 3); the save of its third
+   step is killed at ``pre_rename`` and the process restarts cold from disk
+   through ``Service.restore`` (which must load the second step); after one
+   more step, one bit of the newest step's files is flipped, and the next
+   restart must report ``checkpoint_fallback`` and load an older step; that
+   service runs to the end. Every job's delivered results must be bitwise
+   the uninterrupted service run's (a job replayed after a restart must
+   deliver the same results twice), and the restored run must launch both
+   kernels. Prints a checkpoint's bytes and the seconds of a blocking save,
+   of an async save until ``save`` returns and until its write is joined,
+   and of ``Service.restore``, beside the card's name and power limit. Then
+   ``repro_torch.testing.chaos.run_schedule`` on the card for one seed
+   whose schedule fires a checkpoint kill and a corruption;
+7. checks the serving contract at recurrentgemma-9b's published width in
    float32: prefill 2100 tokens, decode one, and compare the logits with the
    full forward over 2101 tokens (rtol/atol 2e-3) and the greedy token with
    the forward's argmax;
-7. drives the serving path once through ``repro_torch.launch.serve.serve``
+8. drives the serving path once through ``repro_torch.launch.serve.serve``
    at the published width in bfloat16 (38 layers, d_model 4096, vocab
    256,000, seeded random weights): batch 4, a 2304-token prompt (longer
    than the 2048 window, so the ring wraps), 32 greedy tokens; prints
    prefill ms, decode ms/token, tokens/s and peak memory, and checks 26
    ``rglru_scan`` launches per prefill and 12 ``decode_attention`` launches
    per decode step;
-8. checks the rwkv6-7b serving contract at its published width in float32
+9. checks the rwkv6-7b serving contract at its published width in float32
    (32 layers, d_model 4096, 64 heads × 64, d_ff 14,336, vocab 65,536;
    the init's zero token-shift mixes, decay LoRA and bonus overwritten with
    seeded random values): prefill 1024 tokens (two 512-step time chunks,
@@ -106,11 +121,11 @@ backward kernel):
    position (rtol/atol 2e-3; the forward runs 17 time chunks of 64) and
    each greedy token against the forward's argmax; 64 ``rwkv6_scan``
    launches in the prefill, none in decode;
-9. drives the rwkv6-7b serving path once through ``serve`` at the published
+10. drives the rwkv6-7b serving path once through ``serve`` at the published
    width in bfloat16: batch 4, a 2048-token prompt, 32 greedy tokens;
    prints prefill ms, decode ms/token, tokens/s and peak memory, and checks
    128 ``rwkv6_scan`` launches (32 layers × 4 time chunks of the prefill);
-10. holds ``fused_ce`` against its plain version at the training path's
+11. holds ``fused_ce`` against its plain version at the training path's
    shape (T = 4096 tokens, D = 4096, V = 256,000; bf16 inputs in the path's
    mode, which rounds each logit to bf16, and in the float32-products mode,
    f32 inputs, and a ragged T = 4095 in the path's mode; labels at vocab
@@ -120,7 +135,7 @@ backward kernel):
    library yardstick (its max|Δ nll| printed) and the bound at the bf16
    tensor-core peak (bf16 inputs: the TMA-fed ``wgmma`` kernel, its TFLOP/s
    printed) or the f32 CUDA-core peak (f32 inputs);
-11. checks the backwards on the card: ``FusedCE`` (f32, the path's shape)
+12. checks the backwards on the card: ``FusedCE`` (f32, the path's shape)
    against autograd through the plain version over token chunks, dx and dw
    within 1e-4 of their largest value; ``RGLRUScan`` (B=2, S=2048, C=4096;
    log a ≈ -5 and ≈ -1e-6 with h0; and B=4, S=2304) against autograd
@@ -129,15 +144,22 @@ backward kernel):
    call; prints that kernel's device time, the device time of all the
    backward's work, the backward call's time and the plain backward's
    (``rglru_bwd_ref``);
-12. drives the training path through ``repro_torch.launch.train.
+13. drives the training path through ``repro_torch.launch.train.
    train_reduced`` at the published width cut to 3 layers (rglru, rglru,
    attn; 2.603 B params), f32 master weights and AdamW state, bf16
    compute, batch 2 × 2048 tokens, 6 steps: prints each step's loss, grad
    norm and lr, the median step ms after the first, tokens/s and peak
    memory, and checks a finite loss, 1 ``fused_ce`` and 4 ``rglru_scan``
    launches per step (2 of them the backward kernel);
-13. a descent check: 8 ``make_train_step`` steps (warmup 1) on one fixed
-   batch at that width; the last loss must be below the first.
+14. a descent check: 8 ``make_train_step`` steps (warmup 1) on one fixed
+   batch at that width; the last loss must be below the first;
+15. resumes training from a checkpoint: the reduced recurrentgemma-9b twin
+   in bf16 through ``train_reduced``, 8 steps in one run against 4 steps,
+   a save, a fresh call that restores and 4 more; losses, final
+   parameters, AdamW state and the batch generator's state must be bitwise
+   equal. Prints the twin's checkpoint bytes and save seconds beside the
+   size the training path's state would have (12 bytes a parameter; not
+   written).
 
 Any failure raises (nonzero exit, no result line). The build's ptxas
 registers, shared memory and spills are printed per kernel. The last two
@@ -149,6 +171,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -204,6 +227,13 @@ PLAIN_ITERS = 100
 # run that warms both.
 SERVICE_SLOTS, SERVICE_SAMPLES, SERVICE_CHUNK, SERVICE_WARMUP = 8, 128, 32, 100
 SERVICE_REASONS = ("max_samples", "converged")
+# The chaos harness on the card: a seed whose schedule, at run_schedule's
+# default sizes, fires a checkpoint kill and a checkpoint corruption.
+CHAOS_SEED, CHAOS_CKPT_EVERY = 4, 1
+# Training resume: the reduced twin, this many steps of batch × (seq − 1)
+# tokens contiguous against half, a restore in a fresh call, and the other
+# half.
+RESUME_STEPS, RESUME_BATCH, RESUME_SEQ = 8, 8, 129
 CE_TOKENS = TRAIN_BATCH * (TRAIN_SEQ - 1)  # fused_ce's T on the path: 4096
 
 
@@ -839,7 +869,8 @@ def robust_kernels_held(spec, data, stats, fs, key, family="student_t",
     d_ref, t_ref = bright_glm_ref(*args, **kw)
     torch.testing.assert_close(delta, d_ref, **close)
     torch.testing.assert_close(total, t_ref, **close)
-    carry = float((fs.sampler.aux - delta).abs()[mask].max())
+    carry = float((fs.sampler.aux - delta).abs()[mask].max()) if bool(
+        mask.any()) else 0.0  # a chain may end with no bright datum
     torch.testing.assert_close(fs.sampler.aux[mask], delta[mask], **close)
     f = flymc.make_joint_logpost(spec, data, stats, idx, fs.bright.num)
     lp, _ = f(theta)
@@ -863,6 +894,8 @@ def robust_kernels_held(spec, data, stats, fs, key, family="student_t",
     torch.testing.assert_close(total, total_of_delta(delta, nb), **close)
     errs.append(float((delta - d_ref).abs().max()))
     rel = ((total - t_ref).abs() / t_ref.abs()).tolist()
+    drawn = torch.arange(cap, device=nb.device) < nb[:, None]
+    smallest = float(d_ref[drawn].min()) if bool(drawn.any()) else math.nan
     log(f"{label} kernels held on the final state: bright_glm at C="
         f"{spec.capacity} (bright {fs.bright.num.tolist()}) and at the "
         f"candidates' C={cap} ({n_cand.tolist()} drawn, z_update bitwise) "
@@ -870,7 +903,7 @@ def robust_kernels_held(spec, data, stats, fs, key, family="student_t",
         f"vs fresh max {carry:.3g}, stored lp {fs.sampler.lp.tolist()} vs "
         f"fresh {lp.tolist()}; the candidates' total {total.tolist()}, "
         f"plain {t_ref.tolist()} (relative {rel}), smallest δ "
-        f"{float(d_ref[:, :int(nb.min())].min()):.3g}")
+        f"{smallest:.3g}")
     return max(errs)
 
 
@@ -1306,7 +1339,183 @@ def service_path():
         f"auto-terminated {conv.job_id}: committed "
         f"{res[conv.job_id].committed}, reason {res[conv.job_id].reason}, "
         f"ESS {np.asarray(ess).tolist()} (target {conv.policy.min_ess})")
-    return launches, max(errs)
+    return launches, max(errs), jobs, res
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def checkpoint_path(jobs, ref):
+    """The service's crash story on the card, on :func:`service_path`'s
+    jobs at the paper's widths (``ref``: that phase's uninterrupted,
+    solo-exact results). A service checkpoints after every step
+    (``checkpoint_every=1``); the save of its third step is killed at
+    ``pre_rename`` and the process restarts cold from disk
+    (``Service.restore``); after one more step a bit of the newest step's
+    largest leaf is flipped, and the next restart must report
+    ``checkpoint_fallback`` and load an older step; that service runs to
+    the end, its kernel launches counted. Every job's delivered results
+    must be bitwise ``ref``. Times, on a copy of the second step's state: a
+    blocking save, an async save until ``save`` returns (and until its
+    write is joined), and ``Service.restore``. Then
+    ``repro_torch.testing.chaos.run_schedule`` on the card for a seed whose
+    schedule fires a checkpoint kill and a corruption, and both kernels
+    held against their plain versions at its jobs' shapes (N = 64, D = 3),
+    on each group's final lane of its fault-free reference run. Returns the
+    restored run's launches and the chaos holds' largest |δ − δ_plain|."""
+    import random
+    import shutil
+    import tempfile
+
+    from repro_torch import random as jr
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.serve import Service
+    from repro_torch.serve.scheduler import Scheduler
+    from repro_torch.testing import chaos
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build"))
+    live, timed = work / "service", work / "timed"
+    kw = dict(chunk_size=SERVICE_CHUNK, checkpoint_every=1)
+    seen = {}
+    svc = Service(slot_budget=SERVICE_SLOTS, checkpointer=Checkpointer(
+        live, keep=3), **kw)
+    for job in jobs:
+        svc.submit(job)
+    for _ in range(2):
+        svc.step()
+        chaos.deliver(svc, seen)
+    saved = sorted(Checkpointer(live).all_steps())
+
+    # Times and bytes of one checkpoint of this state, in another directory.
+    svc.checkpointer = Checkpointer(timed, keep=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc.checkpoint(blocking=True)
+    blocking_s = time.perf_counter() - t0
+    ckpt_bytes = _dir_bytes(timed)
+    shutil.rmtree(timed)
+    svc.checkpointer = Checkpointer(timed, keep=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc.checkpoint(blocking=False)
+    async_return_s = time.perf_counter() - t0
+    svc.checkpointer.wait()
+    async_total_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probe = Service.restore(Checkpointer(timed))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    admitted = set(svc.scheduler.suspended).union(
+        *(e.job_ids for e in svc.scheduler.engines.values()))
+    if set(probe._jobs) != admitted:
+        raise AssertionError(f"the timed restore holds {sorted(probe._jobs)}"
+                             f", not the admitted {sorted(admitted)}")
+    del probe
+    shutil.rmtree(timed)
+    svc.checkpointer = Checkpointer(live, keep=3)
+
+    # A save killed at pre_rename, then a cold restart from disk.
+    def kill(point):
+        if point == "pre_rename":
+            raise chaos.InjectedKill(point)
+
+    svc.checkpointer._kill_hook = kill
+    try:
+        svc.step()
+    except chaos.InjectedKill:
+        killed_at = svc._step_count
+    else:
+        raise AssertionError("the armed save was not killed")
+    del svc
+    torch.cuda.empty_cache()
+    svc = Service.restore(Checkpointer(live, keep=3), **kw)
+    if svc.restored_from_step != saved[-1] or svc.faults:
+        raise AssertionError(f"restart after the kill loaded step "
+                             f"{svc.restored_from_step} ({svc.faults}); "
+                             f"want {saved[-1]}")
+    chaos.resubmit(svc, jobs, seen)
+    svc.step()
+    chaos.deliver(svc, seen)
+
+    # A bit flip in the newest step, then a restart that must fall back.
+    damaged = chaos.corrupt_checkpoint(live, "ckpt_bitflip", random.Random(7))
+    del svc
+    torch.cuda.empty_cache()
+    svc = Service.restore(Checkpointer(live, keep=3), **kw)
+    fallback = [e for e in svc.faults if e.kind == "checkpoint_fallback"]
+    if (not fallback or svc.restored_from_step >= damaged
+            or fallback[0].detail["skipped_steps"] != [damaged]):
+        raise AssertionError(f"restart after a bit flip in step {damaged}: "
+                             f"loaded {svc.restored_from_step}, events "
+                             f"{svc.faults}")
+    chaos.resubmit(svc, jobs, seen)
+    _reset_launches()
+    svc.run()
+    launches = _launches()
+    chaos.deliver(svc, seen)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the restored service launched {launches}")
+    bad = [j.job_id for j in jobs
+           if not (seen[j.job_id].committed == ref[j.job_id].committed
+                   and _results_equal(seen[j.job_id].results,
+                                      ref[j.job_id].results))]
+    if bad or len(seen) != len(jobs):
+        raise AssertionError(f"results after the restarts differ from the "
+                             f"uninterrupted run: {bad}")
+    reasons = sorted({seen[j.job_id].reason for j in jobs})
+    log(f"checkpoint path [{len(jobs)} jobs of the service path at the "
+        f"paper's widths, checkpoint every step; {card_line()}]: checkpoint "
+        f"of step {saved[-1]} {ckpt_bytes} bytes; blocking save "
+        f"{blocking_s:.3f} s ({ckpt_bytes / blocking_s / 1e9:.3f} GB/s); "
+        f"async save {async_return_s:.3f} s until save returns, "
+        f"{async_total_s:.3f} s until its write is joined; Service.restore "
+        f"{restore_s:.3f} s; save of step {killed_at} killed at pre_rename, "
+        f"restart loaded step {saved[-1]}; bit flip in step {damaged}, "
+        f"restart loaded step {svc.restored_from_step} with "
+        f"checkpoint_fallback {fallback[0].detail}; restored run launches "
+        f"{launches}; all {len(jobs)} jobs bitwise the uninterrupted run "
+        f"(reasons {reasons})")
+
+    # The chaos run. Its fault-free reference service runs first, so the
+    # first lane each group evicts is a clean final state at the chaos
+    # jobs' shapes, on which both kernels are held.
+    lanes, real_evict = {}, Scheduler.evict
+
+    def evict(self, job_id):
+        eng, lane = real_evict(self, job_id)
+        lanes.setdefault(eng.group_key, (eng._alg.spec, lane))
+        return eng, lane
+
+    t0 = time.perf_counter()
+    Scheduler.evict = evict
+    try:
+        report = chaos.run_schedule(CHAOS_SEED, directory=work / "chaos",
+                                    checkpoint_every=CHAOS_CKPT_EVERY)
+    finally:
+        Scheduler.evict = real_evict
+    chaos_s = time.perf_counter() - t0
+    kinds = [f.kind for f in report.fired]
+    if not (any(k.startswith("kill_") for k in kinds)
+            and any(k in ("ckpt_bitflip", "ckpt_truncate", "ckpt_torn")
+                    for k in kinds) and report.fallbacks):
+        raise AssertionError(f"chaos seed {CHAOS_SEED} fired {kinds} "
+                             f"({report.summary()})")
+    log(f"chaos [seed {CHAOS_SEED}, checkpoint every {CHAOS_CKPT_EVERY}, on "
+        f"the card]: {report.summary()} in {chaos_s:.1f} s")
+    families = {"logistic": "logistic", "softmax": "softmax"}
+    if sorted(k[0][0] for k in lanes) != ["logistic", "logistic", "softmax"]:
+        raise AssertionError(f"chaos reference lanes of groups {list(lanes)}")
+    chaos_err = max(
+        robust_kernels_held(spec, lane["data"], lane["stats"], lane["state"],
+                            jr.key(37, device=lane["data"].x.device),
+                            family=families[key[0][0]],
+                            label=f"chaos lane {lane['job_id']}")
+        for key, (spec, lane) in lanes.items())
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    return launches, chaos_err
 
 
 def hmc_path(mnist):
@@ -1541,10 +1750,12 @@ def rglru_kernel_phases(dev):
     """The RG-LRU scan's forward and backward kernels at the RG-LRU width
     of the published config: forwards at the serving prompt (the model's
     decays; the slowest with h0) and at the training shape; backwards at
-    the training shape (both decays) and at the serving prompt's. Runs on
+    the training shape (both decays) and at the serving prompt's; then
+    both at the shape :func:`train_resume_path` gives them (the reduced
+    twin's RG-LRU width, RESUME_BATCH × (RESUME_SEQ − 1)). Runs on
     another tree's ``src`` too, to compare trees in one call (SKILL.md).
     Returns (forward phases, backward phases)."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_reduced
 
     r = get_config(ARCH).rnn_dim
     gen = torch.Generator().manual_seed(12)
@@ -1565,6 +1776,12 @@ def rglru_kernel_phases(dev):
         rglru_grad_phase("backward-prefill-shape", SERVE_BATCH, SERVE_PROMPT,
                          r, -5.0, False, dev, cgen),
     ]
+    r_twin, s_twin = get_reduced(ARCH).rnn_dim, RESUME_SEQ - 1
+    tgen = torch.Generator().manual_seed(17)
+    scan.append(rglru_phase("twin", RESUME_BATCH, s_twin, r_twin, -5.0,
+                            False, dev, tgen))
+    scan_bwd.append(rglru_grad_phase("twin-backward", RESUME_BATCH, s_twin,
+                                     r_twin, -5.0, False, dev, tgen))
     torch.cuda.empty_cache()
     return scan, scan_bwd
 
@@ -1923,7 +2140,7 @@ def fused_ce_phase(name, t, d, v, dtype, dev, gen, round_logits=False):
             "library_max_abs_err": lib_err}
 
 
-def fused_ce_grad_phase(t, d, v, dev, gen):
+def fused_ce_grad_phase(t, d, v, dev, gen, name="backward-f32"):
     """``FusedCE``'s backward (the reference's chunk VJP) at the path's
     shape in float32, against autograd through the plain version over
     1024-token chunks: dx and dw within 1e-4 of their largest value."""
@@ -1969,7 +2186,7 @@ def fused_ce_grad_phase(t, d, v, dev, gen):
         f"bfloat16 (second call; host clock)")
     del x, w, wr, dx, dw, dx_ref
     torch.cuda.empty_cache()
-    return {"phase": "backward-f32", "T": t, "D": d, "V": v,
+    return {"phase": name, "T": t, "D": d, "V": v,
             "max_rel_err": max(errs), "bwd_ms": bwd_ms,
             "bwd_bf16_ms": bwd_bf16_ms}
 
@@ -2057,9 +2274,12 @@ def rglru_grad_phase(name, b, s, c, log_a, with_h0, dev, gen):
 def train_kernel_phases(dev):
     """fused_ce at the training path's shape (T = 4096 tokens of the
     published width and vocab; bf16 in the path's rounding mode and in the
-    float32-products mode, f32, and a ragged T) and FusedCE's backward
-    (RGLRUScan's: :func:`rglru_kernel_phases`)."""
-    from repro_torch.configs import get_config
+    float32-products mode, f32, and a ragged T) and FusedCE's backward;
+    then both at the shape :func:`train_resume_path` gives them (the
+    reduced twin's width and vocab, RESUME_BATCH × (RESUME_SEQ − 1) tokens,
+    bf16 logits). RGLRUScan's: :func:`rglru_kernel_phases`. Returns
+    (forward phases, backward phases)."""
+    from repro_torch.configs import get_config, get_reduced
 
     cfg = get_config(ARCH)
     d, v = cfg.d_model, cfg.padded_vocab()
@@ -2073,8 +2293,16 @@ def train_kernel_phases(dev):
         fused_ce_phase("ragged-T", CE_TOKENS - 1, d, v, torch.bfloat16, dev,
                        gen, round_logits=True),
     ]
-    ce_grad = fused_ce_grad_phase(CE_TOKENS, d, v, dev, gen)
-    return ce, ce_grad
+    ce_grads = [fused_ce_grad_phase(CE_TOKENS, d, v, dev, gen)]
+    twin = get_reduced(ARCH)
+    t = RESUME_BATCH * (RESUME_SEQ - 1)
+    d, v = twin.d_model, twin.padded_vocab()
+    tgen = torch.Generator(device=dev).manual_seed(16)
+    ce.append(fused_ce_phase("twin", t, d, v, torch.bfloat16, dev, tgen,
+                             round_logits=True))
+    ce_grads.append(fused_ce_grad_phase(t, d, v, dev, tgen,
+                                        name="twin-backward"))
+    return ce, ce_grads
 
 
 def train_path(dev):
@@ -2128,6 +2356,80 @@ def train_path(dev):
     return launches, model, {"step_ms": step_ms,
                              "tokens_per_s": tokens / step_ms * 1e3,
                              "peak_gib": peak / 2**30}
+
+
+def train_resume_path(dev, n_full: int):
+    """Training-state checkpoints on the card: the reduced recurrentgemma-9b
+    twin in bf16 through ``train_reduced``, RESUME_STEPS steps in one run
+    against RESUME_STEPS / 2 steps, a save, a fresh call that restores and
+    RESUME_STEPS / 2 more. Losses, final parameters, AdamW state and the
+    batch generator's state must be bitwise equal (the two runs' final
+    checkpoints byte for byte the same). Prints the twin's checkpoint bytes
+    and a blocking save's seconds beside the size that the training path's
+    state (``n_full`` parameters) would have: f32 parameters and AdamW m
+    and v, 12 bytes a parameter, computed and not written. Its kernels are
+    held at its shapes in :func:`train_kernel_phases` and
+    :func:`rglru_kernel_phases`. Returns the resumed half's launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.kernels.fused_ce import ops as cops
+    from repro_torch.kernels.rglru_scan import ops as rops
+    from repro_torch.launch.train import _train_state, train_reduced
+    from repro_torch.models import transformer as T
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build"))
+    half = RESUME_STEPS // 2
+    kw = dict(batch=RESUME_BATCH, seq=RESUME_SEQ, log_every=RESUME_STEPS,
+              warmup_steps=2, dtype=torch.bfloat16, device=dev,
+              ckpt_every=half)
+    whole, split = work / "whole", work / "split"
+    m1, h1 = train_reduced(ARCH, steps=RESUME_STEPS, ckpt_dir=whole, **kw)
+    _, ha = train_reduced(ARCH, steps=half, ckpt_dir=split, **kw)
+    cops.launch_count = rops.launch_count = rops.bwd_launch_count = 0
+    m2, hb = train_reduced(ARCH, steps=RESUME_STEPS, ckpt_dir=split, **kw)
+    launches = {"fused_ce": cops.launch_count,
+                "rglru_scan": rops.launch_count,
+                "rglru_scan_bwd": rops.bwd_launch_count}
+    losses = [h["loss"] for h in h1]
+    if losses != [h["loss"] for h in ha + hb] or [h["step"] for h in hb] != \
+            list(range(half, RESUME_STEPS)):
+        raise AssertionError(f"resumed losses {[h['loss'] for h in ha + hb]}"
+                             f" != contiguous {losses}")
+    bad = [n for (n, p), (_, q) in zip(m1.named_parameters(),
+                                       m2.named_parameters())
+           if not torch.equal(p, q)]
+    man = Checkpointer(whole).manifest(RESUME_STEPS)
+    bad += [m["path"] for m in man["leaves"]
+            if (whole / f"step_{RESUME_STEPS:08d}" / m["file"]).read_bytes()
+            != (split / f"step_{RESUME_STEPS:08d}" / m["file"]).read_bytes()]
+    if bad:
+        raise AssertionError(f"resumed training state differs: {bad[:8]}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the resumed run launched {launches}")
+
+    gen = torch.Generator(device=dev)
+    state = _train_state(m2, T.init_opt(m2), gen)
+    ck = Checkpointer(work / "timed")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(1, state, blocking=True)
+    save_s = time.perf_counter() - t0
+    twin_bytes = _dir_bytes(work / "timed")
+    n_twin = sum(p.numel() for p in m2.parameters())
+    shutil.rmtree(work)
+    log(f"train resume [{ARCH} reduced twin, {n_twin} params, bf16 compute, "
+        f"f32 master + AdamW; {RESUME_STEPS} steps contiguous vs "
+        f"{half} + restore + {half}; {card_line()}]: losses, parameters, "
+        f"AdamW state and generator state bitwise equal; losses "
+        f"{[round(x, 4) for x in losses]}; resumed half's launches "
+        f"{launches}; the twin's checkpoint {twin_bytes} bytes, blocking save "
+        f"{save_s:.3f} s; full width, {TRAIN_LAYERS} layers: {n_full} params "
+        f"x 12 B (f32 weights, m, v) = {n_full * 12 / 1e9:.1f} GB, not "
+        f"written")
+    return launches
 
 
 def step_breakdown(model, dev):
@@ -2223,7 +2525,7 @@ def main() -> int:
     attn = lm_kernel_phases(dev)
     scan, scan_bwd = rglru_kernel_phases(dev)
     wkv = rwkv_kernel_phases(dev)
-    ce, ce_grad = train_kernel_phases(dev)
+    ce, ce_grads = train_kernel_phases(dev)
     launches = main_path(mnist)
     waits = step_syncs(mnist)
     if waits:
@@ -2237,7 +2539,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     robust_launches, robust_err = robust_path()
     torch.cuda.empty_cache()
-    service_launches, service_err = service_path()
+    service_launches, service_err, service_jobs, service_res = service_path()
+    torch.cuda.empty_cache()
+    restored_launches, chaos_err = checkpoint_path(service_jobs, service_res)
+    del service_jobs, service_res
     torch.cuda.empty_cache()
 
     serve_exactness(dev)
@@ -2249,7 +2554,10 @@ def main() -> int:
     train_launches, model, _ = train_path(dev)
     step_breakdown(model, dev)
     descent_check(model, dev)
+    n_train = sum(p.numel() for p in model.parameters())
     del model
+    torch.cuda.empty_cache()
+    resumed_launches = train_resume_path(dev, n_train)
     torch.cuda.empty_cache()
 
     for p in bright + z + scan + scan_bwd:
@@ -2268,10 +2576,12 @@ def main() -> int:
          "launches_robust": robust_launches["bright_glm"],
          "launches_hmc": hmc_launches["bright_glm"],
          "launches_service": service_launches["bright_glm"],
+         "launches_restored": restored_launches["bright_glm"],
          "max_abs_err": max([p["max_abs_err"] for p in bright]
-                            + [robust_err, service_err]),
+                            + [robust_err, service_err, chaos_err]),
          "max_abs_err_robust": robust_err,
          "max_abs_err_service": service_err,
+         "max_abs_err_chaos": chaos_err,
          "ms": main_b["ms"], "call_ms": main_b["call_ms"],
          "plain_ms": main_b["plain_ms"],
          "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
@@ -2282,7 +2592,8 @@ def main() -> int:
          "launches": launches["z_update"],
          "launches_robust": robust_launches["z_update"],
          "launches_hmc": hmc_launches["z_update"],
-         "launches_service": service_launches["z_update"], "max_abs_err": 0.0,
+         "launches_service": service_launches["z_update"],
+         "launches_restored": restored_launches["z_update"], "max_abs_err": 0.0,
          "ms": main_z["ms"], "call_ms": main_z["call_ms"],
          "plain_ms": main_z["plain_ms"],
          "bound_ms": main_z["bound_ms"], "bound_by": main_z["bound_by"],
@@ -2302,6 +2613,8 @@ def main() -> int:
          "launches": serve_launches["rglru_scan"],
          "launches_train": train_launches["rglru_scan"],
          "launches_bwd_train": train_launches["rglru_scan_bwd"],
+         "launches_resumed": resumed_launches["rglru_scan"],
+         "launches_bwd_resumed": resumed_launches["rglru_scan_bwd"],
          "max_abs_err": max(p["max_abs_err"] for p in scan + scan_bwd),
          "ms": scan[0]["ms"], "call_ms": scan[0]["call_ms"],
          "plain_ms": scan[0]["plain_ms"], "bound_ms": scan[0]["bound_ms"],
@@ -2323,11 +2636,12 @@ def main() -> int:
          "source": "src/repro_torch/csrc/fused_ce.cu",
          "replaces": "src/repro/kernels/fused_ce/kernel.py:88",
          "launches": train_launches["fused_ce"],
+         "launches_resumed": resumed_launches["fused_ce"],
          "max_abs_err": max(p["max_abs_err"] for p in ce),
          "ms": ce[0]["ms"], "call_ms": ce[0]["call_ms"],
          "plain_ms": ce[0]["plain_ms"], "bound_ms": ce[0]["bound_ms"],
          "bound_by": ce[0]["bound_by"], "library_ms": ce[0]["library_ms"],
-         "phases": ce + [ce_grad]},
+         "phases": ce + ce_grads},
     ]}
     log(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps(table), flush=True)

@@ -8,6 +8,14 @@ its reduced twin. Float32 master weights and AdamW state; the forward and
 backward compute in ``dtype``. Runs on the card unless the caller passes
 ``device="cpu"``.
 
+With ``ckpt_dir`` the training state — the named parameters, the AdamW
+state and the batch generator's state — is saved every ``ckpt_every``
+steps through :class:`repro_torch.checkpoint.Checkpointer`, and a run
+starts from the newest intact step there. The generator's state is part of
+the checkpoint, so a resumed run draws the batches the contiguous run
+draws: losses, parameters and optimizer state are bitwise the contiguous
+run's.
+
 Usage (on a machine with an NVIDIA GPU; 3 layers of recurrentgemma-9b at
 full width peak at ~58 GB with their f32 weights, gradients, AdamW state and
 activations at batch 2 × 2048, and 38 layers do not fit one 80 GB card):
@@ -16,6 +24,10 @@ activations at batch 2 × 2048, and 38 layers do not fit one 80 GB card):
         --arch recurrentgemma-9b --full --n-layers 3 --batch 2 --seq 2049
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --dtype float32                      # the reduced twin, seconds
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --dtype float32 --steps 40 --ckpt-dir ckpt --ckpt-every 10
+                                             # again with --steps 80: resumes
+                                             # at step 40
 """
 
 from __future__ import annotations
@@ -27,10 +39,11 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.models.config import _MISSING, check_trainable
+from repro_torch.models.config import check_trainable
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -59,15 +72,17 @@ def train_reduced(arch: str, steps: int = 100, batch: int = 8, seq: int = 129,
                   log_every: int = 10, peak_lr: float = 1e-3,
                   warmup_steps: int = 20, seed: int = 0, full: bool = False,
                   n_layers: int | None = None, dtype=torch.bfloat16,
-                  device="cuda", ckpt_dir: str | None = None):
+                  device="cuda", ckpt_dir: str | None = None,
+                  ckpt_every: int = 50):
     """Train ``arch`` (its reduced twin, or the published width with
     ``full``; ``n_layers`` cuts the depth) for ``steps`` steps of ``batch``
-    × (``seq`` − 1) tokens. Returns (model, history): one dict per step
-    with loss, nll, grad_norm, lr and the step's seconds (host clock
+    × (``seq`` − 1) tokens. Returns (model, history): one dict per step run
+    here with loss, nll, grad_norm, lr and the step's seconds (host clock
     around ``torch.cuda.synchronize()``). Raises ``FloatingPointError`` if
-    the loss stops being finite."""
-    if ckpt_dir is not None:
-        raise NotImplementedError(f"{arch}: {_MISSING['ckpt']}")
+    the loss stops being finite. ``ckpt_dir``: resume from its newest
+    intact step (raises when every saved step is corrupt), and save there
+    after every ``ckpt_every``-th step (asynchronously; joined before
+    returning)."""
     dev = resolve_device(device)
     cfg = get_config(arch) if full else get_reduced(arch)
     if n_layers is not None:
@@ -79,9 +94,20 @@ def train_reduced(arch: str, steps: int = 100, batch: int = 8, seq: int = 129,
     step_fn = T.make_train_step(cfg, dtype=dtype, peak_lr=peak_lr,
                                 warmup_steps=warmup_steps)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    ck = Checkpointer(ckpt_dir) if ckpt_dir is not None else None
+    start = 0
+    if ck is not None and ck.all_steps():
+        state, manifest = ck.restore(_train_state(model, opt, gen))
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(state["params"][name])
+        opt = state["opt"]
+        gen.set_state(state["gen"])
+        start = manifest["step"]
+        print(f"resumed from step {start}", flush=True)
     history = []
     t_start = _clock(dev)
-    for i in range(steps):
+    for i in range(start, steps):
         b = synthetic_batch(gen, cfg, batch, seq)
         t0 = _clock(dev)
         metrics = step_fn(model, opt, b)
@@ -96,7 +122,19 @@ def train_reduced(arch: str, steps: int = 100, batch: int = 8, seq: int = 129,
             print(f"step {i:5d} loss {loss:7.4f} "
                   f"gnorm {rec['grad_norm']:7.3f} lr {rec['lr']:.2e} "
                   f"({t1 - t_start:.1f}s)", flush=True)
+        if ck is not None and (i + 1) % ckpt_every == 0:
+            ck.save(i + 1, _train_state(model, opt, gen))
+    if ck is not None:
+        ck.wait()
     return model, history
+
+
+def _train_state(model, opt, gen) -> dict:
+    """The tree a training checkpoint holds: ``{"params": named parameters,
+    "opt": AdamWState, "gen": the batch generator's state (a CPU uint8
+    tensor)}``."""
+    return {"params": dict(model.named_parameters()), "opt": opt,
+            "gen": gen.get_state()}
 
 
 def main():
@@ -115,13 +153,16 @@ def main():
     ap.add_argument("--dtype", choices=sorted(_DTYPES), default="bfloat16")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="not supported yet (raises)")
+                    help="checkpoint directory: resume from its newest "
+                         "intact step, save every --ckpt-every steps")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     args = ap.parse_args()
     _, history = train_reduced(
         args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
         peak_lr=args.lr, warmup_steps=args.warmup_steps, seed=args.seed,
         full=args.full, n_layers=args.n_layers, dtype=_DTYPES[args.dtype],
-        device=args.device, ckpt_dir=args.ckpt_dir)
+        device=args.device, ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every)
     print(f"final loss {history[-1]['loss']:.4f} "
           f"(started {history[0]['loss']:.4f})")
 

@@ -126,8 +126,6 @@ _MISSING = {
               "and VLM)",
     "vlm": "VLM frontends (ROADMAP queue 1 item 9e: MoE, encdec and VLM)",
     "remat": "remat through torch.utils.checkpoint (ROADMAP queue 1 item 9c)",
-    "ckpt": "checkpointing the training state (ROADMAP queue 1 item 6, with "
-            "the serving stack's checkpointer)",
     "rwkv_train": "rwkv6 training on the card: a WKV6 backward (ROADMAP "
                   "queue 1 item 9b)",
 }

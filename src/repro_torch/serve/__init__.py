@@ -8,7 +8,9 @@ non-destructive collector peeks; R̂/ESS policies auto-terminate.
 
 The contract: every job's trajectory and every result is bitwise what a
 solo ``api.sample`` run with the same seed produces, whatever the packing
-(see :mod:`repro_torch.serve.engine`).
+(see :mod:`repro_torch.serve.engine`), and a service restored from a
+checkpoint (``Service(checkpointer=...)``, :meth:`Service.restore`) goes on
+bitwise where it stopped.
 
     svc = Service(chunk_size=64)                       # on the card
     h = svc.submit(Job(job_id="a", family="logistic", data=data, seed=0,

@@ -21,8 +21,8 @@ kind                   meaning / response
                        median × threshold
 ``device_loss``        the elastic shrink ran (shrink the budget, suspend
                        newest-first, repack)
-``checkpoint_fallback``  restore skipped corrupt steps (kept for the
-                       checkpointing slice; the port emits it nowhere yet)
+``checkpoint_fallback``  ``Service.restore`` skipped corrupt checkpoint
+                       steps and loaded the newest intact one
 =====================  ====================================================
 
 :class:`FaultEvent` records stream through ``Service.step``'s return value,

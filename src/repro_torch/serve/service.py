@@ -14,7 +14,20 @@ chunks); :meth:`~Service.run` loops until the work drains. A step:
        throttled by ``check_every``. Retiring jobs are finalized into
        :class:`~repro_torch.serve.results.JobResult`\\ s, bitwise the solo
        ``api.sample`` run's results;
-    4. the straggler check.
+    4. the straggler check, then, every ``checkpoint_every`` steps, a
+       checkpoint.
+
+**Checkpoint and restore.** :meth:`checkpoint` saves every admitted job's
+lane (chain states with their iteration counters, chain keys, dataset,
+sufficient statistics, collector carries and the folded count) through
+:class:`repro_torch.checkpoint.Checkpointer`, one atomic step directory,
+with the job registry (hyperparameters, policies, collector configs,
+progress) in the manifest's ``extra``. :meth:`Service.restore` reads the
+manifest first, rebuilds the jobs, builds the restore target with
+:meth:`GroupEngine.build_lane` on placeholder data (every value is then
+overwritten) and suspends each job with its restored lane; the first step
+re-admits it through ``admit_restored``. A restored job continues its solo
+trajectory bitwise: its keys come from the restored iteration counters.
 
 **Faults** (see :mod:`repro_torch.serve.faults`). A raising group chunk is
 re-run from the last committed boundary under a bounded
@@ -26,24 +39,21 @@ neighbours never notice. Chunk wall times feed a
 :class:`~repro_torch.launch.elastic.StragglerMonitor`; ``straggler_threshold``
 opts into escalation.
 
-**Device loss.** :meth:`handle_device_loss` shrinks the slot budget to the
-surviving devices, suspends newest-first until occupancy fits and repacks;
-zero devices is legal.
-
-**Not ported here:** checkpoint and restore. ``checkpointer=`` and
-``checkpoint_every=``, :meth:`Service.checkpoint` and :meth:`Service.restore`
-raise until the checkpointing slice (ROADMAP queue 1, item 6), and
-:meth:`handle_device_loss` runs the reference's branch without a
-checkpointer.
+**Device loss.** :meth:`handle_device_loss` checkpoints (with a
+checkpointer), shrinks the slot budget to the surviving devices, suspends
+newest-first until occupancy fits and repacks; zero devices is legal.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.api import collectors as collectors_lib
+from repro_torch.core.bounds import GLMData
 from repro_torch.device import resolve_device
 from repro_torch.launch import elastic
 from repro_torch.serve import faults as faults_lib
@@ -53,10 +63,40 @@ from repro_torch.serve.faults import FaultEvent, RetryPolicy
 from repro_torch.serve.results import JobHandle, JobResult, JobStatus, StreamUpdate
 from repro_torch.serve.scheduler import Scheduler
 
-_NO_CHECKPOINT = (
-    "service checkpoint and restore come with the port of "
-    "checkpoint/checkpointer.py (ROADMAP queue 1, item 6)"
+_JOB_META_FIELDS = (
+    "job_id", "family", "seed", "num_chains", "prior_scale", "xi",
+    "n_classes", "nu", "sigma", "kernel", "step_size", "q_db", "mode",
+    "resample_fraction", "capacity", "cand_capacity", "backend",
+    "z_backend", "adapt_target", "num_warmup",
 )
+
+
+def _collector_specs(colls: dict) -> list:
+    """JSON-able (name, class, config) triples: the checkpointable subset.
+    Dataclass fields must be plain values; a collector holding a tensor or
+    a callable (``PosteriorPredictive``) cannot ride in a manifest."""
+    out = []
+    for name in sorted(colls):
+        col = colls[name]
+        fields = {}
+        if dataclasses.is_dataclass(col):
+            for f in dataclasses.fields(col):
+                v = getattr(col, f.name)
+                if callable(v) or hasattr(v, "shape"):
+                    raise ValueError(
+                        f"collector {name!r} ({type(col).__name__}) holds a "
+                        f"{'callable' if callable(v) else 'tensor'} field "
+                        f"{f.name!r} and cannot be checkpointed; drop it or "
+                        f"run the job without service checkpointing"
+                    )
+                fields[f.name] = v
+        out.append([name, type(col).__name__, fields])
+    return out
+
+
+def _collectors_from_specs(specs: list) -> dict:
+    return {name: getattr(collectors_lib, cls)(**fields)
+            for name, cls, fields in specs}
 
 
 class Service:
@@ -68,12 +108,15 @@ class Service:
         """``device`` is where the jobs' data and chains live (default the
         card; raises without one unless ``device="cpu"``). The default slot
         budget is ``plan_chain_slots`` of the visible cards, or of one
-        device on the CPU. ``retry`` bounds the per-chunk retry-and-backoff;
+        device on the CPU. ``checkpointer`` (a
+        :class:`~repro_torch.checkpoint.Checkpointer`) enables
+        :meth:`checkpoint`, and ``checkpoint_every`` saves every that many
+        steps. ``retry`` bounds the per-chunk retry-and-backoff;
         ``straggler_threshold`` opts into straggler escalation (chunk wall
         times are always recorded)."""
         self.device = resolve_device(device)
-        if checkpointer is not None or checkpoint_every is not None:
-            raise NotImplementedError(_NO_CHECKPOINT)
+        if checkpoint_every is not None and checkpointer is None:
+            raise ValueError("checkpoint_every needs a checkpointer")
         if slot_budget is None:
             n = (torch.cuda.device_count() if self.device.type == "cuda"
                  else 1)
@@ -82,6 +125,8 @@ class Service:
             raise ValueError("chunk_size must be >= 1")
         self.chunk_size = int(chunk_size)
         self.scheduler = Scheduler(slot_budget, lane_backend=lane_backend)
+        self.checkpointer = checkpointer
+        self.checkpoint_every = checkpoint_every
         self.retry = retry if retry is not None else RetryPolicy()
         self.straggler_threshold = straggler_threshold
         self.faults: list[FaultEvent] = []
@@ -90,6 +135,7 @@ class Service:
                        else 1.5)
         )
         self._flagged: set[str] = set()
+        self.restored_from_step = None  # set by Service.restore
         # Test seams: the wall clock and the backoff sleep.
         self._clock = time.monotonic
         self._sleep = time.sleep
@@ -271,8 +317,9 @@ class Service:
 
     def step(self) -> list:
         """One service round: admit → chunk every group (supervised) →
-        quarantine sweep → termination → straggler check. Returns this
-        boundary's StreamUpdates interleaved with any FaultEvents."""
+        quarantine sweep → termination → straggler check → (maybe)
+        checkpoint. Returns this boundary's StreamUpdates interleaved with
+        any FaultEvents."""
         for job_id in self.scheduler.admit_pending():
             self._status[job_id] = JobStatus.RUNNING
         updates = []
@@ -323,6 +370,10 @@ class Service:
                 ))
             self._flagged = lagging  # a group that catches up may re-flag
         self._step_count += 1
+        if (self.checkpoint_every
+                and self._step_count % self.checkpoint_every == 0
+                and (self.scheduler.engines or self.scheduler.suspended)):
+            self.checkpoint()
         return updates
 
     def run(self, on_update=None, max_steps: int | None = None) -> dict:
@@ -352,22 +403,121 @@ class Service:
     # ------------------------------------------------------------ checkpoint
 
     def checkpoint(self, blocking: bool = True):
-        raise NotImplementedError(_NO_CHECKPOINT)
+        """One atomic checkpoint of every admitted (running or suspended)
+        job: its lane's tensors and host values as leaves, the job registry
+        and progress in the manifest's ``extra``. Queued jobs are not state
+        yet: clients resubmit them after a restart. The lanes are copied to
+        the host before this returns (on the card, that waits for the
+        stream), so the next chunk cannot change what is written."""
+        if self.checkpointer is None:
+            raise ValueError("service has no checkpointer")
+        tree, jobs_meta = {}, {}
+        for eng in self.scheduler.engines.values():
+            for job_id in eng.job_ids:
+                tree[job_id] = eng.lane_of(job_id)
+                jobs_meta[job_id] = self._job_meta(
+                    self._jobs[job_id], (eng.capacity, eng.cand_capacity))
+        for job_id, (job, lane, caps) in self.scheduler.suspended.items():
+            tree[job_id] = lane
+            jobs_meta[job_id] = self._job_meta(job, caps)
+        self.checkpointer.save(
+            self._step_count, tree,
+            extra_metadata={"serve": {
+                "jobs": jobs_meta,
+                "slot_budget": self.scheduler.slot_budget,
+                "chunk_size": self.chunk_size,
+                "step_count": self._step_count,
+            }},
+            blocking=blocking,
+        )
+
+    def _job_meta(self, job: job_lib.Job, caps: tuple) -> dict:
+        meta = {f: getattr(job, f) for f in _JOB_META_FIELDS}
+        meta["policy"] = dataclasses.asdict(job.policy)
+        meta["collectors"] = _collector_specs(job.collectors)
+        meta["group_caps"] = list(caps)
+        meta["chunks"] = self._chunks[job.job_id]
+        meta["stream"] = list(self._stream[job.job_id])
+        return meta
 
     @classmethod
-    def restore(cls, checkpointer, *args, **kwargs):
-        raise NotImplementedError(_NO_CHECKPOINT)
+    def restore(cls, checkpointer, step: int | None = None,
+                slot_budget: int | None = None, chunk_size: int | None = None,
+                lane_backend: str = "map", checkpoint_every=None,
+                verify: bool = True, retry: RetryPolicy | None = None,
+                straggler_threshold: float | None = None, device="cuda"):
+        """Rebuild a service from a checkpoint, on ``device``; every
+        restored job resumes its exact chain. Restored jobs enter SUSPENDED
+        and repack on the first :meth:`step`.
+
+        With ``verify`` (the default) corrupt state is never loaded
+        silently: an explicitly requested corrupt ``step`` raises
+        :class:`repro_torch.checkpoint.CheckpointCorruptError`; with
+        ``step=None`` the newest step that passes verification is loaded,
+        and skipped corrupt steps are reported as a ``checkpoint_fallback``
+        :class:`FaultEvent` on ``svc.faults``."""
+        man = checkpointer.manifest(step, verify=verify)
+        skipped = list(checkpointer.last_skipped)
+        step = man["step"]  # pin the verified choice for the leaf restore
+        serve = man["extra"]["serve"]
+        svc = cls(
+            slot_budget=(serve["slot_budget"] if slot_budget is None
+                         else slot_budget),
+            chunk_size=(serve["chunk_size"] if chunk_size is None
+                        else chunk_size),
+            lane_backend=lane_backend, checkpointer=checkpointer,
+            checkpoint_every=checkpoint_every, retry=retry,
+            straggler_threshold=straggler_threshold, device=device,
+        )
+        svc._step_count = serve["step_count"]
+        svc.restored_from_step = step
+        if skipped:
+            svc._fault("checkpoint_fallback",
+                       detail={"loaded_step": step, "skipped_steps": skipped})
+        # The restore target comes from the engines' own lane code, on
+        # placeholder jobs with zero datasets of the saved shapes, at the
+        # saved states' capacity; Checkpointer.restore then overwrites
+        # every value and checks every shape.
+        leaf_shapes = {m["path"]: (tuple(m["shape"]), m["dtype"])
+                       for m in man["leaves"]}
+        target, jobs, caps_of = {}, {}, {}
+        for job_id, meta in serve["jobs"].items():
+            job = job_lib.Job(
+                data=_placeholder_data(job_id, leaf_shapes, svc.device),
+                policy=job_lib.TerminationPolicy(**meta["policy"]),
+                collectors=_collectors_from_specs(meta["collectors"]),
+                **{f: meta[f] for f in _JOB_META_FIELDS},
+            )
+            aux = leaf_shapes[f"[{job_id!r}]['state'].sampler.aux"][0]
+            skeleton = GroupEngine(job, capacity=aux[-1],
+                                   cand_capacity=meta["group_caps"][1])
+            target[job_id], _ = skeleton.build_lane(job)
+            jobs[job_id] = job
+            caps_of[job_id] = tuple(meta["group_caps"])
+        restored, _ = checkpointer.restore(target, step, verify=verify)
+        for job_id, meta in serve["jobs"].items():
+            lane = restored[job_id]
+            job = dataclasses.replace(jobs[job_id], data=lane["data"])
+            svc._jobs[job_id] = job
+            svc._status[job_id] = JobStatus.SUSPENDED
+            svc._chunks[job_id] = meta["chunks"]
+            svc._stream[job_id] = tuple(meta["stream"])
+            svc.scheduler.suspended[job_id] = (job, lane, caps_of[job_id])
+        return svc
 
     # --------------------------------------------------------- device loss
 
     def handle_device_loss(self, n_devices: int,
                            slots_per_device: int = 8) -> list[str]:
-        """The elastic response: shrink the slot budget to the surviving
-        devices, suspend newest-first until occupancy fits, repack what
-        fits. Returns the ids the shrink suspended. ``n_devices=0`` is
-        legal: every job suspends with its committed work, and a later call
-        with surviving devices repacks them."""
+        """The elastic response: checkpoint (with a checkpointer), shrink
+        the slot budget to the surviving devices, suspend newest-first until
+        occupancy fits, repack what fits. Returns the ids the shrink
+        suspended. ``n_devices=0`` is legal: every job suspends with its
+        committed work, and a later call with surviving devices repacks
+        them."""
         budget = elastic.plan_chain_slots(n_devices, slots_per_device)
+        if self.checkpointer is not None:
+            self.checkpoint()
         suspended = self.scheduler.shrink_to_budget(budget)
         for job_id in suspended:
             self._status[job_id] = JobStatus.SUSPENDED
@@ -382,3 +532,17 @@ class Service:
             },
         )
         return suspended
+
+
+def _placeholder_data(job_id: str, leaf_shapes: dict, device) -> GLMData:
+    """Zeros GLMData with the checkpointed lane's shapes and dtypes: enough
+    structure to rebuild the Job and the restore target."""
+    leaves = {}
+    for field in GLMData._fields:
+        path = f"[{job_id!r}]['data'].{field}"
+        if path not in leaf_shapes:
+            raise KeyError(f"checkpoint missing {path}")
+        shape, dtype = leaf_shapes[path]
+        leaves[field] = torch.zeros(shape, dtype=getattr(torch, dtype),
+                                    device=device)
+    return GLMData(**leaves)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain version, the
 exactness contracts of a short chain run on the device, one slice and one
 HMC step on the card against the CPU, the full-width
-recurrentgemma serving path, the rwkv6 serving path, and the training path
-(the ``FusedCE`` and ``RGLRUScan`` gradients, the reduced trainer).
+recurrentgemma serving path, the rwkv6 serving path, the training path
+(the ``FusedCE`` and ``RGLRUScan`` gradients, the reduced trainer), and
+checkpoints of card tensors and of a service on the card.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without one;
 this file imports no JAX, so it runs on a machine with only PyTorch:
@@ -988,3 +989,89 @@ def test_train_reduced_on_card(dev):
     assert cops.launch_count - c0 == 2
     assert rops.launch_count - r0 == 2 * 4 * 2  # 4 rglru layers in 6
     assert all(np.isfinite(h["loss"]) for h in hist)
+
+
+# ---------------------------------------------------------- checkpointing
+
+
+def _card_tree(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(64, 33, generator=g, device=dev)
+    return {"f32": x, "bf16": x.to(torch.bfloat16),
+            "i64": torch.arange(70, device=dev) * 2**40,
+            "mask": x > 0, "count": 17, "job_id": "robust-3"}
+
+
+def test_checkpoint_card_tree_restores_bitwise_on_card_and_cpu(dev, tmp_path):
+    """A tree saved from the card restores bitwise onto the card (its
+    target's device) and onto ``device="cpu"``; host values stay Python
+    values."""
+    from repro_torch.checkpoint import Checkpointer
+
+    tree = _card_tree(dev)
+    ck = Checkpointer(tmp_path)
+    ck.save(1, tree, blocking=True)
+    target = {k: torch.zeros_like(v) if isinstance(v, torch.Tensor) else
+              type(v)() for k, v in tree.items()}
+    for device, kind in ((None, dev.type), ("cpu", "cpu")):
+        got, _ = ck.restore(target, device=device)
+        assert got["count"] == 17 and got["job_id"] == "robust-3"
+        for k in ("f32", "bf16", "i64", "mask"):
+            assert got[k].device.type == kind and got[k].dtype == tree[k].dtype
+            assert torch.equal(got[k].cpu(), tree[k].cpu()), k
+
+
+def test_checkpoint_snapshot_on_card_is_taken_before_save_returns(dev,
+                                                                  tmp_path):
+    """An async save of card tensors, the writer held until the tensors are
+    written in place on the stream: what lands on disk is the value at
+    ``save`` time."""
+    import threading
+
+    from repro_torch.checkpoint import Checkpointer
+
+    tree = _card_tree(dev)
+    want = {k: tree[k].to("cpu", copy=True) for k in ("f32", "bf16", "i64")}
+    ck = Checkpointer(tmp_path)
+    go = threading.Event()
+    ck._kill_hook = lambda p: go.wait(30) if p == "begin" else None
+    ck.save(1, tree)
+    for k in want:
+        tree[k].add_(1)  # queued on the stream after save returned
+    torch.cuda.synchronize()
+    go.set()
+    ck.wait()
+    got, _ = ck.restore({k: torch.zeros_like(tree[k]) for k in want})
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_service_checkpoint_restore_on_card_is_bitwise(dev, tmp_path):
+    """The card mix through a service that checkpoints after its first
+    step; a service restored from that checkpoint on the card runs to
+    results bitwise the uninterrupted run's, launching both kernels."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.serve import Service
+    from repro_torch.testing import chaos
+
+    chunk = 16
+    ref_svc = Service(slot_budget=6, chunk_size=chunk)
+    for j in _card_mix(dev, 48):
+        ref_svc.submit(j)
+    ref = ref_svc.run()
+    svc = Service(slot_budget=6, chunk_size=chunk,
+                  checkpointer=Checkpointer(tmp_path), checkpoint_every=1)
+    for j in _card_mix(dev, 48):
+        svc.submit(j)
+    svc.step()
+    del svc
+    restored = Service.restore(Checkpointer(tmp_path))
+    assert restored.restored_from_step == 1 and len(restored._jobs) >= 4
+    chaos.resubmit(restored, _card_mix(dev, 48), {})  # queued at the save
+    b0, z0 = bops.launch_count, zops.launch_count
+    res = restored.run()
+    assert bops.launch_count > b0 and zops.launch_count > z0
+    assert set(res) == set(ref)
+    for job_id, r in ref.items():
+        assert res[job_id].committed == r.committed, job_id
+        assert _same(res[job_id].results, r.results), job_id

@@ -384,16 +384,22 @@ def test_service_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
     assert Service(device=CPU).scheduler.slot_budget == 8  # one device
 
 
-def test_checkpointing_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Service(slot_budget=4, checkpointer=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 6"):
+def test_checkpointing_raises_naming_its_roadmap_item(tmp_path):
+    """Checkpointing is ported (``tests/test_torch_chaos.py`` holds it to
+    the uninterrupted runs); what still raises is checkpointing without a
+    checkpointer, and a restore from an empty directory."""
+    from repro_torch.checkpoint import Checkpointer
+
+    with pytest.raises(ValueError, match="needs a checkpointer"):
         Service(slot_budget=4, checkpoint_every=2, device=CPU)
     svc = Service(slot_budget=4, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="no checkpointer"):
         svc.checkpoint()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Service.restore(object())
+    svc = Service(slot_budget=4, checkpointer=Checkpointer(tmp_path),
+                  checkpoint_every=2, device=CPU)
+    assert svc.checkpoint_every == 2 and svc.restored_from_step is None
+    with pytest.raises(FileNotFoundError):
+        Service.restore(Checkpointer(tmp_path), device=CPU)
 
 
 def test_transactional_chunk_under_an_injected_raise(engine, solo_refs):

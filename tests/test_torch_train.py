@@ -200,9 +200,10 @@ def test_synthetic_batch_copies_seven_back():
 
 
 def test_unsupported_training_raises():
-    """rwkv6 cannot train on the card (its WKV kernel has no backward), remat
-    and checkpointing wait: each raises NotImplementedError naming its
-    ROADMAP item. The card's guard is checked without a card."""
+    """rwkv6 cannot train on the card (its WKV kernel has no backward) and
+    remat waits: each raises NotImplementedError naming its ROADMAP item.
+    The card's guard is checked without a card. (Checkpointing the
+    training state is ported: ``tests/test_torch_checkpoint.py``.)"""
     rwkv = get_reduced("rwkv6-7b")
     with pytest.raises(NotImplementedError, match="item 9b"):
         check_trainable(rwkv, torch.device("cuda"))
@@ -210,5 +211,3 @@ def test_unsupported_training_raises():
     check_trainable(get_reduced(ARCH), "cuda")
     with pytest.raises(NotImplementedError, match="item 9c"):
         T.make_train_step(get_reduced(ARCH), remat=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        train_reduced(ARCH, steps=1, device="cpu", ckpt_dir="ckpt")
