@@ -18,8 +18,10 @@ backward kernel):
    FlyMC, at the paper's widths: ``bright_glm`` for the logistic (MNIST 7v9,
    N=12,214, D=51), softmax (CIFAR-3, N=18,000, D=256, 3 classes) and
    Student-t (OPV, N=1.8M, D=57) families, δ and totals to rtol/atol 1e-5;
-   ``z_update`` bitwise at N=12,214 and N=1.8M; each one device kernel a
-   call (profiler); ``host`` is the host time a call over 100 back-to-back
+   ``z_update`` bitwise at N=12,214 and N=1.8M; both with a lane axis, 8
+   lanes (datasets) × 2 chains at the MNIST width in one launch, held
+   against the plain version and, bitwise, against one launch a lane (the
+   service's ``"vmap"`` lanes); each one device kernel a call (profiler); ``host`` is the host time a call over 100 back-to-back
    calls, ``queued`` the device time a call with 100 calls queued back to
    back behind a spin kernel (kernels and the gaps between them, the host's
    issue time hidden). ``z_update``'s bound is the larger of its bytes and its
@@ -101,6 +103,29 @@ backward kernel):
    and of ``Service.restore``, beside the card's name and power limit. Then
    ``repro_torch.testing.chaos.run_schedule`` on the card for one seed
    whose schedule fires a checkpoint kill and a corruption;
+6a. runs the service's ``"vmap"`` lanes (``vmap_service_path``): the mix
+   of 5. under ``lane_backend="vmap"``, every result bitwise the ``"map"``
+   run's; then a group of 8 logistic MNIST jobs with 2 chains each (seeds
+   0–7): solo, an instrumented ``"vmap"`` run (each kernel launched once a
+   group step, for all 8 lanes), then map, vmap, vmap, map timed warm, each
+   bitwise the solo runs; prints wall seconds, ms a lane-step and committed
+   chain-samples/s of both backends, and holds both kernels, lane-stacked,
+   on the group's final lanes;
+6b. runs data-sharded FlyMC on the one card (``dist_path``): 4 ranks
+   (processes, gloo over CUDA tensors) run the reference example's problem
+   (``examples/distributed_flymc.py``: logistic, N = 32,768, D = 11, RWMH,
+   capacity 256 a shard, q_db 0.01, 1,500 iterations; 64 chains from θ_MAP
+   at step 0.03), with the
+   streamed moments, R̂ and query budget held to the offline trace, the
+   all-reduces a step counted (≤ 4 SUM, ≤ 1 MAX, none in the z-phase),
+   host waits a step, launches and both kernels held on each shard's final
+   state; the posterior held to a single-device chain of the same length
+   (mean within 0.35 of the largest sd, sd within 50%); the robust problem
+   at the OPV width on 4 ranks (slice, from θ_MAP, 100 iterations: RMSE of
+   the posterior mean against θ_true below 0.02, ms/iter, queries/iter);
+   ``chain_fleet`` with 4 ranks × 2 chains at the MNIST width, bitwise the
+   single-process 8-chain run; and a 1-rank NCCL group running the sharded
+   step for 50 iterations;
 7. checks the serving contract at recurrentgemma-9b's published width in
    float32: prefill 2100 tokens, decode one, and compare the logits with the
    full forward over 2101 tokens (rtol/atol 2e-3) and the greedy token with
@@ -198,7 +223,7 @@ CAPACITY = 512
 # 1,000 iterations (FlyMC or full-data alike), so convergence is checked on a
 # second run at the MNIST N with D = 3, long enough to converge.
 WARMUP, SAMPLES, CHAINS = 250, 750, 2
-D_CONV, WARMUP_CONV, SAMPLES_CONV = 3, 1000, 5000
+D_CONV, WARMUP_CONV, SAMPLES_CONV = 3, 1000, 2500
 # LM serving path: recurrentgemma-9b at its published width.
 ARCH = "recurrentgemma-9b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2304, 32
@@ -235,6 +260,32 @@ CHAOS_SEED, CHAOS_CKPT_EVERY = 4, 1
 # half.
 RESUME_STEPS, RESUME_BATCH, RESUME_SEQ = 8, 8, 129
 CE_TOKENS = TRAIN_BATCH * (TRAIN_SEQ - 1)  # fused_ce's T on the path: 4096
+# The service's "vmap" lanes: the lane-stacked kernel phases (8 lanes × 2
+# chains at the MNIST width) and a group of 8 logistic MNIST jobs, K = 2,
+# seeds 0–7, run solo, under "map" and under "vmap" (timed map, vmap, vmap,
+# map after an instrumented run), 64 samples in chunks of 32.
+LANES, LANE_CHAINS, LANE_SAMPLES = 8, 2, 64
+# Data-sharded FlyMC on the one card: 4 gloo ranks over CUDA tensors. The
+# reference example's problem (examples/distributed_flymc.py: logistic,
+# N = 32,768, D = 11, RWMH, capacity 256 a shard, q_db 0.01, 1,500
+# iterations, a quarter of them warmup; 64 chains, the example's one chain
+# 64 times over, started at θ_MAP: RWMH in these 11 dimensions reads
+# split-R̂ ~1.3 after 1,500 steps (8 chains, CPU), so the posterior held
+# against the single-device run's is read from 64 chains on each side; one
+# step of 64 chains costs what one of 8 does), a 1-rank NCCL group on it
+# for 50
+# iterations, the robust problem at the OPV width on 4 ranks (slice, from
+# θ_MAP, 100 iterations, burn 25), and a chain fleet of 4 ranks × 2 chains
+# at the MNIST width.
+DIST_RANKS, DIST_N, DIST_D, DIST_ITERS, DIST_CAP = 4, 32_768, 11, 1500, 256
+DIST_Q, DIST_CHAINS, NCCL_ITERS = 0.01, 64, 50
+# The example's RWMH starts at step 0.1, which its warmup's Robbins–Monro
+# adaptation takes more than its 375 steps to shrink at this N: 8 chains
+# then read split-R̂ 3.3 on an H100. 0.03, the main path's, is near
+# 2.38/√D of the posterior's sd (~0.05).
+DIST_STEP = 0.03
+DIST_OPV_ITERS, DIST_OPV_BURN, DIST_OPV_CAP = 100, 25, 16_384
+FLEET_CHAINS, FLEET_ITERS = 2, 64
 
 
 def log(msg: str) -> None:
@@ -518,6 +569,113 @@ def z_phase(name, n, k, q_db, cap, dev, gen, sm_clocks):
             "bound_ops_ms": by_ops}
 
 
+def bright_lane_phase(lanes, dev, gen):
+    """``bright_glm`` with a lane axis: ``LANES`` logistic datasets at the
+    MNIST width, ``LANE_CHAINS`` chains each, C = CAPACITY, one launch. Held
+    against the plain version (δ and totals, rtol/atol 1e-5) and, bitwise,
+    against one launch a lane."""
+    from repro_torch.core.bounds import GLMData
+    from repro_torch.kernels.bright_glm import ops
+    from repro_torch.kernels.bright_glm.ref import bright_glm_ref
+
+    n_l, k, c = len(lanes), LANE_CHAINS, CAPACITY
+    data = GLMData(*(torch.stack(a) for a in zip(*lanes)))
+    n, d = data.x.shape[1:]
+    xi = (5.0 + torch.rand(n_l, n, generator=gen)).to(dev)
+    theta = (0.5 * torch.randn(n_l, k, d, generator=gen) / d**0.5).to(dev)
+    arr = torch.stack([torch.stack([torch.randperm(n, generator=gen)
+                                    for _ in range(k)]) for _ in range(n_l)])
+    idx = arr.to(torch.int32).to(dev)[:, :, :c]  # strided, as the step's
+    idx[:, :, -8:] = n
+    nb = torch.randint(0, c + 1, (n_l, k), generator=gen).to(dev)
+    args = (data.x, data.t, xi, idx, nb, theta)
+    delta, total = ops.bright_glm(*args)
+    d_ref, t_ref = bright_glm_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(delta, d_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(total, t_ref, rtol=1e-5, atol=1e-5)
+    for i in range(n_l):
+        d1, t1 = ops.bright_glm(*(a[i] for a in args))
+        if not (torch.equal(d1, delta[i]) and torch.equal(t1, total[i])):
+            raise AssertionError(f"bright_glm lane {i} differs from its own "
+                                 "launch")
+    err = float((delta - d_ref).abs().max())
+    call = lambda: ops.bright_glm(*args)
+    ms = median_ms(call)
+    dev_ms = device_ms(call, ("bright_glm",))
+    kernels = device_kernels(call)
+    per_call = sum(map(len, kernels)) / len(kernels)
+    q_ms = queued_ms(call)
+    h_ms = host_ms(call)
+    plain = median_ms(lambda: bright_glm_ref(*args))
+    row_in = 4 + 4 * d + 4 + 4
+    lk = n_l * k
+    b_ms, b_by = bound(lk * c * row_in + lk * c * 4 + lk * 4 + lk * d * 4,
+                       2.0 * lk * c * d)
+    log(f"bright_glm[lanes: L={n_l} x K={k}, N={n} D={d} C={c}] one launch, "
+        f"bitwise {n_l} single-lane launches; max|δ-δ_plain|={err:.3g} call "
+        f"{ms:.4f} ms (host {h_ms:.4f} ms; device {dev_ms} ms, {per_call} "
+        f"device kernels a call, queued {q_ms:.6f} ms), plain {plain:.4f} "
+        f"ms, bound {b_ms:.6f} ms ({b_by})")
+    return {"phase": "logistic-lanes", "L": n_l, "N": n, "D": d, "K": k,
+            "C": c, "max_abs_err": err, "ms": dev_ms, "call_ms": ms,
+            "kernels_per_call": per_call, "device_kernels": kernels,
+            "queued_ms": q_ms, "host_ms": h_ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def z_lane_phase(n_l, dev, gen, sm_clocks):
+    """``z_update`` with a lane axis: ``n_l`` lanes of ``LANE_CHAINS``
+    chains at the MNIST N, one launch, bitwise the plain version and one
+    launch a lane."""
+    from repro_torch.kernels.z_update import ops
+    from repro_torch.kernels.z_update.ref import z_candidates_ref
+
+    n, k, cap, q_db = N_MNIST, LANE_CHAINS, CAPACITY, 0.01
+    arr = torch.stack([torch.stack([torch.randperm(n, generator=gen)
+                                    for _ in range(k)]) for _ in range(n_l)])
+    arr = arr.to(torch.int32).to(dev)
+    num = torch.randint(0, n // 25, (n_l, k), generator=gen).to(dev)
+    kw = torch.randint(0, 2**32, (n_l, k, 2), generator=gen).to(dev)
+    cand, count = ops.z_candidates(arr, num, kw, q_db, cap)
+    c_ref, n_ref = z_candidates_ref(arr, num, kw, q_db, cap)
+    torch.cuda.synchronize()
+    if not (torch.equal(cand, c_ref) and torch.equal(count, n_ref)):
+        raise AssertionError("z_update[lanes] differs from its plain version")
+    for i in range(n_l):
+        c1, n1 = ops.z_candidates(arr[i], num[i], kw[i], q_db, cap)
+        if not (torch.equal(c1, cand[i]) and torch.equal(n1, count[i])):
+            raise AssertionError(f"z_update lane {i} differs from its own "
+                                 "launch")
+    call = lambda: ops.z_candidates(arr, num, kw, q_db, cap)
+    ms = median_ms(call)
+    dev_ms = device_ms(call, ("z_",))
+    kernels = device_kernels(call)
+    per_call = sum(map(len, kernels)) / len(kernels)
+    q_ms = queued_ms(call)
+    h_ms = host_ms(call)
+    plain = median_ms(lambda: z_candidates_ref(arr, num, kw, q_db, cap))
+    lk = n_l * k
+    bytes_moved = lk * n * 4 + lk * cap * 4 + lk * 8 * 3 + lk * 4
+    hashed = lk * n - int(num.sum())
+    by_bytes = bound(bytes_moved, 0.0)[0]
+    by_ops = hash_bound_ms(hashed, sm_clocks)
+    b_ms, b_by = ((by_bytes, "bytes") if by_bytes >= by_ops
+                  else (by_ops, "operations"))
+    log(f"z_update[lanes: L={n_l} x K={k}, N={n} cap={cap} q={q_db}] one "
+        f"launch, bitwise the plain version and {n_l} single-lane launches, "
+        f"call {ms:.4f} ms (host {h_ms:.4f} ms; device {dev_ms} ms, "
+        f"{per_call} device kernels a call, queued {q_ms:.6f} ms), plain "
+        f"{plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}; bytes {by_bytes:.6f} "
+        f"ms, {hashed} hashes {by_ops:.6f} ms)")
+    return {"phase": "mnist-lanes", "L": n_l, "N": n, "K": k, "cap": cap,
+            "max_abs_err": 0.0, "ms": dev_ms, "call_ms": ms,
+            "kernels_per_call": per_call, "device_kernels": kernels,
+            "queued_ms": q_ms, "host_ms": h_ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes_ms": by_bytes,
+            "bound_ops_ms": by_ops}
+
+
 def kernel_phases(dev):
     from repro_torch import random as jr
     from repro_torch.data import logistic_data, robust_data, softmax_data
@@ -528,6 +686,9 @@ def kernel_phases(dev):
     bright = [
         bright_phase("logistic", "logistic", mnist, 2, CAPACITY, 0, dev, gen),
         bright_phase("softmax", "softmax", cifar, 2, CAPACITY, K_CIFAR, dev, gen),
+        bright_lane_phase([logistic_data(jr.key(100 + i), n=N_MNIST,
+                                         d=D_MNIST) for i in range(LANES)],
+                          dev, gen),
     ]
     del cifar
     opv, _ = robust_data(jr.key(2), n=N_OPV, d=D_OPV)
@@ -541,6 +702,7 @@ def kernel_phases(dev):
     z = [
         z_phase("mnist", N_MNIST, 2, 0.01, CAPACITY, dev, gen, sm_clocks),
         z_phase("opv", N_OPV, 2, 0.01, N_OPV // 64, dev, gen, sm_clocks),
+        z_lane_phase(LANES, dev, gen, sm_clocks),
     ]
     return bright, z, mnist
 
@@ -835,7 +997,7 @@ def exactness(mnist):
 
 
 def robust_kernels_held(spec, data, stats, fs, key, family="student_t",
-                        label="robust path"):
+                        label="robust path", own_total=False):
     """Both kernels held against their plain versions at the shapes the
     robust path (or a ``family`` service lane, ``label``) gave them, on its
     final state ``fs``: ``bright_glm`` on the
@@ -850,7 +1012,10 @@ def robust_kernels_held(spec, data, stats, fs, key, family="student_t",
     the ~q_db·N candidates have δ near 0, where log(expm1 δ) turns two
     float32 evaluations of δ that agree to ~1e-6 into terms that differ by
     up to O(1), so the two totals differ by ~1e-3 relative while every δ
-    and the summation agree. The smoke prints that difference."""
+    and the summation agree. The smoke prints that difference. With
+    ``own_total`` the bright buffer's total is held the same way: at a
+    MAP-tuned bound the bright data themselves sit at δ ≈ 0 (the sharded
+    example's final states)."""
     from repro_torch import random as jr
     from repro_torch.core import brightness, flymc
     from repro_torch.core.numerics import key_words_of
@@ -868,7 +1033,10 @@ def robust_kernels_held(spec, data, stats, fs, key, family="student_t",
     delta, total = bops.bright_glm(*args, **kw)
     d_ref, t_ref = bright_glm_ref(*args, **kw)
     torch.testing.assert_close(delta, d_ref, **close)
-    torch.testing.assert_close(total, t_ref, **close)
+    torch.testing.assert_close(
+        total, total_of_delta(delta, fs.bright.num) if own_total else t_ref,
+        **close)
+    gap_bright = float((total - t_ref).abs().max())
     carry = float((fs.sampler.aux - delta).abs()[mask].max()) if bool(
         mask.any()) else 0.0  # a chain may end with no bright datum
     torch.testing.assert_close(fs.sampler.aux[mask], delta[mask], **close)
@@ -897,7 +1065,9 @@ def robust_kernels_held(spec, data, stats, fs, key, family="student_t",
     drawn = torch.arange(cap, device=nb.device) < nb[:, None]
     smallest = float(d_ref[drawn].min()) if bool(drawn.any()) else math.nan
     log(f"{label} kernels held on the final state: bright_glm at C="
-        f"{spec.capacity} (bright {fs.bright.num.tolist()}) and at the "
+        f"{spec.capacity} (bright {fs.bright.num.tolist()}; its total "
+        f"{'held to the plain sum of its own δ, ' if own_total else ''}"
+        f"{gap_bright:.3g} from plain) and at the "
         f"candidates' C={cap} ({n_cand.tolist()} drawn, z_update bitwise) "
         f"within 1e-5 of plain, max|δ-δ_plain| {max(errs):.3g}; stored δ "
         f"vs fresh max {carry:.3g}, stored lp {fs.sampler.lp.tolist()} vs "
@@ -911,8 +1081,9 @@ def robust_path():
     """The paper's third experiment (§4.3) at the OPV width: robust
     Student-t regression (ν = 4, σ = 1, Laplace prior), MAP-tuned bounds,
     FlyMC with slice sampling, 2 chains from θ_MAP; then a few iterations
-    of the full-data slice chain. Returns the FlyMC run's kernel launches
-    and the largest |δ − δ_plain| of ``robust_kernels_held``."""
+    of the full-data slice chain. Returns the FlyMC run's kernel launches,
+    the largest |δ − δ_plain| of ``robust_kernels_held`` and θ_MAP (on the
+    host, for ``dist_path``'s sharded run of the same problem)."""
     from repro_torch import api
     from repro_torch import random as jr
     from repro_torch.core import brightness, flymc, samplers
@@ -1009,7 +1180,7 @@ def robust_path():
     # full-data chain's n_evals · N
     if not q < 2 * spec.q_db * N_OPV:
         raise AssertionError(f"robust FlyMC queries/iter {q} >= 2·q_db·N")
-    return launches, err
+    return launches, err, theta_map.cpu()
 
 
 def service_mix(seed: int = 0, n_jobs: int = 8):
@@ -1130,13 +1301,14 @@ def _sequential(jobs):
     return out, time.perf_counter() - t0
 
 
-def _serviced(jobs, hold=None):
+def _serviced(jobs, hold=None, lane_backend="map", slots=SERVICE_SLOTS):
     """The jobs through one ``Service``: (service, {job_id: JobResult},
     wall s, {job_id: s from the first submit to retirement}). The service
     is put in ``hold["svc"]`` before it runs, for instrumentation."""
     from repro_torch.serve import Service
 
-    svc = Service(slot_budget=SERVICE_SLOTS, chunk_size=SERVICE_CHUNK)
+    svc = Service(slot_budget=slots, chunk_size=SERVICE_CHUNK,
+                  lane_backend=lane_backend)
     if hold is not None:
         hold["svc"] = svc
     done_at = {}
@@ -1340,6 +1512,580 @@ def service_path():
         f"{res[conv.job_id].committed}, reason {res[conv.job_id].reason}, "
         f"ESS {np.asarray(ess).tolist()} (target {conv.policy.min_ess})")
     return launches, max(errs), jobs, res
+
+
+# ---------------------------------------------------------------------------
+# 6b. The service's "vmap" lanes
+# ---------------------------------------------------------------------------
+
+
+def lanes_kernels_held(spec, lanes, key, label):
+    """Both kernels held against their plain versions on a group's final
+    lanes, stacked as the "vmap" step stacks them: ``bright_glm`` on every
+    lane's bright buffer in one lane-stacked launch (δ and totals within
+    1e-5 of plain; the stored δ within 1e-5 of the launch's) and
+    ``z_update`` on every lane's partition in one launch (bitwise plain).
+    Returns the largest |δ − δ_plain|."""
+    from repro_torch import random as jr
+    from repro_torch.core import brightness
+    from repro_torch.core.bounds import GLMData
+    from repro_torch.core.numerics import key_words_of
+    from repro_torch.kernels.bright_glm import ops as bops
+    from repro_torch.kernels.bright_glm.ref import bright_glm_ref
+    from repro_torch.kernels.z_update import ops as zops
+    from repro_torch.kernels.z_update.ref import z_candidates_ref
+
+    n_l = len(lanes)
+    data = GLMData(*(torch.stack(a) for a in zip(*(l["data"] for l in lanes))))
+    states = [l["state"] for l in lanes]
+    k = states[0].sampler.theta.shape[0]
+    bufs = [brightness.bright_buffer(st.bright, spec.capacity)
+            for st in states]
+    idx = torch.stack([b[0] for b in bufs])
+    nb = torch.stack([st.bright.num for st in states])
+    theta = torch.stack([st.sampler.theta for st in states])
+    args = (data.x, data.t, data.xi, idx, nb, theta)
+    kw = dict(family="logistic", **spec.bound.fused_kernel_kwargs())
+    delta, total = bops.bright_glm(*args, **kw)
+    d_ref, t_ref = bright_glm_ref(*args, **kw)
+    close = dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(delta, d_ref, **close)
+    torch.testing.assert_close(total, t_ref, **close)
+    mask = torch.stack([b[1] for b in bufs])
+    aux = torch.stack([st.sampler.aux for st in states])
+    torch.testing.assert_close(aux[mask], delta[mask], **close)
+    words = key_words_of(jr.split(key, n_l * k)).reshape(n_l, k, 2)
+    arr = torch.stack([st.bright.arr for st in states])
+    cand, count = zops.z_candidates(arr, nb, words, spec.q_db,
+                                    spec.cand_capacity)
+    c_ref, n_ref = z_candidates_ref(arr, nb, words, spec.q_db,
+                                    spec.cand_capacity)
+    if not (torch.equal(cand, c_ref) and torch.equal(count, n_ref)):
+        raise AssertionError(f"{label}: lane-stacked z_update differs from "
+                             "its plain version")
+    err = float((delta - d_ref).abs().max())
+    log(f"{label} kernels held on the final lanes: one lane-stacked "
+        f"bright_glm (L={n_l}, K={k}, C={spec.capacity}, bright "
+        f"{nb.tolist()}) within 1e-5 of plain, max|δ-δ_plain| {err:.3g}; "
+        f"one lane-stacked z_update (cap {spec.cand_capacity}, "
+        f"{count.tolist()} drawn) bitwise")
+    return err
+
+
+def vmap_group():
+    """8 logistic jobs at the MNIST width, K = 2, seeds 0–7, each its own
+    dataset: one group key, so one engine of 8 lanes."""
+    from repro_torch import random as jr
+    from repro_torch.data import logistic_data
+    from repro_torch.serve import Job, TerminationPolicy
+
+    n = N_MNIST
+    return [Job(job_id=f"mnist2c-{i}", family="logistic",
+                num_chains=LANE_CHAINS, seed=i,
+                data=logistic_data(jr.key(2000 + i), n=n, d=D_MNIST),
+                capacity=n // 4, cand_capacity=n // 4,
+                num_warmup=SERVICE_WARMUP,
+                policy=TerminationPolicy(max_samples=LANE_SAMPLES))
+            for i in range(LANES)]
+
+
+def _instrumented(jobs, lane_backend, slots):
+    """One service run with its engines and evicted lanes recorded and its
+    launches counted from 0: (service, results, engines, {group key: (spec,
+    [evicted lanes])}, launches)."""
+    from repro_torch.serve.scheduler import Scheduler
+
+    engines, evicted = [], {}
+    real_engine_for, real_evict = Scheduler._engine_for, Scheduler.evict
+
+    def engine_for(self, *a, **kw):
+        eng = real_engine_for(self, *a, **kw)
+        if all(e is not eng for e in engines):
+            engines.append(eng)
+        return eng
+
+    def evict(self, job_id):
+        eng, lane = real_evict(self, job_id)
+        evicted.setdefault(eng.group_key, (eng._alg.spec, []))[1].append(lane)
+        return eng, lane
+
+    Scheduler._engine_for, Scheduler.evict = engine_for, evict
+    try:
+        _reset_launches()
+        svc, res, _, _ = _serviced(jobs, lane_backend=lane_backend,
+                                   slots=slots)
+        launches = _launches()
+    finally:
+        Scheduler._engine_for, Scheduler.evict = real_engine_for, real_evict
+    return svc, res, engines, evicted, launches
+
+
+def _check_group_launches(name, engines, launches):
+    """RWMH under "vmap": two ``bright_glm`` launches a group step (the
+    proposal and the candidates) and one an init, one ``z_update`` a group
+    step; a group step advances every lane, so there are fewer group steps
+    than lane-steps wherever a group held two lanes or more."""
+    steps = sum(e.group_steps for e in engines)
+    inits = sum(e.inits for e in engines)
+    want = {"bright_glm": 2 * steps + inits, "z_update": steps}
+    if launches != want or min(launches.values()) == 0:
+        raise AssertionError(f"{name}: launches {launches}, want {want}")
+    return steps, sum(e.lane_steps for e in engines), inits
+
+
+def vmap_service_path(jobs, ref):
+    """The service's "vmap" lanes on the card. First :func:`service_path`'s
+    mix (``jobs``; ``ref`` its "map" results, bitwise the solo runs) under
+    ``lane_backend="vmap"``: every result bitwise ``ref``, launches counted
+    against the engines' group steps. Then a group of 8 logistic MNIST
+    jobs, K = 2 (:func:`vmap_group`): its solo runs, an instrumented "vmap"
+    run (launches once a group step: 8 lanes a launch), then timed warm
+    runs in the order map, vmap, vmap, map, each bitwise the solo runs.
+    Prints wall s, ms a lane-step and committed chain-samples/s of both
+    backends. Both kernels are held on the group's final lanes, stacked.
+    Returns the two instrumented runs' launches and the hold's largest
+    |δ − δ_plain|."""
+    from repro_torch import random as jr
+
+    svc, res, engines, _, mix_launches = _instrumented(jobs, "vmap",
+                                                       SERVICE_SLOTS)
+    if svc.faults:
+        raise AssertionError(f"vmap mix: fault events {svc.faults}")
+    bad = [j.job_id for j in jobs
+           if not (_results_equal(res[j.job_id].results, ref[j.job_id].results)
+                   and res[j.job_id].committed == ref[j.job_id].committed)]
+    if bad:
+        raise AssertionError(f"vmap mix: results differ from map: {bad}")
+    mix_steps = _check_group_launches("vmap mix", engines, mix_launches)
+
+    group = vmap_group()
+    solo, solo_wall = _sequential(group)
+    slots = LANES * LANE_CHAINS
+    svc, res, engines, evicted, launches = _instrumented(group, "vmap", slots)
+    _check_service_run("vmap group (instrumented)", svc, res, group, solo)
+    steps, lane_steps, inits = _check_group_launches("vmap group", engines,
+                                                     launches)
+    if len(engines) != 1 or lane_steps != LANES * steps:
+        raise AssertionError(f"vmap group: {len(engines)} engines, "
+                             f"{lane_steps} lane-steps over {steps} group "
+                             f"steps (want one engine of {LANES} lanes)")
+    walls = {"map": [], "vmap": []}
+    for backend in ("map", "vmap", "vmap", "map"):
+        t_svc, t_res, wall, _ = _serviced(group, lane_backend=backend,
+                                          slots=slots)
+        _check_service_run(f"{backend} group (timed)", t_svc, t_res, group,
+                           solo)
+        walls[backend].append(wall)
+    ((spec, lanes),) = evicted.values()
+    err = lanes_kernels_held(spec, lanes, jr.key(37), "vmap group")
+    torch.cuda.empty_cache()
+
+    chain_samples = sum(r.committed * LANE_CHAINS for r in res.values())
+    mean = {b: sum(w) / len(w) for b, w in walls.items()}
+    log(f"vmap service path [{card_line()}]: the mix under lane_backend="
+        f"'vmap' bitwise the 'map' run (group steps, lane-steps, inits "
+        f"{mix_steps}, launches {mix_launches}); group of {LANES} logistic "
+        f"MNIST {N_MNIST}x{D_MNIST} jobs, K={LANE_CHAINS}, {LANE_SAMPLES} "
+        f"samples, chunk {SERVICE_CHUNK}: timed in the order map, vmap, "
+        f"vmap, map: wall map {[round(w, 3) for w in walls['map']]} s, vmap "
+        f"{[round(w, 3) for w in walls['vmap']]} s (ratio of means vmap/map "
+        f"{mean['vmap'] / mean['map']:.3f}); ms a lane-step map "
+        f"{mean['map'] * 1e3 / lane_steps:.3f}, vmap "
+        f"{mean['vmap'] * 1e3 / lane_steps:.3f} ({lane_steps} lane-steps, "
+        f"{steps} group steps); committed chain-samples/s map "
+        f"{chain_samples / mean['map']:.1f}, vmap "
+        f"{chain_samples / mean['vmap']:.1f}; solo sequential "
+        f"{solo_wall:.3f} s; every run bitwise the solo runs; launches "
+        f"{launches} ({inits} inits)")
+    return mix_launches, launches, err
+
+
+# ---------------------------------------------------------------------------
+# 6c. Data-sharded FlyMC and the chain fleet on 4 ranks
+# ---------------------------------------------------------------------------
+
+
+def _dist_problem():
+    """The reference example's problem (examples/distributed_flymc.py):
+    logistic, N = 32,768, D = 11, separation 2, MAP-tuned bounds, on the
+    current card; and θ_MAP. Every rank builds the same."""
+    from repro_torch import random as jr
+    from repro_torch.data import logistic_data
+    from repro_torch.models.bayes_glm import GLMModel
+
+    data = logistic_data(jr.key(0), n=DIST_N, d=DIST_D, separation=2.0)
+    model = GLMModel.logistic(data, prior_scale=1.0, xi=1.5)
+    theta_map = model.map_estimate(jr.key(1), steps=400)
+    return model.map_tuned(theta_map), theta_map
+
+
+def _counted_steps(alg, state, key, steps):
+    """``steps`` steps from ``state`` with the collectives counted, those
+    inside the z-update apart, and the lines where the host waited on the
+    card (sync debug mode). Returns (collectives a step, z-phase
+    collectives, {site: waits})."""
+    import warnings
+    from collections import Counter
+
+    from repro_torch import random as jr
+    from repro_torch.core import flymc
+    from repro_torch.distributed import comm
+
+    z_made = {"sum": 0, "max": 0}
+    names = ("_fused_z_update", "_implicit_z_update")
+    real = {n: getattr(flymc, n) for n in names}
+
+    def wrap(fn):
+        def counted(*a, **k):
+            before = dict(comm.counts)
+            out = fn(*a, **k)
+            for op in z_made:
+                z_made[op] += comm.counts[op] - before[op]
+            return out
+        return counted
+
+    keys = jr.split(key, state.iteration.shape[0])
+    for n, fn in real.items():
+        setattr(flymc, n, wrap(fn))
+    torch.cuda.synchronize()
+    comm.reset_counts()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(steps):
+                    state, _ = alg.step(jr.fold_in(keys, state.iteration),
+                                        state)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        made = dict(comm.counts)
+    finally:
+        for n, fn in real.items():
+            setattr(flymc, n, fn)
+    sites = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                    if "called a synchronizing CUDA operation"
+                    in str(w.message))
+    return {op: v / steps for op, v in made.items()}, z_made, dict(sites)
+
+
+def _example_chain(alg, theta_map):
+    """The example's run, ``DIST_CHAINS`` chains from θ_MAP: a quarter of
+    the iterations warmup without output, then the rest streamed (online
+    moments, split-R̂, the query budget and, to check the streamed values,
+    the full trace). Returns (warm trace, sampling trace)."""
+    from repro_torch import api
+    from repro_torch import random as jr
+
+    burn = DIST_ITERS // 4
+    warm = api.sample(alg, jr.key(2), burn, num_chains=DIST_CHAINS,
+                      init_position=theta_map, collectors={})
+    tr = api.sample(warm.algorithm, jr.key(3), DIST_ITERS - burn,
+                    num_chains=DIST_CHAINS, init_state=warm.final_state,
+                    collectors={"moments": api.OnlineMoments(),
+                                "rhat": api.RHat(),
+                                "queries": api.QueryBudget(),
+                                "trace": api.FullTrace()})
+    return warm, tr
+
+
+def _streamed_checks(tr):
+    """The example's checks: streamed moments and R̂ against the offline
+    trace, the query budget against the summed stats. Returns the numbers
+    printed."""
+    from repro_torch.core import diagnostics
+
+    off = tr.results["trace"]["theta"].double().cpu().numpy()
+    st = tr.results["trace"]["stats"]
+    mom = tr.results["moments"]
+    np.testing.assert_allclose(np.asarray(mom["mean"]), off.mean(1),
+                               atol=1e-3)
+    rhat = float(tr.results["rhat"]["r_hat"])
+    np.testing.assert_allclose(rhat, diagnostics.split_r_hat(off), rtol=1e-4)
+    total_q = int(tr.results["queries"])
+    if total_q != int(st.lik_queries.to(torch.int64).sum()):
+        raise AssertionError("streamed query budget differs from the trace")
+    pooled = off.reshape(-1, off.shape[-1])
+    return {"samples": off, "mean": pooled.mean(0), "sd": pooled.std(0),
+            "rhat": rhat, "q_iter": total_q / off.shape[0] / off.shape[1],
+            "bright_share": float(st.n_bright.double().mean()) / DIST_N}
+
+
+def _dist_logistic(group):
+    """The example on this rank's shard: the chain, its checks, its
+    collectives and host waits a step (8 more steps), its launches against
+    its steps and inits, and both kernels held on its final state."""
+    from repro_torch import random as jr
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.flymc_dist import dist_algorithm, shard_data
+
+    tuned, theta_map = _dist_problem()
+    shard = shard_data(tuned.data, group)
+    alg = dist_algorithm(tuned.bound, tuned.log_prior, group, shard,
+                         kernel="rwmh", capacity=DIST_CAP,
+                         cand_capacity=DIST_CAP, q_db=DIST_Q,
+                         step_size=DIST_STEP, adapt_target=0.234)
+    _reset_launches()
+    torch.cuda.synchronize()
+    torch.distributed.barrier(group)
+    t0 = time.perf_counter()
+    warm, tr = _example_chain(alg, theta_map)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    steps = warm.steps_run + tr.steps_run
+    want = {"bright_glm": 2 * steps + warm.inits_run + tr.inits_run,
+            "z_update": steps}
+    if launches != want:
+        raise AssertionError(f"rank {comm.rank(group)}: dist launches "
+                             f"{launches}, want {want}")
+    out = _streamed_checks(tr)
+    per_step, z_made, sites = _counted_steps(tr.algorithm, tr.final_state,
+                                             jr.key(5), 8)
+    err = robust_kernels_held(tr.algorithm.spec, shard,
+                              tr.algorithm.stats, tr.final_state, jr.key(38),
+                              family="logistic",
+                              label=f"dist rank {comm.rank(group)}",
+                              own_total=True)
+    out.update(ms_iter=wall * 1e3 / DIST_ITERS, launches=launches,
+               steps=steps, per_step=per_step, z_phase=z_made,
+               waits_a_step=sum(sites.values()) / 8, sites=sites,
+               capacity=tr.algorithm.spec.capacity, max_abs_err=err)
+    return out
+
+
+def _dist_opv(group, theta_map):
+    """The robust-regression problem at the OPV width on this rank's shard
+    (slice sampling, 2 chains from θ_MAP): ms/iter, queries/iter and the
+    posterior-mean RMSE against θ_true."""
+    from repro_torch import api
+    from repro_torch import random as jr
+    from repro_torch.core import samplers
+    from repro_torch.data import robust_data
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.flymc_dist import dist_algorithm, shard_data
+    from repro_torch.models.bayes_glm import GLMModel
+
+    data, theta_true = robust_data(jr.key(30), n=N_OPV, d=D_OPV, nu=4.0)
+    model = GLMModel.robust(data, nu=4.0, sigma=1.0, prior_scale=1.0)
+    theta_map = theta_map.to(data.x.device)
+    tuned = model.map_tuned(theta_map)
+    bound, prior = tuned.bound, tuned.log_prior
+    shard = shard_data(tuned.data, group)
+    del data, model, tuned
+    torch.cuda.empty_cache()
+    alg = dist_algorithm(bound, prior, group, shard,
+                         step_size=0.05, kernel="slice",
+                         capacity=DIST_OPV_CAP, cand_capacity=DIST_OPV_CAP,
+                         q_db=0.01)
+    _reset_launches()
+    w0 = samplers.waits
+    torch.cuda.synchronize()
+    torch.distributed.barrier(group)
+    t0 = time.perf_counter()
+    tr = api.sample(alg, jr.key(32), DIST_OPV_ITERS, num_chains=CHAINS,
+                    init_position=theta_map)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    trips = samplers.waits - w0
+    want = {"bright_glm": trips + tr.steps_run + tr.inits_run,
+            "z_update": tr.steps_run}
+    if launches != want:
+        raise AssertionError(f"rank {comm.rank(group)}: OPV launches "
+                             f"{launches}, want {want}")
+    theta = tr.theta.cpu().numpy()
+    post = theta[:, DIST_OPV_BURN:].reshape(-1, D_OPV).mean(0)
+    rmse = float(np.sqrt(np.mean((post - theta_true.cpu().numpy()) ** 2)))
+    st = tr.stats
+    return {"ms_iter": wall * 1e3 / DIST_OPV_ITERS, "rmse": rmse,
+            "q_iter": float(st.lik_queries[:, DIST_OPV_BURN:].double().mean()),
+            "bright": float(st.n_bright[:, DIST_OPV_BURN:].double().mean()),
+            "trips_a_step": trips / tr.steps_run, "launches": launches,
+            "capacity": tr.algorithm.spec.capacity,
+            "finite": bool(np.isfinite(theta).all())}
+
+
+def _fleet_alg():
+    """The fleet's algorithm: RWMH on the kernel engines at the MNIST width
+    from θ = 0, untuned bounds."""
+    from repro_torch import api
+    from repro_torch import random as jr
+    from repro_torch.data import logistic_data
+    from repro_torch.models.bayes_glm import GLMModel
+
+    model = GLMModel.logistic(logistic_data(jr.key(0), n=N_MNIST, d=D_MNIST))
+    return api.firefly(model, kernel="rwmh", capacity=CAPACITY,
+                       cand_capacity=CAPACITY, q_db=0.01, step_size=0.03)
+
+
+def _fleet(group):
+    """This rank's rows of a ``DIST_RANKS · FLEET_CHAINS``-chain run through
+    ``chain_fleet``, and the collectives its steps made (none)."""
+    from repro_torch import api
+    from repro_torch import random as jr
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.flymc_dist import chain_fleet
+
+    alg = chain_fleet(_fleet_alg(), group)
+    comm.reset_counts()
+    _reset_launches()
+    tr = api.sample(alg, jr.key(40), FLEET_ITERS,
+                    num_chains=DIST_RANKS * FLEET_CHAINS)
+    want = {"bright_glm": 2 * tr.steps_run + tr.inits_run,
+            "z_update": tr.steps_run}
+    if _launches() != want:
+        raise AssertionError(f"fleet rank {comm.rank(group)}: launches "
+                             f"{_launches()}, want {want}")
+    return {"theta": tr.theta.cpu().numpy(),
+            "stats": [a.cpu().numpy() for a in tr.stats],
+            "collectives": dict(comm.counts), "launches": _launches(),
+            "steps": tr.steps_run, "inits": tr.inits_run}
+
+
+def _dist_rank(group, theta_map):
+    """Everything ``dist_path`` runs on each of its ranks, in one start."""
+    out = {"logistic": _dist_logistic(group)}
+    torch.cuda.empty_cache()
+    out["opv"] = _dist_opv(group, theta_map)
+    torch.cuda.empty_cache()
+    out["fleet"] = _fleet(group)
+    return out
+
+
+def dist_path(theta_map):
+    """Data-sharded FlyMC and the chain fleet on the one card.
+
+    ``DIST_RANKS`` ranks (processes, gloo over CUDA tensors; NCCL refuses
+    two ranks on one device), started once through
+    ``repro_torch.distributed.launch.run_ranks``, each run: the reference
+    example's problem (:func:`_dist_problem`, RWMH, capacity 256 a shard,
+    q_db 0.01, 1,500 iterations; the streamed moments, R̂ and query budget
+    checked against the offline trace; all-reduces a step counted by
+    ``repro_torch.distributed.comm`` and held to ≤ 4 SUM and ≤ 1 MAX with
+    none in the z-phase; host waits a step; launches against steps and
+    inits; both kernels held on the shard's final state); the robust
+    problem at the OPV width (slice, 2 chains from θ_MAP, ``DIST_OPV_ITERS``
+    iterations: RMSE of the posterior mean against θ_true below
+    ``ROBUST_RMSE_MAX``, ms/iter, queries/iter); and ``chain_fleet`` with
+    ``FLEET_CHAINS`` chains a rank at the MNIST width. Every rank's
+    replicated outputs must agree bitwise. Then, in this process: a
+    single-device FlyMC chain of the example's length (the sharded chain's
+    posterior mean within 0.35 of the largest sd and its sd within 50%,
+    ``tests/test_flymc_distributed.py``'s tolerances), the fleet's
+    single-process batched run (each rank's rows bitwise), and a 1-rank
+    NCCL group running the sharded step for ``NCCL_ITERS`` iterations.
+    Returns the launches of rank 0's example chain, of the fleet and of
+    the NCCL run, and the holds' largest |δ − δ_plain|."""
+    from repro_torch import api
+    from repro_torch import random as jr
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.flymc_dist import dist_algorithm
+    from repro_torch.distributed.launch import run_ranks, single_rank
+
+    t0 = time.perf_counter()
+    outs = run_ranks(_dist_rank, DIST_RANKS, backend="gloo", device="cuda",
+                     args=(theta_map,), timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    lg = [o["logistic"] for o in outs]
+    for o in lg[1:]:
+        if not np.array_equal(o["samples"], lg[0]["samples"]):
+            raise AssertionError("dist ranks hold different chains")
+    for o in lg:
+        if o["per_step"]["sum"] > 4 or o["per_step"]["max"] > 1:
+            raise AssertionError(f"dist step collectives {o['per_step']}")
+        if any(o["z_phase"].values()):
+            raise AssertionError(f"z-phase collectives {o['z_phase']}")
+    opv = [o["opv"] for o in outs]
+    if not (opv[0]["finite"] and opv[0]["rmse"] < ROBUST_RMSE_MAX):
+        raise AssertionError(f"dist OPV posterior-mean RMSE {opv[0]['rmse']}")
+
+    # the single-device chain of the same length
+    tuned, map_dist = _dist_problem()
+    one = api.firefly(tuned, kernel="rwmh", capacity=DIST_RANKS * DIST_CAP,
+                      cand_capacity=DIST_RANKS * DIST_CAP, q_db=DIST_Q,
+                      step_size=DIST_STEP, adapt_target=0.234)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, tr = _example_chain(one, map_dist)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t1) * 1e3 / DIST_ITERS
+    ref = _streamed_checks(tr)
+    # tests/test_flymc_distributed.py's tolerances, checked after the log
+    mean_gap = float(np.abs(lg[0]["mean"] - ref["mean"]).max())
+    mean_tol = 3.5 * float(ref["sd"].max()) / 10
+    sd_gap = float((np.abs(lg[0]["sd"] - ref["sd"]) / ref["sd"]).max())
+
+    # the fleet against the single-process batched run
+    fl = [o["fleet"] for o in outs]
+    whole = api.sample(_fleet_alg(), jr.key(40), FLEET_ITERS,
+                       num_chains=DIST_RANKS * FLEET_CHAINS)
+    for r, o in enumerate(fl):
+        rows = slice(r * FLEET_CHAINS, (r + 1) * FLEET_CHAINS)
+        same = np.array_equal(o["theta"], whole.theta[rows].cpu().numpy())
+        same &= all(np.array_equal(a, b[rows].cpu().numpy())
+                    for a, b in zip(o["stats"], whole.stats))
+        if not same or any(o["collectives"].values()):
+            raise AssertionError(f"fleet rank {r}: bitwise {same}, "
+                                 f"collectives {o['collectives']}")
+
+    # a 1-rank NCCL group runs the same sharded step
+    with single_rank("nccl", "cuda") as group:
+        alg = dist_algorithm(tuned.bound, tuned.log_prior, group, tuned.data,
+                             kernel="rwmh", capacity=DIST_CAP,
+                             cand_capacity=DIST_CAP, q_db=DIST_Q,
+                             step_size=DIST_STEP, adapt_target=0.234)
+        comm.reset_counts()
+        _reset_launches()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        nc = api.sample(alg, jr.key(2), NCCL_ITERS, init_position=map_dist)
+        torch.cuda.synchronize()
+        nccl_ms = (time.perf_counter() - t2) * 1e3 / NCCL_ITERS
+        nccl_launches, nccl_counts = _launches(), dict(comm.counts)
+    if not (bool(torch.isfinite(nc.theta).all())
+            and nccl_launches["z_update"] == nc.steps_run
+            and nccl_counts["max"] >= nc.steps_run):
+        raise AssertionError(f"NCCL run: launches {nccl_launches}, "
+                             f"collectives {nccl_counts}")
+    err = max(o["max_abs_err"] for o in lg)
+    l0, o0 = lg[0], opv[0]
+    log(f"dist path [{DIST_RANKS} ranks, gloo over CUDA tensors on one card; "
+        f"{card_line()}]: example problem (logistic N={DIST_N} D={DIST_D}, "
+        f"RWMH, capacity {DIST_CAP} a shard, grown to {l0['capacity']}, "
+        f"q_db {DIST_Q}, {DIST_CHAINS} chains from θ_MAP, {DIST_ITERS} "
+        f"iterations): ms/iter {l0['ms_iter']:.3f} "
+        f"(single device {one_ms:.3f}); posterior mean {np.round(l0['mean'], 4).tolist()} "
+        f"sd {np.round(l0['sd'], 4).tolist()} (single device mean "
+        f"{np.round(ref['mean'], 4).tolist()} sd {np.round(ref['sd'], 4).tolist()}); "
+        f"split-R̂ {l0['rhat']:.4f} (single device {ref['rhat']:.4f}); "
+        f"queries/iter {l0['q_iter']:.1f} ({DIST_N / l0['q_iter']:.0f}x fewer "
+        f"than full data; single device {ref['q_iter']:.1f}); bright share "
+        f"{l0['bright_share']:.5f}; all-reduces a step {l0['per_step']} "
+        f"(z-phase {l0['z_phase']}); host waits a step outside the "
+        f"collectives {l0['waits_a_step']:.2f} at {l0['sites']} (sync debug "
+        f"mode; gloo waits for the stream inside each all-reduce on a CUDA "
+        f"tensor, {sum(l0['per_step'].values()):.0f} a step); launches rank "
+        f"0 {l0['launches']} over "
+        f"{l0['steps']} steps | OPV robust (N={N_OPV} D={D_OPV}, slice, "
+        f"{CHAINS} chains from θ_MAP, {DIST_OPV_ITERS} iterations, burn "
+        f"{DIST_OPV_BURN}): ms/iter {o0['ms_iter']:.3f}, queries/iter "
+        f"{o0['q_iter']:.1f}, bright {o0['bright']:.1f}, capacity a shard "
+        f"{o0['capacity']}, density evaluations a step "
+        f"{o0['trips_a_step']:.2f}, posterior-mean RMSE vs θ_true "
+        f"{o0['rmse']:.5f}, launches rank 0 {o0['launches']} | fleet "
+        f"({DIST_RANKS} ranks x {FLEET_CHAINS} chains, MNIST, {FLEET_ITERS} "
+        f"iterations) bitwise the single-process {DIST_RANKS * FLEET_CHAINS}"
+        f"-chain run, no collective, launches rank 0 {fl[0]['launches']} | "
+        f"NCCL 1 rank: {NCCL_ITERS} iterations, ms/iter {nccl_ms:.3f}, "
+        f"all-reduces {nccl_counts} | ranks' wall {ranks_s:.1f} s; "
+        f"posterior vs single device: max|Δ mean| {mean_gap:.4f} (limit "
+        f"{mean_tol:.4f}), max relative |Δ sd| {sd_gap:.3f} (limit 0.5)")
+    if not (mean_gap <= mean_tol and sd_gap <= 0.5):
+        raise AssertionError("the sharded chain's posterior differs from the "
+                             "single-device chain's")
+    return {"dist": l0["launches"], "dist_opv": o0["launches"],
+            "fleet": fl[0]["launches"], "nccl": nccl_launches}, err
 
 
 def _dir_bytes(path: Path) -> int:
@@ -2537,12 +3283,17 @@ def main() -> int:
     plain_engines(mnist)
     del mnist
     torch.cuda.empty_cache()
-    robust_launches, robust_err = robust_path()
+    robust_launches, robust_err, theta_map = robust_path()
     torch.cuda.empty_cache()
     service_launches, service_err, service_jobs, service_res = service_path()
     torch.cuda.empty_cache()
     restored_launches, chaos_err = checkpoint_path(service_jobs, service_res)
+    torch.cuda.empty_cache()
+    vmap_mix_launches, vmap_launches, vmap_err = vmap_service_path(
+        service_jobs, service_res)
     del service_jobs, service_res
+    torch.cuda.empty_cache()
+    dist_launches, dist_err = dist_path(theta_map)
     torch.cuda.empty_cache()
 
     serve_exactness(dev)
@@ -2577,11 +3328,17 @@ def main() -> int:
          "launches_hmc": hmc_launches["bright_glm"],
          "launches_service": service_launches["bright_glm"],
          "launches_restored": restored_launches["bright_glm"],
+         "launches_vmap_mix": vmap_mix_launches["bright_glm"],
+         "launches_vmap_group": vmap_launches["bright_glm"],
+         **{f"launches_{k}": v["bright_glm"] for k, v in dist_launches.items()},
          "max_abs_err": max([p["max_abs_err"] for p in bright]
-                            + [robust_err, service_err, chaos_err]),
+                            + [robust_err, service_err, chaos_err, vmap_err,
+                               dist_err]),
          "max_abs_err_robust": robust_err,
          "max_abs_err_service": service_err,
          "max_abs_err_chaos": chaos_err,
+         "max_abs_err_vmap": vmap_err,
+         "max_abs_err_dist": dist_err,
          "ms": main_b["ms"], "call_ms": main_b["call_ms"],
          "plain_ms": main_b["plain_ms"],
          "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
@@ -2593,7 +3350,11 @@ def main() -> int:
          "launches_robust": robust_launches["z_update"],
          "launches_hmc": hmc_launches["z_update"],
          "launches_service": service_launches["z_update"],
-         "launches_restored": restored_launches["z_update"], "max_abs_err": 0.0,
+         "launches_restored": restored_launches["z_update"],
+         "launches_vmap_mix": vmap_mix_launches["z_update"],
+         "launches_vmap_group": vmap_launches["z_update"],
+         **{f"launches_{k}": v["z_update"] for k, v in dist_launches.items()},
+         "max_abs_err": 0.0,
          "ms": main_z["ms"], "call_ms": main_z["call_ms"],
          "plain_ms": main_z["plain_ms"],
          "bound_ms": main_z["bound_ms"], "bound_by": main_z["bound_by"],

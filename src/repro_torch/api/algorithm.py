@@ -43,6 +43,10 @@ class SamplingAlgorithm:
     ``tests/test_torch_collectors.py``). ``step_chains_data`` is the
     reference's chain-batched operand form; the port's ``step`` is already
     chain-batched, so it is the same callable as ``step_data``.
+
+    ``local_chains(num_chains)`` makes the driver step only those rows of
+    a run's chains (their keys and initial positions), the rest being
+    another process's: what a chain fleet over ranks needs.
     """
 
     init: Callable[[torch.Tensor, Any], Any]
@@ -57,6 +61,10 @@ class SamplingAlgorithm:
     step_chains_data: Callable[..., tuple[Any, StepStats]] | None = None
     data: Any = None
     stats: Any = None
+    # The chain rows this process steps, of a run's num_chains (a chain
+    # fleet's share, :func:`repro_torch.distributed.flymc_dist.chain_fleet`);
+    # None steps them all.
+    local_chains: Callable[[int], slice] | None = None
 
     def position_of(self, state) -> torch.Tensor:
         return state.sampler.theta

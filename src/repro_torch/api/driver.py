@@ -285,13 +285,18 @@ def sample(
 
     steps_run = inits_run = 0
     start_offset = 0
+    # This process's rows of the run's chains: all of them, or a chain
+    # fleet's share (the same keys as the whole run's, taken by row).
+    rows = (slice(None) if alg.local_chains is None
+            else alg.local_chains(num_chains))
+    n_local = len(range(num_chains)[rows])
     if init_state is not None:
         state = init_state
         it = state.iteration
-        if it.shape != (num_chains,):
+        if it.shape != (n_local,):
             raise ValueError(
                 f"init_state resume with num_chains={num_chains} needs a "
-                f"state with a leading ({num_chains},) chain axis"
+                f"state with a leading ({n_local},) chain axis"
             )
         vals = it.tolist()
         if any(v != vals[0] for v in vals):
@@ -305,14 +310,15 @@ def sample(
                 alg = _grown(alg)
             if alg.spec.capacity != c_state:
                 state = alg.resize(state)
-        chain_keys = split_chains(key, num_chains)
+        chain_keys = split_chains(key, num_chains)[rows]
     else:
         init_keys, chain_keys = init_and_chain_keys(key, num_chains)
+        init_keys, chain_keys = init_keys[rows], chain_keys[rows]
         position = init_position if init_position is not None else alg.default_position
         if position is None:
             raise ValueError("no init_position given and the algorithm has no default")
         positions = _chain_positions(position, num_chains, alg.default_position)
-        positions = positions.to(dev)
+        positions = positions.to(dev)[rows]
         state = alg.init(init_keys, positions)
         inits_run += 1
         while alg.init_overflow is not None and bool(alg.init_overflow(state).any()):

@@ -35,8 +35,8 @@ Properties, as the reference's:
   * **Restore onto a device** — each tensor leaf goes to the device of its
     target leaf, or to ``device=`` when the caller gives one; a leaf whose
     target is a host value (int, float, bool, str) comes back as that
-    Python type. Restore onto a mesh (``shardings=``) waits for the
-    distributed port.
+    Python type. Restore onto a mesh (``shardings=``) waits for the LM
+    stack's sharded paths (ROADMAP queue 1, item 9f).
 
 Leaves: tensors (bfloat16 stored as its uint16 bits, its dtype recorded as
 ``"bfloat16"``), numpy arrays and host scalars. A reference-written
@@ -460,12 +460,13 @@ class Checkpointer:
         raises :class:`CheckpointCorruptError`; with ``step=None`` the
         newest intact step is loaded (skipped corrupt steps land in
         ``self.last_skipped``), and if every step is corrupt the restore
-        refuses. ``shardings`` (restore onto a mesh) waits for the
-        distributed port."""
+        refuses. ``shardings`` (restore onto a mesh) waits for the LM
+        stack's tensor-parallel and FSDP paths."""
         if shardings is not None:
             raise NotImplementedError(
-                "restore onto a mesh (shardings=) comes with the distributed "
-                "port (ROADMAP queue 1, item 7); pass device= instead"
+                "restore onto a mesh (shardings=) comes with the LM stack's "
+                "tensor-parallel and FSDP paths (ROADMAP queue 1, item 9f); "
+                "pass device= instead"
             )
         dev = None if device is None else resolve_device(device)
         self.wait()

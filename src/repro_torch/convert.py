@@ -7,7 +7,8 @@ the arrays already carry one (``batched=True``). :func:`lm_params` turns the
 reference's LM parameter tree into the port's modules (a gradient tree has
 the same structure, so it converts the same way), and :func:`adamw_state`
 its AdamW state into the port's. The parity tests use these to start both
-packages from the same state.
+packages from the same state. :func:`glm_shard` and :func:`glm_lanes`
+carry a dataset into a rank's shard and datasets into a lane stack.
 """
 
 from __future__ import annotations
@@ -38,6 +39,26 @@ def glm_data(x, t, xi, device="cuda") -> GLMData:
     t_dtype = torch.int64 if np.issubdtype(t.dtype, np.integer) else torch.float32
     return GLMData(_t(x, dev, torch.float32), _t(t, dev, t_dtype),
                    _t(xi, dev, torch.float32))
+
+
+def glm_shard(x, t, xi, world: int, rank: int, device="cuda") -> GLMData:
+    """Rank ``rank``'s shard of a whole dataset given as numpy (a JAX
+    ``GLMData``'s arrays, with its tuned ξ): rows ``[r·N/W, (r+1)·N/W)``,
+    as :func:`repro_torch.distributed.flymc_dist.shard_data` cuts them and
+    as the reference's data-sharded mesh places them."""
+    from repro_torch.distributed.flymc_dist import shard_rows
+
+    rows = shard_rows(np.shape(x)[0], world, rank)
+    return glm_data(np.asarray(x)[rows], np.asarray(t)[rows],
+                    np.asarray(xi)[rows], device=device)
+
+
+def glm_lanes(datasets, device="cuda") -> GLMData:
+    """A lane stack of datasets (leaves ``(L, N, ...)``), each an ``(x, t,
+    xi)`` of numpy arrays of one shape: the ``data`` a ``"vmap"`` group
+    steps its lanes on."""
+    lanes = [glm_data(x, t, xi, device=device) for x, t, xi in datasets]
+    return GLMData(*(torch.stack(leaves) for leaves in zip(*lanes)))
 
 
 def collapsed_stats(q_mat, q, c, device="cuda") -> CollapsedStats:

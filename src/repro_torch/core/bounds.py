@@ -5,7 +5,11 @@ Port of :mod:`repro.core.bounds`. θ always carries a leading chain axis:
 softmax bound; per-datum results are ``(K, N)`` and collapsed products
 ``(K,)``. The collapsed quadratic forms are summed with
 :func:`repro_torch.core.numerics.tree_sum`, so a chain's value does not
-depend on how many chains ride along.
+depend on how many chains ride along. ``collapsed`` also takes statistics
+with a leading chain axis, each chain's own (the sampling service's lane
+stacks, where chains of different datasets step together), with the same
+bits as the shared statistics give. :func:`psum_stats` sums statistics
+over the ranks that hold a dataset's shards.
 
 Surface of every bound:
 
@@ -45,8 +49,10 @@ class CollapsedStats(NamedTuple):
 
 
 def _quad(theta: torch.Tensor, q_mat: torch.Tensor) -> torch.Tensor:
-    """(K, D) θ, (D, D) Q → (K,) θᵀQθ, in a fixed summation order."""
-    q_theta = tree_sum(theta[:, None, :] * q_mat.t()[None], dim=-1)  # (K, D)
+    """(K, D) θ, (D, D) Q or each chain's own (K, D, D) → (K,) θᵀQθ, in a
+    fixed summation order: elementwise products and ``tree_sum``, so a
+    chain's value is the same bits whether Q is shared or its own."""
+    q_theta = tree_sum(theta[:, None, :] * q_mat.transpose(-1, -2), dim=-1)
     return tree_sum(q_theta * theta)
 
 
@@ -218,12 +224,13 @@ class SoftmaxBound:
 
     @staticmethod
     def collapsed(theta, stats: CollapsedStats):
-        s_mat, r_mat, c = stats
+        s_mat, r_mat, c = stats  # shared, or each chain's (K, ...)
         a_theta = _a_mul(theta.transpose(-1, -2)).transpose(-1, -2)  # (K,Kc,D)
         # (AθS)[k, j, e] = Σ_d (Aθ)[k, j, d] S[d, e]
-        a_theta_s = tree_sum(a_theta[..., None, :] * s_mat.t(), dim=-1)
+        s_t = s_mat.transpose(-1, -2).unsqueeze(-3)
+        a_theta_s = tree_sum(a_theta[..., None, :] * s_t, dim=-1)
         quad = flat_tree_sum(a_theta_s * theta)
-        lin = flat_tree_sum(theta * r_mat.t())
+        lin = flat_tree_sum(theta * r_mat.transpose(-1, -2))
         return -0.5 * quad + lin + c
 
     @staticmethod
@@ -302,6 +309,17 @@ class StudentTBound:
 register_bound(LogisticBound, "logistic")
 register_bound(SoftmaxBound, "softmax")
 register_bound(StudentTBound, "student-t", "robust")
+
+
+def psum_stats(stats: CollapsedStats, group) -> CollapsedStats:
+    """The whole dataset's statistics from each rank's shard's: each leaf
+    summed over ``group``'s ranks once, at setup (the counterpart of the
+    reference's ``psum_stats``). Sufficient statistics are sums over data
+    rows, so the shards' add up to the whole; the collapsed term is then
+    replicated O(D²) work a density evaluation, with no collective."""
+    from repro_torch.distributed import comm
+
+    return CollapsedStats(*(comm.all_reduce_sum(a, group) for a in stats))
 
 
 # ---------------------------------------------------------------------------

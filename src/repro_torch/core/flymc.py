@@ -26,6 +26,26 @@ summed in a fixed block order and every other float reduction is a
 ``tree_sum``, so the realized chain is bitwise independent of buffer
 capacities and of how many chains run together. Capacity overflow is
 flagged per step; the driver re-runs the chunk at doubled capacity.
+
+Two extensions of the chain axis:
+
+* **Lanes** (the sampling service's ``"vmap"`` backend). ``data`` may be a
+  stack of L datasets, leaves ``(L, N, ...)``, with ``stats`` stacked the
+  same way, ``(L, ...)``; the state's chain axis then holds L·K chains,
+  lane-major, and chain l·K + k steps on lane l's data. Both kernels take
+  the lane axis, so a step still launches each once. Nothing a chain
+  computes depends on the lane stack it rides in: the collapsed term reads
+  each chain's own lane's statistics by elementwise products and
+  ``tree_sum``, never a batched ``@``.
+* **Data shards** (:mod:`repro_torch.distributed.flymc_dist`).
+  ``spec.group``, a ``torch.distributed`` process group, says that ``data``
+  is this rank's shard of rows and the state's partition, δ cache and
+  bright buffer are shard-local, while θ and the keys are replicated. The
+  bright log-L̃ sums are summed over the ranks inside the joint, the
+  z-update's key is folded with the rank, the overflow flag is ORed over
+  the ranks and ``n_bright``/``lik_queries`` are summed, all through the
+  counted collectives of :mod:`repro_torch.distributed.comm`. With no group
+  the step makes no collective and is the single-device step.
 """
 
 from __future__ import annotations
@@ -68,6 +88,9 @@ class FlyMCSpec:
     backend: str = "pallas"  # θ-update engine: pallas (the kernel) | jnp
     z_backend: str = "fused"  # z-update engine: fused (the kernel) | jnp
     num_warmup: int = 1000
+    # torch.distributed group whose ranks hold the data shards (None: one
+    # device holds all the data; the counterpart of axis_names)
+    group: Any = None
 
     def needs_grad(self) -> bool:
         return samplers.get_kernel(self.kernel).needs_grad
@@ -97,6 +120,54 @@ def _clamped(idx, n: int):
     return idx.to(torch.int64).clamp(0, n - 1)
 
 
+def _n_data(data: GLMData) -> int:
+    """Rows of the dataset (of each lane's, for a lane stack)."""
+    return data.x.shape[-2]
+
+
+def _lanes(data: GLMData) -> int:
+    """L for a lane stack of datasets, 0 for one dataset."""
+    return data.x.shape[0] if data.x.dim() == 3 else 0
+
+
+def _chain_stats(stats: CollapsedStats, data: GLMData, k: int):
+    """Each of ``k`` chains' own collapsed statistics: the shared ones, or
+    for a lane stack each lane's repeated over its k / L chains (a copy of
+    values, so the collapsed term's bits do not depend on the stack)."""
+    lanes = _lanes(data)
+    if not lanes:
+        return stats
+    return CollapsedStats(*(a.repeat_interleave(k // lanes, dim=0)
+                            for a in stats))
+
+
+def _sum_bright(spec, s):
+    """The bright log-L̃ sum over the data shards (one SUM all-reduce), or
+    ``s`` itself on one device."""
+    if spec.group is None:
+        return s
+    from repro_torch.distributed import comm
+
+    return comm.sum_across(s, spec.group)
+
+
+def _bright_glm(spec, data: GLMData, idx, n, theta, family):
+    """The bright-GLM kernel on each chain's rows: one launch for one
+    dataset or for a lane stack (chains lane-major). Returns (δ (K', C),
+    total (K',))."""
+    kw = spec.bound.fused_kernel_kwargs()
+    lanes = _lanes(data)
+    if not lanes:
+        return bright_glm(data.x, data.t, data.xi, idx, n, theta,
+                          family=family, **kw)
+    k = idx.shape[0] // lanes
+    delta, s = bright_glm(
+        data.x, data.t, data.xi, idx.reshape(lanes, k, -1),
+        n.reshape(lanes, k), theta.reshape((lanes, k) + theta.shape[1:]),
+        family=family, **kw)
+    return delta.reshape(idx.shape), s.reshape(-1)
+
+
 def _family(spec: FlyMCSpec) -> str:
     fam = fused_family_of(spec.bound)
     if fam is None:
@@ -110,11 +181,16 @@ def _family(spec: FlyMCSpec) -> str:
 def _rows_delta(bound, data: GLMData, theta, idx):
     """δ = log L − log B on each chain's gathered rows (the plain engine):
     ``idx`` (K, S) datum ids, clamped, → (K, S). Chains are evaluated one
-    at a time, so a chain's δ does not depend on how many ride along."""
-    i = _clamped(idx, data.x.shape[0])
+    at a time, so a chain's δ does not depend on how many ride along; for a
+    lane stack, chain k reads lane k // (K / L)."""
+    i = _clamped(idx, _n_data(data))
+    lanes = _lanes(data)
+    per_lane = theta.shape[0] // lanes if lanes else 0
     out = []
     for k in range(theta.shape[0]):
-        rows = GLMData(data.x[i[k]], data.t[i[k]], data.xi[i[k]])
+        lane = (GLMData(*(a[k // per_lane] for a in data)) if lanes
+                else data)
+        rows = GLMData(lane.x[i[k]], lane.t[i[k]], lane.xi[i[k]])
         th = theta[k:k + 1]
         out.append(bound.log_lik(th, rows) - bound.log_bound(th, rows))
     return torch.cat(out)
@@ -128,14 +204,20 @@ def make_joint_logpost(spec, data: GLMData, stats: CollapsedStats,
     (a prefix, as :func:`brightness.bright_buffer` produces); only those
     rows are evaluated, plus the O(D²) collapsed product. ``spec.backend``
     picks the fused kernel (``"pallas"``) or the plain rows (``"jnp"``).
+    ``stats`` are the chains' own (:func:`_chain_stats`) for a lane stack.
+    With ``spec.group`` the rows are this rank's and their sum is summed
+    over the ranks (its gradient too, for MALA and HMC).
     """
+    group = spec.group
+    if group is not None:
+        from repro_torch.distributed import comm
     if spec.backend == "pallas":
         fam = _family(spec)
-        kw = spec.bound.fused_kernel_kwargs()
 
         def f(theta):
-            delta, s = bright_glm(data.x, data.t, data.xi, bright_idx, n_bright,
-                                  theta, family=fam, **kw)
+            th = theta if group is None else comm.grad_sum_across(theta, group)
+            delta, s = _bright_glm(spec, data, bright_idx, n_bright, th, fam)
+            s = _sum_bright(spec, s)
             lp = spec.log_prior(theta) + spec.bound.collapsed(theta, stats) + s
             return lp, delta
 
@@ -148,8 +230,10 @@ def make_joint_logpost(spec, data: GLMData, stats: CollapsedStats,
     mask = slots[None] < n_bright[:, None]
 
     def f_rows(theta):
-        delta = _rows_delta(spec.bound, data, theta, bright_idx)
+        th = theta if group is None else comm.grad_sum_across(theta, group)
+        delta = _rows_delta(spec.bound, data, th, bright_idx)
         s = tree_sum(torch.where(mask, log_expm1(delta), torch.zeros_like(delta)))
+        s = _sum_bright(spec, s)
         lp = spec.log_prior(theta) + spec.bound.collapsed(theta, stats) + s
         return lp, delta
 
@@ -166,6 +250,7 @@ def _refresh_sampler(spec, data, stats, theta, bright, delta_full):
         return samplers.SamplerState(theta, lp, grad, aux), bright.num
     delta = delta_full.gather(1, _clamped(idx, delta_full.shape[1]))
     s = tree_sum(torch.where(mask, log_expm1(delta), torch.zeros_like(delta)))
+    s = _sum_bright(spec, s)
     lp = spec.log_prior(theta) + spec.bound.collapsed(theta, stats) + s
     return (samplers.SamplerState(theta, lp, torch.zeros_like(theta), delta),
             torch.zeros_like(bright.num))
@@ -174,9 +259,8 @@ def _refresh_sampler(spec, data, stats, theta, bright, delta_full):
 def _candidate_delta(spec, data, theta, cand_idx, n_cand):
     """δ on the compacted candidate buffer, through the θ-update's engine."""
     if spec.backend == "pallas":
-        delta, _ = bright_glm(data.x, data.t, data.xi, cand_idx, n_cand, theta,
-                              family=_family(spec),
-                              **spec.bound.fused_kernel_kwargs())
+        delta, _ = _bright_glm(spec, data, cand_idx, n_cand, theta,
+                               _family(spec))
         return delta
     return _rows_delta(spec.bound, data, theta, cand_idx)
 
@@ -190,7 +274,7 @@ def _implicit_z_update(spec, data, key, theta, bright, delta_full,
     candidates compacted by a cumsum with padding index N, whose gathers
     clamp and whose scatters are dropped (the reference's δ there is NaN or
     garbage, masked out of everything it stores)."""
-    n = data.x.shape[0]
+    n = _n_data(data)
     ks = jr.split(key, 3)
     k_bd, k_cand, k_db = ks[:, 0], ks[:, 1], ks[:, 2]
     dt = delta_full.dtype
@@ -234,7 +318,7 @@ def _implicit_z_update(spec, data, key, theta, bright, delta_full,
 def _fused_z_update(spec, data, key, theta, bright, delta_full, delta_bright):
     """Algorithm 2 via the fused z-engine. Returns
     (bright_new, delta_full, queries (K,), overflow (K,))."""
-    n = data.x.shape[0]
+    n = _n_data(data)
     kw = key_words_of(key)
     # torch.full, not torch.tensor: a host scalar copied to the card would
     # make the step wait on the stream.
@@ -248,7 +332,16 @@ def _fused_z_update(spec, data, key, theta, bright, delta_full, delta_bright):
 
     # --- dark → bright (streamed selection, then O(cand) work) -------------
     cap = spec.cand_capacity
-    cand_idx, n_cand = z_candidates(bright.arr, bright.num, kw, spec.q_db, cap)
+    lanes = _lanes(data)
+    if lanes:  # one launch over the lanes' (K, N) blocks
+        k = bright.arr.shape[0] // lanes
+        cand_idx, n_cand = z_candidates(
+            bright.arr.reshape(lanes, k, n), bright.num.reshape(lanes, k),
+            kw.reshape(lanes, k, 2), spec.q_db, cap)
+        cand_idx, n_cand = cand_idx.reshape(-1, cap), n_cand.reshape(-1)
+    else:
+        cand_idx, n_cand = z_candidates(bright.arr, bright.num, kw, spec.q_db,
+                                        cap)
     overflow_c = n_cand > cap
     slots = torch.arange(cap, device=cand_idx.device)[None]
     mask_c = slots < n_cand[:, None]
@@ -270,7 +363,7 @@ def _explicit_z_update(spec, data, key, theta, bright, delta_full):
     ``r = max(1, round(N·resample_fraction))`` data, drawn without
     replacement (a permutation slice: its scatters never collide).
     Returns (z_new (K, N), delta_full, queries (K,), overflow (K,))."""
-    n = data.x.shape[0]
+    n = _n_data(data)
     r = max(1, int(round(n * spec.resample_fraction)))
     ks = jr.split(key)
     k_idx, k_z = ks[:, 0], ks[:, 1]
@@ -287,9 +380,23 @@ def _explicit_z_update(spec, data, key, theta, bright, delta_full):
 
 def flymc_step(spec, data: GLMData, stats: CollapsedStats,
                state: FlyMCState) -> tuple[FlyMCState, StepStats]:
-    """θ-update followed by z-update (paper §2 alternation), K chains."""
+    """θ-update followed by z-update (paper §2 alternation), K chains.
+
+    With ``spec.group`` (data shards): the θ-kernel runs replicated with
+    the same keys on every rank, and its densities sum the shards' bright
+    terms, so every rank takes the same decisions; the z-update's key is
+    folded with the rank, so the shards' per-datum draws are independent,
+    and it makes no collective. Then one MAX for the overflow flag and one
+    SUM for ``(n_bright, lik_queries)``: 3 SUM and 1 MAX a RWMH step.
+    """
     ks = jr.split(state.rng, 3)
     key_theta, key_z, key_next = ks[:, 0], ks[:, 1], ks[:, 2]
+    group = spec.group
+    if group is not None:
+        from repro_torch.distributed import comm
+
+        key_z = jr.fold_in(key_z, comm.rank(group))
+    stats = _chain_stats(stats, data, state.log_step.shape[0])
 
     # ---- θ | z -------------------------------------------------------------
     idx, mask = brightness.bright_buffer(state.bright, spec.capacity)
@@ -326,6 +433,8 @@ def flymc_step(spec, data: GLMData, stats: CollapsedStats,
         )
         bright_new = brightness.from_z(z_new)
     overflow = overflow_c | (bright_new.num > spec.capacity)
+    if group is not None:
+        overflow = comm.any_across(overflow, group)
     refreshed, extra_q = _refresh_sampler(
         spec, data, stats, new_sampler.theta, bright_new, delta_full
     )
@@ -347,9 +456,14 @@ def flymc_step(spec, data: GLMData, stats: CollapsedStats,
         rng=key_next,
         iteration=state.iteration + 1,
     )
+    n_bright = bright_new.num
+    lik_queries = queries_theta + queries_z + extra_q
+    if group is not None:  # one SUM for both counts
+        n_bright, lik_queries = comm.all_reduce_sum(
+            torch.stack([n_bright, lik_queries.to(n_bright.dtype)]), group)
     stats_out = StepStats(
-        n_bright=bright_new.num,
-        lik_queries=queries_theta + queries_z + extra_q,
+        n_bright=n_bright,
+        lik_queries=lik_queries,
         accept_prob=info.accept_prob,
         overflow=overflow,
         joint_lp=refreshed.lp,
@@ -362,10 +476,17 @@ def init_chain_state(spec, data: GLMData, stats: CollapsedStats, theta0,
     """Chain initialization for K chains: ``theta0`` (K, ...), ``key``
     (K, 2). No host syncs and no growth: if a chain's initial bright set
     exceeds ``spec.capacity`` the δ buffer is truncated, and the caller
-    rebuilds at a grown capacity from the same keys."""
-    n = data.x.shape[0]
+    rebuilds at a grown capacity from the same keys. With ``spec.group``
+    the initial partition's key is folded with the rank, as the step's
+    z-key is."""
+    n = _n_data(data)
     ks = jr.split(key)
     k_z, k_chain = ks[:, 0], ks[:, 1]
+    if spec.group is not None:
+        from repro_torch.distributed import comm
+
+        k_z = jr.fold_in(k_z, comm.rank(spec.group))
+    stats = _chain_stats(stats, data, theta0.shape[0])
     if z0 is None:
         z0 = jr.bernoulli(k_z, min(2.0 * spec.q_db, 1.0), (n,))
     bright = brightness.from_z(z0)
@@ -399,7 +520,7 @@ def init_chain(spec, data: GLMData, stats: CollapsedStats, theta0, key,
     leading chain axis of 1. Returns (state, setup likelihood queries,
     spec), the spec grown until the initial bright set fits (one host read
     a try)."""
-    n = data.x.shape[0]
+    n = _n_data(data)
     theta0, key = theta0[None], key[None]
     z0 = None if z0 is None else z0[None]
     state = init_chain_state(spec, data, stats, theta0, key, z0, step_size)

@@ -3,6 +3,14 @@
 // Replaces the TPU kernel repro/kernels/bright_glm/kernel.py
 // (bright_glm_pallas_chains, its pallas_call at kernel.py:173).
 //
+// Chains may come in lanes: a lane is one dataset (x, t, ξ) with its own
+// chains, L lanes of K chains each, so one launch evaluates L·K chains on L
+// datasets (the sampling service's "vmap" lanes). Chain k = l·K + j reads
+// lane l's dataset and its own idx row; one dataset shared by every chain is
+// the case L = 1, the same launch as before the lane axis. A chain's blocks,
+// and the order of its sums, do not depend on L or on its neighbours, so
+// L·K chains in one launch are bitwise L launches of K chains.
+//
 // For chain k and buffer slot c it gathers the row x[idx[k, c]], forms
 // s = θ_k·x (logistic, Student-t) or η = Θ_k x (softmax), computes
 // δ = log L − log B with the formulas of repro_torch/core/numerics.py (same
@@ -113,7 +121,11 @@ __device__ float softmax_delta(const float* eta, const float* eta0, int t,
   return ll_eta - (ll_eta0 + gd - 0.5f * quad);
 }
 
-// grid (ceil(C / BR), K), block BR warps; dynamic shared memory Kt·D floats.
+// grid (ceil(C / BR), L·K), block BR warps; dynamic shared memory Kt·D
+// floats. Lane l's dataset starts at x + l·x_lane, t + l·t_lane and
+// xi + l·xi_lane (elements); chain (l, j)'s slots at idx + l·idx_lane +
+// j·idx_stride. Every per-chain operand and output is indexed by the flat
+// chain k = l·K + j.
 __global__ void __launch_bounds__(kBlockRows * 32)
 bright_glm_kernel(const float* __restrict__ x, const void* __restrict__ t,
                   const float* __restrict__ xi,
@@ -122,11 +134,17 @@ bright_glm_kernel(const float* __restrict__ x, const void* __restrict__ t,
                   const float* __restrict__ theta, float* __restrict__ delta,
                   float* __restrict__ partials, float* __restrict__ total,
                   unsigned int* __restrict__ arrivals, int C, int N, int D,
-                  int kt, int family, float nu, float sigma, float h) {
+                  int kt, int family, float nu, float sigma, float h,
+                  int lane_chains, int64_t x_lane, int64_t t_lane,
+                  int64_t xi_lane, int64_t idx_lane) {
   extern __shared__ float th[];
   __shared__ float contrib[kBlockRows];
   __shared__ bool last;
   const int k = blockIdx.y;
+  const int ln = k / lane_chains;  // the chain's lane and its place there
+  const int j = k - ln * lane_chains;
+  x += ln * x_lane;
+  xi += ln * xi_lane;
   const int tile = blockIdx.x;
   const int nblk = gridDim.x;
   const int warp = threadIdx.x / 32;
@@ -138,7 +156,8 @@ bright_glm_kernel(const float* __restrict__ x, const void* __restrict__ t,
   const int c = tile * kBlockRows + warp;
   const bool valid = c < C;
   int r = 0;
-  if (valid) r = min(max(idx[(int64_t)k * idx_stride + c], 0), N - 1);
+  if (valid)
+    r = min(max(idx[ln * idx_lane + (int64_t)j * idx_stride + c], 0), N - 1);
   const int64_t nb = n_bright[k];
   const float* th_k = theta + (int64_t)k * kt * D;
   for (int i = threadIdx.x; i < kt * D; i += blockDim.x) th[i] = th_k[i];
@@ -146,9 +165,9 @@ bright_glm_kernel(const float* __restrict__ x, const void* __restrict__ t,
   int tc = 0;
   if (valid && lane == 0) {
     if (family == kSoftmax) {
-      tc = (int)static_cast<const int64_t*>(t)[r];
+      tc = (int)static_cast<const int64_t*>(t)[ln * t_lane + r];
     } else {
-      tv = static_cast<const float*>(t)[r];
+      tv = static_cast<const float*>(t)[ln * t_lane + r];
       xv = xi[r];
     }
   }
@@ -233,6 +252,8 @@ bright_glm_kernel(const float* __restrict__ x, const void* __restrict__ t,
 
 }  // namespace
 
+// K is the chain count of every lane, L the lane count: L·K chains in all.
+// One lane (L = 1, the lane strides unused) is the single-dataset call.
 extern "C" int bright_glm_launch(const float* x, const void* t,
                                  const float* xi, const int32_t* idx,
                                  int64_t idx_stride, const int64_t* n_bright,
@@ -240,14 +261,19 @@ extern "C" int bright_glm_launch(const float* x, const void* t,
                                  float* partials, float* total,
                                  unsigned int* arrivals, int K, int C, int N,
                                  int D, int kt, int family, float nu,
-                                 float sigma, float h, void* stream) {
-  if (kt > kMaxClasses || C <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+                                 float sigma, float h, int L, int64_t x_lane,
+                                 int64_t t_lane, int64_t xi_lane,
+                                 int64_t idx_lane, void* stream) {
+  if (kt > kMaxClasses || C <= 0 || K <= 0 || L <= 0 ||
+      (int64_t)L * K > 65535)
+    return (int)cudaErrorInvalidValue;
   const int nblk = (C + kBlockRows - 1) / kBlockRows;
   size_t smem = (size_t)kt * D * sizeof(float);
-  bright_glm_kernel<<<dim3(nblk, K), kBlockRows * 32, smem,
+  bright_glm_kernel<<<dim3(nblk, L * K), kBlockRows * 32, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       x, t, xi, idx, idx_stride, n_bright, theta, delta, partials, total,
-      arrivals, C, N, D, kt, family, nu, sigma, h);
+      arrivals, C, N, D, kt, family, nu, sigma, h, K, x_lane, t_lane,
+      xi_lane, idx_lane);
   return (int)cudaGetLastError();
 }
 

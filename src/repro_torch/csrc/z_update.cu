@@ -3,6 +3,14 @@
 // Replaces the TPU kernel repro/kernels/z_update/kernel.py
 // (z_candidates_pallas_chains, its pallas_call at kernel.py:129).
 //
+// Chains may come in lanes (L lanes of K chains, the sampling service's
+// "vmap" lanes): chain k = l·K + j streams row j of lane l's (K, N)
+// partition block, which may sit anywhere in memory (a lane stride and a
+// chain stride). Every other operand and output is indexed by the flat
+// chain k, and a chain's work never depends on L or on its neighbours, so
+// L·K chains in one launch are bitwise L launches of K chains; L = 1 is the
+// launch as it was before the lane axis.
+//
 // For every position pos in [num_k, N) of chain k's partition array arr_k
 // it takes 24 bits of Threefry-2x32(kw0_k, kw1_k; DRAW_CAND, arr_k[pos]) —
 // uint32 arithmetic, so every shift is logical — and the datum is a
@@ -100,9 +108,12 @@ __device__ __forceinline__ void store_status(unsigned long long* p,
   *reinterpret_cast<volatile unsigned long long*>(p) = w;
 }
 
-// grid (ntiles, K), kWarps warps. status: K rows of status_stride words.
+// grid (ntiles, L·K), kWarps warps. status: L·K rows of status_stride
+// words. Chain (l, j)'s partition array starts at arr + l·arr_lane +
+// j·arr_stride.
 __global__ void __launch_bounds__(kWarps * 32)
 z_candidates_kernel(const int32_t* __restrict__ arr, int64_t arr_stride,
+                    int64_t arr_lane, int lane_chains,
                     const int64_t* __restrict__ num,
                     const int64_t* __restrict__ kw,
                     int32_t* __restrict__ cand, int32_t* __restrict__ count,
@@ -129,7 +140,9 @@ z_candidates_kernel(const int32_t* __restrict__ arr, int64_t arr_stride,
   const unsigned long long tag = (unsigned long long)epoch << 32;
 
   // ---- hash the tile once: ballot masks and ids stay in registers -------
-  const int32_t* arr_k = arr + k * arr_stride;
+  const int ln = k / lane_chains;
+  const int32_t* arr_k =
+      arr + ln * arr_lane + (int64_t)(k - ln * lane_chains) * arr_stride;
   const int64_t n0 = num[k];
   const uint32_t k0 = (uint32_t)kw[2 * k], k1 = (uint32_t)kw[2 * k + 1];
   const int base = tile * kTile + warp * kRounds * 32 + lane;  // N < 2^30
@@ -237,19 +250,22 @@ z_candidates_kernel(const int32_t* __restrict__ arr, int64_t arr_stride,
 
 }  // namespace
 
+// K is the chain count of every lane, L the lane count: L·K chains in all.
 extern "C" int z_candidates_launch(const int32_t* arr, int64_t arr_stride,
-                                   const int64_t* num, const int64_t* kw,
-                                   int32_t* cand, int32_t* count,
-                                   void* ctl, void* status,
-                                   int64_t status_stride, int K, int N,
+                                   int64_t arr_lane, const int64_t* num,
+                                   const int64_t* kw, int32_t* cand,
+                                   int32_t* count, void* ctl, void* status,
+                                   int64_t status_stride, int K, int L, int N,
                                    int q_bits, int cap, void* stream) {
-  if (K <= 0 || N <= 0 || cap <= 0 || (int64_t)N > (int64_t)kCountMask)
+  if (K <= 0 || L <= 0 || (int64_t)L * K > 65535 || N <= 0 || cap <= 0 ||
+      (int64_t)N > (int64_t)kCountMask)
     return (int)cudaErrorInvalidValue;
   const int ntiles = (N + kTile - 1) / kTile;
   if (status_stride < ntiles) return (int)cudaErrorInvalidValue;
-  z_candidates_kernel<<<dim3(ntiles, K), kWarps * 32, 0,
+  z_candidates_kernel<<<dim3(ntiles, L * K), kWarps * 32, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      arr, arr_stride, num, kw, cand, count, static_cast<ChainCtl*>(ctl),
+      arr, arr_stride, arr_lane, K, num, kw, cand, count,
+      static_cast<ChainCtl*>(ctl),
       static_cast<unsigned long long*>(status), status_stride, N,
       (uint32_t)q_bits, cap);
   return (int)cudaGetLastError();

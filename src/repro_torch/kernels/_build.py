@@ -99,13 +99,14 @@ def _declare(lib) -> None:
     lib.bright_glm_launch.argtypes = [
         p, p, p, p, i64, p, p, p, p, p,  # x t xi idx idx_stride nb θ δ part tot
         p, i, i, i, i, i, i,  # arrivals K C N D kt family
-        f, f, f, p,  # nu sigma h stream
+        f, f, f,  # nu sigma h
+        i, i64, i64, i64, i64, p,  # L x_lane t_lane xi_lane idx_lane stream
     ]
     lib.bright_glm_launch.restype = i
     lib.z_candidates_launch.argtypes = [
-        p, i64, p, p, p, p,  # arr arr_stride num kw cand count
+        p, i64, i64, p, p, p, p,  # arr arr_stride arr_lane num kw cand count
         p, p, i64,  # ctl status status_stride
-        i, i, i, i, p,  # K N q_bits cap stream
+        i, i, i, i, i, p,  # K L N q_bits cap stream
     ]
     lib.z_candidates_launch.restype = i
     ll = ctypes.c_longlong

@@ -6,7 +6,9 @@
 candidates. A CUDA tensor goes to ``csrc/bright_glm.cu`` (or the wrapper
 raises); a CPU tensor goes to the plain version in :mod:`.ref`. Chains are
 the leading axis of ``idx``, ``n_bright`` and ``theta``; ``x``, ``t`` and
-``xi`` are shared by every chain and never broadcast.
+``xi`` are shared by every chain and never broadcast. A stack of L datasets
+with a leading lane axis (the sampling service's ``"vmap"`` lanes) goes
+with ``(L, K, ...)`` chain operands: one launch for every lane.
 
 The gradient (MALA, HMC) is a ``torch.autograd.Function`` whose forward is the
 kernel and whose backward re-evaluates the rows with the plain version, as
@@ -17,6 +19,8 @@ so padded slots (exact zeros) leave the gradient bitwise unchanged.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.numerics import log_expm1, tree_sum
@@ -26,12 +30,14 @@ from repro_torch.kernels.bright_glm.ref import (
     FAMILIES,
     bright_glm_ref,
     delta_of_scores,
+    flat_chains,
     row_scores,
 )
 
 _FAMILY_CODE = {"logistic": 0, "student_t": 1, "softmax": 2}
 _MAX_CLASSES = 16  # kMaxClasses in csrc/bright_glm.cu
 _SMEM_BYTES = 48 * 1024  # θ staged in static-limit shared memory
+_MAX_CHAINS = 65535  # the launch's grid y: one row of blocks a chain
 
 launch_count = 0  # kernel launches through this wrapper (one per call)
 # Per-chain arrival counters of the kernel's in-launch total, one int32
@@ -45,6 +51,18 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"bright_glm: {msg}")
 
 
+def _shapes(x, idx, theta, softmax):
+    """The launch's shapes: (lane shape () or (L,), N, D, chain shape (K,)
+    or (L, K), C, classes), or None where the ranks do not fit."""
+    lanes = idx.dim() == 3
+    if not (idx.dim() in (2, 3) and x.dim() == 2 + lanes
+            and theta.dim() == idx.dim() - 1 + (2 if softmax else 1)):
+        return None
+    kt = theta.shape[-2] if softmax else 1
+    return (tuple(x.shape[:-2]), *x.shape[-2:], tuple(idx.shape[:-1]),
+            idx.shape[-1], kt)
+
+
 def _refuse(x, t, xi, idx, n_bright, theta, softmax):
     """The launch's checks one at a time, once their combined test failed:
     raises naming the first operand the kernel cannot read."""
@@ -52,30 +70,36 @@ def _refuse(x, t, xi, idx, n_bright, theta, softmax):
     for name, a in (("t", t), ("xi", xi), ("idx", idx), ("n_bright", n_bright),
                     ("theta", theta)):
         _require(a.device == dev, f"{name} is on {a.device}, x on {dev}")
-    _require(x.dim() == 2 and x.dtype == torch.float32 and x.is_contiguous(),
-             "x must be contiguous (N, D) float32")
-    n, d = x.shape
-    _require(idx.dim() == 2 and idx.dtype == torch.int32 and idx.stride(1) == 1,
-             "idx must be (K, C) int32 with unit slot stride")
-    k, c = idx.shape
-    _require(theta.dim() == (3 if softmax else 2),
-             f"theta must be {'(K, Kc, D)' if softmax else '(K, D)'}")
-    kt = theta.shape[1] if softmax else 1
+    shapes = _shapes(x, idx, theta, softmax)
+    _require(shapes is not None,
+             "x must be (N, D) with idx (K, C) and theta "
+             f"{'(K, Kc, D)' if softmax else '(K, D)'}, or a lane stack "
+             "(L, N, D) with idx (L, K, C) and theta "
+             f"{'(L, K, Kc, D)' if softmax else '(L, K, D)'}")
+    ls, n, d, lead, c, kt = shapes
+    _require(x.dtype == torch.float32 and x.is_contiguous(),
+             f"x must be contiguous {ls + (n, d)} float32")
+    _require(ls == lead[:-1], f"x holds lanes {ls}, idx {lead[:-1]}")
+    _require(idx.dtype == torch.int32 and idx.stride(-1) == 1,
+             "idx must be int32 with unit slot stride")
     want_t = torch.int64 if softmax else torch.float32
-    _require(t.dtype == want_t and t.shape == (n,) and t.is_contiguous(),
-             f"t must be contiguous ({n},) {want_t}")
-    xi_shape = (n, kt) if softmax else (n,)
+    _require(t.dtype == want_t and t.shape == ls + (n,) and t.is_contiguous(),
+             f"t must be contiguous {ls + (n,)} {want_t}")
+    xi_shape = ls + ((n, kt) if softmax else (n,))
     _require(xi.dtype == torch.float32 and xi.shape == xi_shape
              and xi.is_contiguous(), f"xi must be contiguous {xi_shape} float32")
-    _require(n_bright.dtype == torch.int64 and n_bright.shape == (k,)
-             and n_bright.is_contiguous(), f"n_bright must be ({k},) int64")
-    th_shape = (k, kt, d) if softmax else (k, d)
+    _require(n_bright.dtype == torch.int64 and n_bright.shape == lead
+             and n_bright.is_contiguous(), f"n_bright must be {lead} int64")
+    th_shape = lead + ((kt, d) if softmax else (d,))
     _require(theta.dtype == torch.float32 and theta.shape == th_shape
              and theta.is_contiguous(), f"theta must be contiguous {th_shape} f32")
     _require(kt <= _MAX_CLASSES and kt * d * 4 <= _SMEM_BYTES,
              f"theta's {kt} classes × D={d} exceed the kernel's {_MAX_CLASSES} "
              "classes or its shared memory")
-    _require(c > 0 and k > 0 and n > 0, f"empty buffer (K={k}, C={c}, N={n})")
+    _require(c > 0 and min(lead) > 0 and n > 0,
+             f"empty buffer (chains {lead}, C={c}, N={n})")
+    _require(math.prod(lead) <= _MAX_CHAINS,
+             f"{math.prod(lead)} chains exceed the launch's {_MAX_CHAINS}")
     raise ValueError("bright_glm: operands refused: " + _build.describe(
         x=x, t=t, xi=xi, idx=idx, n_bright=n_bright, theta=theta))
 
@@ -87,46 +111,55 @@ def _launch(x, t, xi, idx, n_bright, theta, family, nu, sigma):
     # checks one by one to name the operand.
     di = x.get_device()
     softmax = family == "softmax"
-    ok = (x.dim() == 2 and idx.dim() == 2
-          and theta.dim() == (3 if softmax else 2))
+    shapes = _shapes(x, idx, theta, softmax)
+    ok = shapes is not None
     if ok:
-        (n, d), (k, c) = x.shape, idx.shape
-        kt = theta.shape[1] if softmax else 1
+        ls, n, d, lead, c, kt = shapes
         ok = (t.get_device() == di and xi.get_device() == di
               and idx.get_device() == di and n_bright.get_device() == di
-              and theta.get_device() == di
+              and theta.get_device() == di and ls == lead[:-1]
               and x.dtype == torch.float32 and x.is_contiguous()
               and t.dtype == (torch.int64 if softmax else torch.float32)
-              and t.shape == (n,) and t.is_contiguous()
+              and t.shape == ls + (n,) and t.is_contiguous()
               and xi.dtype == torch.float32 and xi.is_contiguous()
-              and xi.shape == ((n, kt) if softmax else (n,))
-              and idx.dtype == torch.int32 and idx.stride(1) == 1
-              and n_bright.dtype == torch.int64 and n_bright.shape == (k,)
+              and xi.shape == ls + ((n, kt) if softmax else (n,))
+              and idx.dtype == torch.int32 and idx.stride(-1) == 1
+              and n_bright.dtype == torch.int64 and n_bright.shape == lead
               and n_bright.is_contiguous()
               and theta.dtype == torch.float32 and theta.is_contiguous()
-              and theta.shape == ((k, kt, d) if softmax else (k, d))
+              and theta.shape == lead + ((kt, d) if softmax else (d,))
               and kt <= _MAX_CLASSES and kt * d * 4 <= _SMEM_BYTES
-              and c > 0 and k > 0 and n > 0)
+              and c > 0 and min(lead) > 0 and n > 0
+              and math.prod(lead) <= _MAX_CHAINS)
     if not ok:
         _refuse(x, t, xi, idx, n_bright, theta, softmax)
+    # One lane (a shared dataset) or L lanes of K chains. The lane strides
+    # of the contiguous stacks; unused for one lane.
+    lanes = len(lead) == 2
+    L, k = lead if lanes else (1, lead[0])
+    x_lane, t_lane, xi_lane = ((x.stride(0), t.stride(0), xi.stride(0))
+                               if lanes else (0, 0, 0))
+    idx_lane = idx.stride(0) if lanes else 0
+    lk = L * k
     lib = _build.library()
     stream = _build.stream_ptr(x.device)
     arrivals = _arrivals.get((di, stream))
-    if arrivals is None or arrivals.numel() < k:
-        arrivals = torch.zeros(k, dtype=torch.int32, device=x.device)
+    if arrivals is None or arrivals.numel() < lk:
+        arrivals = torch.zeros(lk, dtype=torch.int32, device=x.device)
         _arrivals[(di, stream)] = arrivals
-    # One allocation: δ (K, C), the totals (K,), then the block partials.
+    # One allocation: δ (L·K, C), the totals (L·K,), then the block partials.
     nblk = -(-c // BLOCK_ROWS)
-    buf = torch.empty(k * (c + 1 + nblk), dtype=torch.float32,
+    buf = torch.empty(lk * (c + 1 + nblk), dtype=torch.float32,
                       device=x.device)
-    delta = buf.as_strided((k, c), (c, 1))
-    total = buf.as_strided((k,), (1,), k * c)
+    delta = buf.as_strided(lead + (c,), (k * c, c, 1)[-len(lead) - 1:])
+    total = buf.as_strided(lead, (k, 1)[-len(lead):], lk * c)
     ptr = buf.data_ptr()
     code = lib.bright_glm_launch(
         x.data_ptr(), t.data_ptr(), xi.data_ptr(), idx.data_ptr(),
-        idx.stride(0), n_bright.data_ptr(), theta.data_ptr(), ptr,
-        ptr + 4 * k * (c + 1), ptr + 4 * k * c, arrivals.data_ptr(), k, c, n,
-        d, kt, _FAMILY_CODE[family], nu, sigma, (nu + 1.0) / 2.0, stream,
+        idx.stride(-2), n_bright.data_ptr(), theta.data_ptr(), ptr,
+        ptr + 4 * lk * (c + 1), ptr + 4 * lk * c, arrivals.data_ptr(), k, c,
+        n, d, kt, _FAMILY_CODE[family], nu, sigma, (nu + 1.0) / 2.0, L,
+        x_lane, t_lane, xi_lane, idx_lane, stream,
     )
     launch_count += 1
     _build.check(code, "bright_glm")
@@ -152,15 +185,17 @@ class _BrightGLM(torch.autograd.Function):
     def backward(ctx, g_delta, g_total):
         theta, x, t, xi, idx, n_bright = ctx.saved_tensors
         family, nu, sigma = ctx.cfg
-        i = idx.to(torch.int64).clamp(0, x.shape[0] - 1)
-        rows = x[i]
+        # Lanes, if any, flattened into one chain axis.
+        rows, t_rows, xi_rows, n_bright, th = flat_chains(
+            x, t, xi, idx, n_bright, theta)
         with torch.enable_grad():
-            scores = row_scores(rows, theta, family).detach().requires_grad_()
-            delta = delta_of_scores(scores, t[i], xi[i], family, nu, sigma)
+            scores = row_scores(rows, th, family).detach().requires_grad_()
+            delta = delta_of_scores(scores, t_rows, xi_rows, family, nu,
+                                    sigma)
             outs, grads = [], []
             if g_delta is not None:
                 outs.append(delta)
-                grads.append(g_delta)
+                grads.append(g_delta.reshape(delta.shape))
             if g_total is not None:
                 # The total is Σ log_expm1(δ) over the first n_bright slots,
                 # so its cotangent there is g_total and 0 past them: what
@@ -169,26 +204,33 @@ class _BrightGLM(torch.autograd.Function):
                 slots = torch.arange(delta.shape[1], device=delta.device)
                 valid = slots[None] < n_bright.to(torch.int64)[:, None]
                 outs.append(log_expm1(delta))
-                grads.append(torch.where(valid, g_total[:, None],
+                grads.append(torch.where(valid, g_total.reshape(-1, 1),
                                          torch.zeros_like(delta)))
             (g_scores,) = torch.autograd.grad(outs, (scores,), grads)
         if family == "softmax":  # (K, C, Kc) ⊗ (K, C, D) → (K, Kc, D)
             prod = g_scores[:, :, :, None] * rows[:, :, None, :]
         else:  # (K, C) ⊗ (K, C, D) → (K, D)
             prod = g_scores[:, :, None] * rows
-        g_theta = tree_sum(prod, dim=1)
+        g_theta = tree_sum(prod, dim=1).reshape(theta.shape)
         return g_theta, None, None, None, None, None, None, None, None
 
 
 def bright_glm(x, t, xi, idx, n_bright, theta, family="logistic", nu=4.0,
                sigma=1.0):
-    """Fused bright-buffer evaluation for K chains.
+    """Fused bright-buffer evaluation for K chains, or for L lanes of K
+    chains.
 
     x (N, D) f32; t (N,) f32 labels/responses, or int64 class ids (softmax);
     xi (N,) f32, or (N, Kc) tangency logits (softmax); idx (K, C) int32 slot
     → datum ids (padding may be ≥ N; clamped); n_bright (K,) int64 — the
     first n_bright[k] slots of chain k are valid; theta (K, D) or (K, Kc, D).
     Returns (delta (K, C), total (K,)); differentiable in θ.
+
+    Lanes: x (L, N, D), t (L, N), xi (L, N) or (L, N, Kc) stack L datasets,
+    and the chain operands lead with (L, K): idx (L, K, C), n_bright (L, K),
+    theta (L, K, D) or (L, K, Kc, D); chain (l, k) reads lane l's rows.
+    Returns (delta (L, K, C), total (L, K)) in one launch, bitwise L
+    single-lane calls.
     """
     if family not in FAMILIES:
         raise ValueError(f"unknown family {family!r}; expected {FAMILIES}")

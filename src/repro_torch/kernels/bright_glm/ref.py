@@ -1,6 +1,7 @@
 """Plain PyTorch version of the bright-GLM kernel (``csrc/bright_glm.cu``).
 
-Same inputs and outputs as the kernel, the same δ formulas
+Same inputs and outputs as the kernel (one dataset shared by K chains, or
+a stack of L lanes' datasets with K chains each), the same δ formulas
 (:mod:`repro_torch.core.numerics`) and the same summation order for the
 total: rows summed sequentially within blocks of :data:`BLOCK_ROWS`, then the
 blocks sequentially in order (:func:`~repro_torch.core.numerics.blocked_sum`).
@@ -27,9 +28,32 @@ BLOCK_ROWS = 8  # must equal kBlockRows in csrc/bright_glm.cu
 FAMILIES = ("logistic", "student_t", "softmax")
 
 
-def gather_rows(x, idx):
-    """x[clamp(idx)] for a (K, C) index buffer → (K, C, D)."""
-    return x[idx.to(torch.int64).clamp(0, x.shape[0] - 1)]
+def gather_rows(a, idx):
+    """Each chain's rows ``a[clamp(idx)]``: ``a`` (N, ...) and idx (K, C)
+    → (K, C, ...), or a lane stack ``a`` (L, N, ...) and idx (L, K, C) →
+    (L, K, C, ...), chain (l, k) gathering from lane l."""
+    lanes = idx.dim() == 3
+    i = idx.to(torch.int64).clamp(0, a.shape[int(lanes)] - 1)
+    if not lanes:
+        return a[i]
+    return a[torch.arange(a.shape[0], device=a.device)[:, None, None], i]
+
+
+def flat_chains(x, t, xi, idx, n_bright, theta):
+    """The operands as one flat chain axis: ``(rows (K', C, D), t_rows,
+    xi_rows, n_bright (K',), theta (K', ...))`` with K' = K, or L·K for a
+    lane stack (x (L, N, D), idx (L, K, C), n_bright (L, K), theta (L, K,
+    ...)). Gathers copy values, so a chain's rows are the same bits
+    whichever lane stack it came in."""
+    rows, t_rows, xi_rows = (gather_rows(a, idx) for a in (x, t, xi))
+    lead = idx.shape[:-1]
+    if len(lead) == 2:
+        k = lead[0] * lead[1]
+        rows, t_rows, xi_rows = (a.reshape((k,) + a.shape[2:])
+                                 for a in (rows, t_rows, xi_rows))
+        n_bright = n_bright.reshape(k)
+        theta = theta.reshape((k,) + theta.shape[2:])
+    return rows, t_rows, xi_rows, n_bright, theta
 
 
 def row_scores(rows, theta, family):
@@ -62,9 +86,12 @@ def total_of_delta(delta, n_bright):
 
 def bright_glm_ref(x, t, xi, idx, n_bright, theta, family="logistic",
                    nu=4.0, sigma=1.0):
-    """Returns (delta (K, C) f32, total (K,) f32)."""
-    i = idx.to(torch.int64).clamp(0, x.shape[0] - 1)
-    rows = x[i]
-    scores = row_scores(rows, theta, family)
-    delta = delta_of_scores(scores, t[i], xi[i], family, nu, sigma)
-    return delta, total_of_delta(delta, n_bright)
+    """Returns (delta (K, C) f32, total (K,) f32); for a lane stack,
+    (delta (L, K, C), total (L, K)). Each chain is evaluated on its own, so
+    L lanes give what L single-lane calls give."""
+    rows, t_rows, xi_rows, nb, th = flat_chains(x, t, xi, idx, n_bright,
+                                                theta)
+    scores = row_scores(rows, th, family)
+    delta = delta_of_scores(scores, t_rows, xi_rows, family, nu, sigma)
+    total = total_of_delta(delta, nb)
+    return delta.reshape(idx.shape), total.reshape(idx.shape[:-1])

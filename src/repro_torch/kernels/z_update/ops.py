@@ -5,11 +5,17 @@ _fused_z_update`). A CUDA tensor goes to ``csrc/z_update.cu`` (or the
 wrapper raises); a CPU tensor goes to the plain version in :mod:`.ref`.
 Chains are the leading axis of every operand: each chain streams its own
 partition array with its own ``(num, key words)``, so a K-chain launch is
-bitwise K single-chain launches. Candidate selection is integer work on
+bitwise K single-chain launches. Chains may also come in lanes, ``(L, K,
+...)`` operands (the sampling service's ``"vmap"`` lanes): one launch for
+all L·K chains, bitwise L launches of K chains. A lane's ``(K, N)``
+partition block may sit anywhere (its own lane stride), so a stack of
+lanes need not be copied together. Candidate selection is integer work on
 indices and RNG bits: no gradient.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -19,6 +25,7 @@ from repro_torch.kernels.z_update.ref import q_threshold_bits, z_candidates_ref
 launch_count = 0  # kernel launches through this wrapper (one per call)
 _TILE = 2048  # kTile in csrc/z_update.cu
 _MAX_N = (1 << 30) - 1  # a status word holds a count in 30 bits
+_MAX_CHAINS = 65535  # the launch's grid y: one row of blocks a chain
 _CTL_WORDS = 2  # int64 words of per-chain control (ticket, arrivals, epoch)
 # The kernel's look-back workspace, one per (device, stream): K rows of
 # control words, then K rows of tile status words. Zeroed once and left
@@ -51,19 +58,25 @@ def _refuse(arr, num, key_words, cap):
     dev = arr.device
     for name, a in (("num", num), ("key_words", key_words)):
         _require(a.device == dev, f"{name} is on {a.device}, arr on {dev}")
-    _require(arr.dim() == 2 and arr.dtype == torch.int32
-             and arr.stride(1) == 1,
-             "arr must be (K, N) int32 with unit position stride")
-    k, n = arr.shape
+    _require(arr.dim() in (2, 3) and arr.dtype == torch.int32
+             and arr.stride(-1) == 1,
+             "arr must be (K, N) or (L, K, N) int32 with unit position "
+             "stride")
+    lanes = tuple(arr.shape[:-1])
+    n = arr.shape[-1]
     _require(n <= _MAX_N, f"arr has N={n}; the kernel's counts hold "
              f"N <= {_MAX_N}")
-    _require(num.dtype == torch.int64 and num.shape == (k,)
-             and num.is_contiguous(), f"num must be contiguous ({k},) int64")
-    _require(key_words.dtype == torch.int64 and key_words.shape == (k, 2)
+    _require(num.dtype == torch.int64 and num.shape == lanes
+             and num.is_contiguous(), f"num must be contiguous {lanes} int64")
+    _require(key_words.dtype == torch.int64
+             and key_words.shape == lanes + (2,)
              and key_words.is_contiguous(),
-             f"key_words must be contiguous ({k}, 2) int64")
+             f"key_words must be contiguous {lanes + (2,)} int64")
     _require(cap > 0, f"capacity must be > 0, got {cap}")
-    _require(k > 0 and n > 0, f"empty partition arrays (K={k}, N={n})")
+    _require(min(lanes) > 0 and n > 0,
+             f"empty partition arrays (shape {tuple(arr.shape)})")
+    _require(math.prod(lanes) <= _MAX_CHAINS,
+             f"{math.prod(lanes)} chains exceed the launch's {_MAX_CHAINS}")
     raise ValueError("z_candidates: operands refused: " + _build.describe(
         arr=arr, num=num, key_words=key_words))
 
@@ -72,44 +85,61 @@ def _launch(arr, num, key_words, q_db, cand_capacity):
     global launch_count
     cap = int(cand_capacity)
     di = arr.get_device()
-    ok = arr.dim() == 2
+    ok = arr.dim() in (2, 3)
     if ok:
-        k, n = arr.shape
-        ok = (arr.dtype == torch.int32 and arr.stride(1) == 1
+        lanes, n = tuple(arr.shape[:-1]), arr.shape[-1]
+        ok = (arr.dtype == torch.int32 and arr.stride(-1) == 1
               and num.get_device() == di and num.dtype == torch.int64
-              and num.shape == (k,) and num.is_contiguous()
+              and num.shape == lanes and num.is_contiguous()
               and key_words.get_device() == di
               and key_words.dtype == torch.int64
-              and key_words.shape == (k, 2) and key_words.is_contiguous()
-              and k > 0 and 0 < n <= _MAX_N and cap > 0)
+              and key_words.shape == lanes + (2,)
+              and key_words.is_contiguous()
+              and min(lanes) > 0 and 0 < n <= _MAX_N and cap > 0
+              and math.prod(lanes) <= _MAX_CHAINS)
     if not ok:
         _refuse(arr, num, key_words, cap)
+    # One lane (a (K, N) arr) or L lanes of K chains.
+    L, k = (1, lanes[0]) if arr.dim() == 2 else lanes
+    lane_stride = 0 if arr.dim() == 2 else arr.stride(0)
     lib = _build.library()
     stream = _build.stream_ptr(arr.device)
     ntiles = -(-n // _TILE)
-    buf, k_cap, t_cap = _workspace(arr.device, di, stream, k, ntiles)
+    buf, k_cap, t_cap = _workspace(arr.device, di, stream, L * k, ntiles)
     ctl = buf.data_ptr()
-    # One allocation: cand (K, cap), then count (K,).
-    buf = torch.empty(k * (cap + 1), dtype=torch.int32, device=arr.device)
+    # One allocation: cand (L·K, cap), then count (L·K,).
+    lk = L * k
+    buf = torch.empty(lk * (cap + 1), dtype=torch.int32, device=arr.device)
     ptr = buf.data_ptr()
     code = lib.z_candidates_launch(
-        arr.data_ptr(), arr.stride(0), num.data_ptr(), key_words.data_ptr(),
-        ptr, ptr + 4 * k * cap, ctl, ctl + 8 * _CTL_WORDS * k_cap, t_cap, k,
-        n, q_threshold_bits(q_db), cap, stream,
+        arr.data_ptr(), arr.stride(-2), lane_stride, num.data_ptr(),
+        key_words.data_ptr(), ptr, ptr + 4 * lk * cap, ctl,
+        ctl + 8 * _CTL_WORDS * k_cap, t_cap, k, L, n,
+        q_threshold_bits(q_db), cap, stream,
     )
     launch_count += 1
     _build.check(code, "z_candidates")
-    return (buf.as_strided((k, cap), (cap, 1)),
-            buf.as_strided((k,), (1,), k * cap))
+    return (buf.as_strided(lanes + (cap,), _strides(lanes + (cap,))),
+            buf.as_strided(lanes, _strides(lanes), lk * cap))
+
+
+def _strides(shape):
+    out, s = [], 1
+    for d in reversed(shape):
+        out.append(s)
+        s *= d
+    return tuple(reversed(out))
 
 
 def z_candidates(arr, num, key_words, q_db: float, cand_capacity: int):
-    """Fused dark→bright candidate selection for K chains.
+    """Fused dark→bright candidate selection for K chains, or for L lanes
+    of K chains.
 
     arr (K, N) int32 partition arrays; num (K,) int64 bright counts;
     key_words (K, 2) int64 counter-RNG key words. Returns (cand (K, cap)
     int32 datum ids in arr-position order padded with N, n_cand (K,) int32
-    true counts, which may exceed ``cand_capacity``).
+    true counts, which may exceed ``cand_capacity``). With lanes every
+    operand and output has a leading ``(L, K)`` in place of ``(K,)``.
     """
     if arr.is_cuda:
         return _launch(arr, num, key_words, q_db, cand_capacity)

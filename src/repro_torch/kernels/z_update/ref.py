@@ -28,7 +28,15 @@ def q_threshold_bits(q_db: float) -> int:
 
 def z_candidates_ref(arr, num, key_words, q_db: float, cand_capacity: int):
     """arr (K, N) int32, num (K,), key_words (K, 2) → (cand (K, cap) int32
-    padded with N, n_cand (K,) int32)."""
+    padded with N, n_cand (K,) int32). With lanes, ``(L, K)`` leads every
+    operand and output in place of ``(K,)``; each chain is drawn on its own,
+    so the result is L single-lane calls'."""
+    if arr.dim() == 3:
+        lanes = tuple(arr.shape[:2])
+        cand, n_cand = z_candidates_ref(
+            arr.reshape(-1, arr.shape[-1]), num.reshape(-1),
+            key_words.reshape(-1, 2), q_db, cand_capacity)
+        return cand.reshape(lanes + (-1,)), n_cand.reshape(lanes)
     k, n = arr.shape
     pos = torch.arange(n, device=arr.device)[None]
     bits24 = counter_bits24(key_words, DRAW_CAND, arr)

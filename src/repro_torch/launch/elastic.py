@@ -2,8 +2,10 @@
 
 Port of :mod:`repro.launch.elastic`'s :func:`plan_chain_slots` and
 :class:`StragglerMonitor`, which the sampling service uses. ``plan_mesh``
-builds a device mesh for the sharded paths; it waits for the distributed
-slice (ROADMAP queue 1, item 7) and raises until then.
+builds a device mesh for the LM stack's tensor-parallel and FSDP paths; it
+waits for them (ROADMAP queue 1, item 9f) and raises until then. Data-sharded
+FlyMC needs no mesh: :mod:`repro_torch.distributed.flymc_dist` shards over a
+``torch.distributed`` process group.
 """
 
 from __future__ import annotations
@@ -14,8 +16,9 @@ import dataclasses
 def plan_mesh(n_devices: int, model_parallel: int = 16):
     """Not ported: the reference builds a JAX mesh here."""
     raise NotImplementedError(
-        "plan_mesh builds the sharded paths' device mesh; it comes with "
-        "distributed FlyMC on torch.distributed (ROADMAP queue 1, item 7)"
+        "plan_mesh builds the LM stack's tensor-parallel and FSDP mesh "
+        f"(model_parallel={model_parallel}); it comes with tensor-parallel "
+        "serving on torch.distributed (ROADMAP queue 1, item 9f)"
     )
 
 

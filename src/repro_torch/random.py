@@ -46,7 +46,10 @@ def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: hash the uint32 ``data`` into ``(..., 2)`` keys."""
     k0, k1 = k[..., 0], k[..., 1]
-    d = torch.as_tensor(data, dtype=torch.int64, device=k.device) & M32
+    if isinstance(data, int):  # torch.full: a host int copied over would wait
+        d = torch.full((), data & M32, dtype=torch.int64, device=k.device)
+    else:
+        d = torch.as_tensor(data, dtype=torch.int64, device=k.device) & M32
     y0, y1 = threefry2x32(k0, k1, torch.zeros_like(d), d)
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 

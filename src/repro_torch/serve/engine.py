@@ -1,4 +1,4 @@
-"""GroupEngine: one batching group's jobs, each a lane, stepped in a loop.
+"""GroupEngine: one batching group's jobs, each a lane, stepped together.
 
 Port of :mod:`repro.serve.engine`. One engine owns every admitted job of
 one :func:`repro_torch.serve.job.group_key`. A **lane** is one whole job:
@@ -12,12 +12,20 @@ trajectory and collector results are bitwise the solo
 num_chains=K)`` run, whoever shares the group, whenever the job joined or
 left and however often the group grew. What carries it:
 
-  * **Lane-local compute.** The ``"map"`` lane backend is a Python loop
-    over the lanes. Each lane's K chains are stepped by the same
-    chain-batched ``flymc_step`` call a solo ``api.sample(num_chains=K)``
-    makes, through the algorithm's operand form
-    ``step_data(keys, state, data, stats)`` with the lane's own dataset.
-    Nothing a lane computes depends on its neighbours.
+  * **Lane-local compute.** The ``"map"`` lane backend (the default) is a
+    Python loop over the lanes. Each lane's K chains are stepped by the
+    same chain-batched ``flymc_step`` call a solo
+    ``api.sample(num_chains=K)`` makes, through the algorithm's operand
+    form ``step_data(keys, state, data, stats)`` with the lane's own
+    dataset. The ``"vmap"`` backend stacks the L lanes into one
+    chain-batched call of L·K chains on a lane stack of the datasets
+    (``data`` leaves ``(L, N, ...)``): each kernel launches once a group
+    step instead of once a lane-step. A chain's arithmetic does not depend
+    on the chains beside it (both kernels take the lane axis, and the
+    step's other reductions are ``tree_sum`` and elementwise products), so
+    under either backend nothing a lane computes depends on its
+    neighbours, and ``"vmap"`` is bitwise ``"map"``. (The reference's
+    ``"vmap"`` is not: XLA's rounding there follows the batch width.)
   * **Keys come from the state, not the schedule.** Each step keys with
     ``fold_in(chain_keys, state.iteration)``, the driver's
     ``fold_in(chain_key, i)`` at whatever iteration the lane has reached.
@@ -36,17 +44,16 @@ left and however often the group grew. What carries it:
 
 Group state is a Python list of per-lane dicts (state, chain keys, data,
 stats, carries, folded count) in membership order, not stacked
-``(L, ...)`` tensors: the loop steps one lane at a time and never needs the
-stack, and admission and eviction are list operations that copy no device
-memory. The reference pads the lane axis to a power-of-2 bucket so that
-join and leave recompile O(log L) times; nothing here is compiled, so the
-engine runs no pad lane and :func:`bucket_size` pads nothing. Nothing is
-compiled either for the chunk or the fold, so there is no counterpart of
-the reference's ``driver.cached_jit`` cache.
-
-``lane_backend="vmap"`` stacks the lanes into one launch in the reference.
-That needs kernels that take a dataset per lane, which ``bright_glm.cu``
-and ``z_update.cu`` do not; it raises (ROADMAP queue 1, item 10).
+``(L, ...)`` tensors: admission and eviction are list operations that copy
+no device memory. The ``"vmap"`` backend concatenates the lanes' states,
+keys, datasets and statistics at the start of a chunk attempt and splits
+the result at its end (a copy of the chains' state and the datasets, once
+a chunk of many steps); a group of one lane runs on views of its own. The folds stay a per-lane loop under both backends. The
+reference pads the lane axis to a power-of-2 bucket so that join and leave
+recompile O(log L) times; nothing here is compiled, so the engine runs no
+pad lane and :func:`bucket_size` pads nothing. Nothing is compiled either
+for the chunk or the fold, so there is no counterpart of the reference's
+``driver.cached_jit`` cache.
 """
 
 from __future__ import annotations
@@ -55,6 +62,8 @@ import torch
 
 from repro_torch.api import collectors as collectors_lib
 from repro_torch.api import driver
+from repro_torch.core.bounds import CollapsedStats, GLMData
+from repro_torch.core.flymc import StepStats
 from repro_torch.serve import job as job_lib
 
 LANE_BACKENDS = ("map", "vmap")
@@ -63,12 +72,28 @@ LANE_BACKENDS = ("map", "vmap")
 def check_lane_backend(lane_backend: str) -> None:
     if lane_backend not in LANE_BACKENDS:
         raise ValueError(f"unknown lane_backend {lane_backend!r}")
-    if lane_backend == "vmap":
-        raise NotImplementedError(
-            "lane_backend='vmap' stacks a group's lanes into one launch; it "
-            "needs bright_glm and z_update kernels that take a dataset per "
-            "lane (ROADMAP queue 1, item 10). Use the default 'map'."
-        )
+
+
+def _cat(trees):
+    """Per-leaf concatenation along the chain axis of same-shaped
+    (nested NamedTuple) states or tensors."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat(trees)
+    return type(first)(*(_cat([t[i] for t in trees])
+                         for i in range(len(first))))
+
+
+def _rows(tree, a: int, b: int):
+    """Chains ``a:b`` of every leaf."""
+    if isinstance(tree, torch.Tensor):
+        return tree[a:b]
+    return type(tree)(*(_rows(t, a, b) for t in tree))
+
+
+def _by_lane(a: torch.Tensor, lanes: int, axis: int = 0) -> torch.Tensor:
+    """A lane-major chain axis ``axis`` split into ``(lanes, K)``."""
+    return a.reshape(a.shape[:axis] + (lanes, -1) + a.shape[axis + 1:])
 
 
 def bucket_size(n: int) -> int:
@@ -86,10 +111,11 @@ class GroupEngine:
 
     ``template`` is any member job: it supplies the spec and the collector
     instances (the group key pins both). Counters for accounting:
-    ``lane_steps`` (one chain-batched ``flymc_step`` on one lane, overflow
-    re-runs included), ``inits`` (lane initializations, growth re-inits
-    included), ``chunks``, ``reruns`` and ``waits`` (host reads in
-    ``run_chunk``).
+    ``lane_steps`` (one step of one lane's K chains, overflow re-runs
+    included), ``group_steps`` (chain-batched ``flymc_step`` calls: one a
+    lane-step under ``"map"``, one a step of every lane under ``"vmap"``),
+    ``inits`` (lane initializations, growth re-inits included), ``chunks``,
+    ``reruns`` and ``waits`` (host reads in ``run_chunk``).
     """
 
     def __init__(self, template: job_lib.Job, capacity: int | None = None,
@@ -114,7 +140,7 @@ class GroupEngine:
         self._jobs: dict[str, job_lib.Job] = {}
         self._quarantined: list[str] = []
         self.lane_steps = self.inits = self.chunks = self.reruns = 0
-        self.waits = 0
+        self.group_steps = self.waits = 0
 
     # ------------------------------------------------------------ geometry
 
@@ -239,7 +265,58 @@ class GroupEngine:
         final, outs, overflow = driver.run_steps(
             step, self._alg.position_of, lane["keys"], state, cs)
         self.lane_steps += cs
+        self.group_steps += cs
         return final, outs, overflow, driver.chunk_health(outs, final, data)
+
+    @staticmethod
+    def _stacked_data(lanes: list[dict]):
+        """The lanes' datasets and statistics as lane stacks (leaves
+        ``(L, ...)``); one lane's are views of its own tensors."""
+
+        def stack(trees, kind):
+            return kind(*(torch.stack(leaves) if len(lanes) > 1
+                          else leaves[0].unsqueeze(0)
+                          for leaves in zip(*trees)))
+
+        return (stack([lane["data"] for lane in lanes], GLMData),
+                stack([lane["stats"] for lane in lanes], CollapsedStats))
+
+    def _run_stacked(self, lanes: list[dict], states: list, cs: int):
+        """``cs`` steps of every lane at once (``"vmap"``): one
+        chain-batched ``flymc_step`` a step over the lanes' L·K chains on
+        the lane stack of their datasets, keyed by each lane's own
+        ``fold_in(chain_keys, iteration)``. Returns, per lane, what
+        :meth:`_run_lane` returns; the health flag is the same predicate
+        over the lane's outputs, final state and dataset."""
+        n_lanes, k = len(lanes), self.num_chains
+        data, stats = self._stacked_data(lanes)
+        step_data = self._alg.step_data
+
+        def step(keys, st):
+            return step_data(keys, st, data, stats)
+
+        final, outs, _ = driver.run_steps(
+            step, self._alg.position_of,
+            torch.cat([lane["keys"] for lane in lanes]), _cat(states), cs)
+        self.lane_steps += cs * n_lanes
+        self.group_steps += cs
+        infos = StepStats(*(torch.stack(f)
+                            for f in zip(*(info for _, info in outs))))
+        pos = torch.stack([p for p, _ in outs])
+        over = _by_lane(infos.overflow, n_lanes, 1).reshape(
+            cs, n_lanes, -1).any(dim=2).any(dim=0)
+        leaves = ([_by_lane(pos, n_lanes, 1).movedim(1, 0)]
+                  + [_by_lane(f, n_lanes, 1).movedim(1, 0) for f in infos
+                     if f.is_floating_point()]
+                  + [_by_lane(a, n_lanes) for a in driver._float_leaves(final)]
+                  + driver._float_leaves(data))
+        ok = driver.finite_lanes(leaves)
+        runs = []
+        for i in range(n_lanes):
+            a, b = i * k, (i + 1) * k
+            lane_outs = [(p[a:b], _rows(info, a, b)) for p, info in outs]
+            runs.append((_rows(final, a, b), lane_outs, over[i], ok[i]))
+        return runs
 
     def run_chunk(self, chunk_size: int) -> int:
         """Advance every lane ``chunk_size`` steps and fold the committed
@@ -272,8 +349,11 @@ class GroupEngine:
         prevs = [self._fit(lane["state"]) for lane in lanes]
         reruns = 0
         while True:
-            runs = [self._run_lane(lane, prev, cs)
-                    for lane, prev in zip(lanes, prevs)]
+            if self.lane_backend == "vmap":
+                runs = self._run_stacked(lanes, prevs, cs)
+            else:
+                runs = [self._run_lane(lane, prev, cs)
+                        for lane, prev in zip(lanes, prevs)]
             flags = torch.stack([torch.stack([over, ok])
                                  for _, _, over, ok in runs]).tolist()
             self.waits += 1  # the chunk's one host wait

@@ -1075,3 +1075,112 @@ def test_service_checkpoint_restore_on_card_is_bitwise(dev, tmp_path):
     for job_id, r in ref.items():
         assert res[job_id].committed == r.committed, job_id
         assert _same(res[job_id].results, r.results), job_id
+
+
+# ---------------------------------------------------------------------------
+# The lane axis ("vmap" service lanes) and data-sharded FlyMC on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("family", ["logistic", "student_t", "softmax"])
+def test_bright_glm_lane_launch_is_its_per_lane_launches_bitwise(dev,
+                                                                 family):
+    """L = 3 lanes of K = 2 chains, uneven bright counts, padding past N:
+    one lane-stacked launch is bitwise three single-lane launches, and
+    within 1e-5 of the plain version."""
+    lanes = [_bright_inputs(family, 700, 11, 2, 40, dev, seed=s)
+             for s in range(3)]
+    x, t, xi, arr, nb, theta = (torch.stack(a) for a in zip(*lanes))
+    idx = arr[:, :, :40]  # strided views, as the step passes them
+    idx[1, 0, -3:] = 700  # candidate sentinels
+    nb = torch.stack([torch.tensor([40, 0]), torch.tensor([3, 39]),
+                      torch.tensor([17, 1])]).to(dev)
+    before = bops.launch_count
+    delta, total = bops.bright_glm(x, t, xi, idx, nb, theta, family=family,
+                                   **KW[family])
+    assert bops.launch_count - before == 1
+    d_ref, t_ref = bright_glm_ref(x, t, xi, idx, nb, theta, family=family,
+                                  **KW[family])
+    torch.testing.assert_close(delta, d_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(total, t_ref, rtol=1e-5, atol=1e-5)
+    for lane in range(3):
+        d1, t1 = bops.bright_glm(x[lane], t[lane], xi[lane], idx[lane],
+                                 nb[lane], theta[lane], family=family,
+                                 **KW[family])
+        assert torch.equal(d1, delta[lane]) and torch.equal(t1, total[lane])
+
+
+def test_z_candidates_lane_launch_is_its_per_lane_launches_bitwise(dev):
+    """L = 3 lanes of K = 2 chains, uneven ``num`` (one chain with no dark
+    datum), a lane stack that is a strided view: one launch, bitwise
+    three single-lane launches and the plain version."""
+    g = torch.Generator().manual_seed(5)
+    n, cap = 30_000, 500
+    wide = torch.stack([torch.stack([torch.randperm(n, generator=g)
+                                     for _ in range(3)]) for _ in range(3)])
+    arr = wide.to(torch.int32).to(dev)[:, 1:]
+    num = torch.tensor([[0, 70], [n, 4000], [12, 29_999]], device=dev)
+    kw = torch.randint(0, 2**32, (3, 2, 2), generator=g).to(dev)
+    before = zops.launch_count
+    cand, count = zops.z_candidates(arr, num, kw, 0.01, cap)
+    assert zops.launch_count - before == 1
+    c_ref, n_ref = z_candidates_ref(arr, num, kw, 0.01, cap)
+    assert torch.equal(cand, c_ref) and torch.equal(count, n_ref)
+    for lane in range(3):
+        c1, n1 = zops.z_candidates(arr[lane], num[lane], kw[lane], 0.01, cap)
+        assert torch.equal(c1, cand[lane]) and torch.equal(n1, count[lane])
+
+
+def test_vmap_group_chunk_launches_each_kernel_once_a_step(dev):
+    """A "vmap" group of 4 two-chain lanes on the card: each kernel
+    launches once a group step (two ``bright_glm`` a RWMH step), and every
+    lane's state after the chunk is bitwise the "map" engine's."""
+    from repro_torch.serve import GroupEngine
+
+    base = _card_mix(dev, 64)[1]
+    assert base.num_chains == 2
+    jobs = [dataclasses.replace(base, job_id=f"l{i}", seed=i,
+                                data=logistic_data(jr.key(60 + i), n=2048,
+                                                   d=16))
+            for i in range(4)]
+    engines = {}
+    for backend in ("map", "vmap"):
+        eng = GroupEngine(jobs[0], lane_backend=backend)
+        for j in jobs:
+            eng.admit(j)
+        b0, z0, s0 = bops.launch_count, zops.launch_count, eng.group_steps
+        eng.run_chunk(8)
+        steps = eng.group_steps - s0
+        assert steps == (8 if backend == "vmap" else 32) * (1 + eng.reruns)
+        assert bops.launch_count - b0 == 2 * steps
+        assert zops.launch_count - z0 == steps
+        engines[backend] = eng
+    for j in jobs:
+        a = engines["map"].lane_of(j.job_id)
+        b = engines["vmap"].lane_of(j.job_id)
+        assert _same(a["state"], b["state"]) and _same(a["carries"],
+                                                       b["carries"])
+
+
+def test_dist_step_on_card_waits_only_in_its_collectives(dev):
+    """2 ranks, gloo over CUDA tensors on the one card, the kernel
+    engines: every host wait of 3 data-sharded RWMH steps is inside the
+    collectives (``distributed/comm.py``), at most one a collective, and
+    both ranks hold the same θ."""
+    import _torch_dist_ranks as ranks
+    from repro_torch.distributed.launch import run_ranks
+
+    data = logistic_data(jr.key(3), n=4096, d=8)
+    cfg = {"x": data.x.cpu().numpy(), "t": data.t.cpu().numpy(),
+           "xi": np.full(4096, 1.5, np.float32), "device": "cuda",
+           "seed": 9, "steps": 3,
+           "spec": dict(kernel="rwmh", capacity=256, cand_capacity=256,
+                        q_db=0.02)}
+    out = run_ranks(ranks.dist_step_syncs, 2, backend="gloo", device="cuda",
+                    args=(cfg,), timeout_s=300)
+    for got in out:
+        assert got["collectives"] == {"sum": 9, "max": 3}
+        assert all(site.startswith("comm.py:") for site in got["sites"]), \
+            got["sites"]
+        assert sum(got["sites"].values()) <= 12
+        np.testing.assert_array_equal(got["theta"], out[0]["theta"])

@@ -66,11 +66,11 @@ def _decisions(theta, theta0):
 _JAX_SOLO = {}
 
 
-def jax_solo(jjob):
-    """The JAX solo run of a mix job: θ trace, stats, each step's signed
-    decision margin, and the initial θ."""
-    if jjob.job_id in _JAX_SOLO:
-        return _JAX_SOLO[jjob.job_id]
+def jax_solo(jjob, steps=MAX):
+    """The JAX solo run of a mix job over ``steps`` iterations: θ trace,
+    stats, each step's signed decision margin, and the initial θ."""
+    if (jjob.job_id, steps) in _JAX_SOLO:
+        return _JAX_SOLO[(jjob.job_id, steps)]
     alg = jjob_lib.build_algorithm(jjob)
     k = jjob.num_chains
     key = jax.random.key(jjob.seed)
@@ -82,7 +82,7 @@ def jax_solo(jjob):
         states.append(ev.state)
         return False
 
-    tr = japi.sample(alg, key, MAX, num_chains=k, chunk_size=1,
+    tr = japi.sample(alg, key, steps, num_chains=k, chunk_size=1,
                      collectors={"trace": JC.FullTrace()}, on_chunk=hook)
     if k > 1:
         init = jax.jit(alg.batched_init())(
@@ -103,7 +103,7 @@ def jax_solo(jjob):
            "stats": jax.device_get(tr.results["trace"]["stats"]),
            "margins": margins,
            "theta0": np.asarray(jax.device_get(init.sampler.theta))}
-    _JAX_SOLO[jjob.job_id] = out
+    _JAX_SOLO[(jjob.job_id, steps)] = out
     return out
 
 
