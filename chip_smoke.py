@@ -5,10 +5,12 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``, at
 first use), then runs its paths — the FlyMC chain (RWMH, MALA, HMC and the
-paper's robust-regression slice path), the recurrentgemma-9b and the
-rwkv6-7b LM serving paths, and the recurrentgemma-9b training step —
-each with its kernels (six sources; ``rglru_scan.cu`` holds a forward and a
-backward kernel):
+paper's robust-regression slice path), the recurrentgemma-9b, rwkv6-7b
+and dense decoder (llama3.2-3b, qwen2-7b, stablelm-1.6b, qwen1.5-110b) LM
+serving paths, FlyMC over llama3.2-3b's LM head, and the
+recurrentgemma-9b training step — each with its kernels (six sources;
+``rglru_scan.cu`` holds a forward and a backward kernel, ``bright_glm.cu``
+a register and a wide softmax kernel):
 
 1. holds each kernel against its plain PyTorch version on the card and
    times it: ``ms`` is the kernels' device time per call (torch.profiler;
@@ -184,7 +186,23 @@ backward kernel):
    parameters, AdamW state and the batch generator's state must be bitwise
    equal. Prints the twin's checkpoint bytes and save seconds beside the
    size the training path's state would have (12 bytes a parameter; not
-   written).
+   written);
+16. holds ``bright_glm``'s wide softmax kernel (past 16 classes: an LM
+   head) against its plain version at the lastlayer run's shape (Kc =
+   128,256, D = 3,072, C = 256, one chain) and the reduced twin's (Kc =
+   512, D = 128): δ to 1e-4 plus 1e-5 of |δ|, the total to the plain sum
+   of the kernel's own δ, one ``bright_glm_wide_kernel`` a call, with its
+   bound from bytes and f32 FLOPs; drives the dense decoders through
+   ``serve`` (``dense_serve_path``: llama3.2-3b, qwen2-7b and
+   stablelm-1.6b at full width and depth, qwen1.5-110b at full width cut
+   to 2 layers; bf16, batch 4, a 128-token prompt, 8 greedy tokens; prefill
+   ms and decode ms/token; one ``decode_attention`` launch a layer a
+   decode step; the kernel held at each config's (G, D, W)); and FlyMC
+   over llama3.2-3b's head (``lastlayer_path``: f32 features of 8 × 128
+   tokens from the full-depth backbone, 100 MAP steps, the reference
+   example's MALA FlyMC for 20 iterations with ``backend="pallas",
+   z_backend="fused"``; ms/iter, queries/iter, mean bright tokens against
+   N, three wide launches a step, both kernels held on the final state).
 
 Any failure raises (nonzero exit, no result line). The build's ptxas
 registers, shared memory and spills are printed per kernel. The last two
@@ -286,6 +304,34 @@ DIST_Q, DIST_CHAINS, NCCL_ITERS = 0.01, 64, 50
 DIST_STEP = 0.03
 DIST_OPV_ITERS, DIST_OPV_BURN, DIST_OPV_CAP = 100, 25, 16_384
 FLEET_CHAINS, FLEET_ITERS = 2, 64
+# FlyMC over an LM head (models/lastlayer.py): llama3.2-3b at its published
+# width and depth, seed-initialised, f32 features of N = 8 × 128 = 1,024
+# tokens (the reference example takes 32 × 129 of its reduced twin); MAP by
+# 100 Adam steps (the example: 300); then the example's MALA FlyMC (q_db,
+# capacity, prior), one chain, 20 iterations. The example's start (θ_MAP,
+# where every δ is 0, so no datum is bright) and step (1e-3, near MALA's
+# optimum for the twin's 65,536 head parameters) leave a chain at this
+# head's 394M parameters with no bright datum and no accepted proposal.
+# So the chain starts at θ_MAP + ε0·noise with ε0 chosen for a mean bound
+# gap δ of LL_GAP a token (away from the tangency the Böhning gap is
+# ¼·Kc·|x|²·ε² over nearly uniform logits), and steps at LL_STEP_OF_EPS·ε0,
+# which adds ~1/16 of that gap a step. The wide bright_glm phases: that
+# head's shape (Kc = 128,256 classes, D = 3,072, C = the run's bright
+# capacity n/4) and the reduced twin's (Kc = 512, D = 128).
+LL_ARCH, LL_BATCH, LL_SEQ, LL_PRIOR = "llama3.2-3b", 8, 129, 0.003
+LL_MAP_STEPS, LL_ITERS, LL_Q = 100, 20, 0.05
+LL_GAP, LL_STEP_OF_EPS = 0.05, 0.25
+# The wide kernel's δ against the plain version (the classes summed in
+# another order): |Δδ| ≤ atol + rtol·|δ|; the lastlayer chain's δ (~LL_GAP)
+# relative to their size.
+WIDE_CLOSE = dict(rtol=1e-5, atol=1e-4)
+LL_CLOSE = dict(rtol=1e-3, atol=1e-5)
+# The dense decoders through launch/serve.py, bf16: batch 4, a 128-token
+# prompt, 8 greedy tokens; qwen1.5-110b at full width cut to 2 of its 80
+# layers (80 need 222 GB in bf16; whole, it waits for tensor parallelism).
+DENSE_ARCHS = (("llama3.2-3b", None), ("qwen2-7b", None),
+               ("stablelm-1.6b", None), ("qwen1.5-110b", 2))
+DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = 4, 128, 8
 
 
 def log(msg: str) -> None:
@@ -997,7 +1043,7 @@ def exactness(mnist):
 
 
 def robust_kernels_held(spec, data, stats, fs, key, family="student_t",
-                        label="robust path", own_total=False):
+                        label="robust path", own_total=False, close=None):
     """Both kernels held against their plain versions at the shapes the
     robust path (or a ``family`` service lane, ``label``) gave them, on its
     final state ``fs``: ``bright_glm`` on the
@@ -1015,7 +1061,7 @@ def robust_kernels_held(spec, data, stats, fs, key, family="student_t",
     and the summation agree. The smoke prints that difference. With
     ``own_total`` the bright buffer's total is held the same way: at a
     MAP-tuned bound the bright data themselves sit at δ ≈ 0 (the sharded
-    example's final states)."""
+    example's final states). ``close``: δ's tolerance (default 1e-5)."""
     from repro_torch import random as jr
     from repro_torch.core import brightness, flymc
     from repro_torch.core.numerics import key_words_of
@@ -1025,7 +1071,8 @@ def robust_kernels_held(spec, data, stats, fs, key, family="student_t",
     from repro_torch.kernels.z_update import ops as zops
     from repro_torch.kernels.z_update.ref import z_candidates_ref
 
-    close = dict(rtol=1e-5, atol=1e-5)
+    tight = dict(rtol=1e-5, atol=1e-5)
+    close = close or tight
     kw = dict(family=family, **spec.bound.fused_kernel_kwargs())
     theta = fs.sampler.theta
     idx, mask = brightness.bright_buffer(fs.bright, spec.capacity)
@@ -1035,14 +1082,14 @@ def robust_kernels_held(spec, data, stats, fs, key, family="student_t",
     torch.testing.assert_close(delta, d_ref, **close)
     torch.testing.assert_close(
         total, total_of_delta(delta, fs.bright.num) if own_total else t_ref,
-        **close)
+        **tight)
     gap_bright = float((total - t_ref).abs().max())
     carry = float((fs.sampler.aux - delta).abs()[mask].max()) if bool(
         mask.any()) else 0.0  # a chain may end with no bright datum
-    torch.testing.assert_close(fs.sampler.aux[mask], delta[mask], **close)
+    torch.testing.assert_close(fs.sampler.aux[mask], delta[mask], **tight)
     f = flymc.make_joint_logpost(spec, data, stats, idx, fs.bright.num)
     lp, _ = f(theta)
-    torch.testing.assert_close(fs.sampler.lp, lp, **close)
+    torch.testing.assert_close(fs.sampler.lp, lp, **tight)
     errs = [float((delta - d_ref).abs().max())]
 
     cap = spec.cand_capacity
@@ -1059,7 +1106,7 @@ def robust_kernels_held(spec, data, stats, fs, key, family="student_t",
     delta, total = bops.bright_glm(*args, **kw)
     d_ref, t_ref = bright_glm_ref(*args, **kw)
     torch.testing.assert_close(delta, d_ref, **close)
-    torch.testing.assert_close(total, total_of_delta(delta, nb), **close)
+    torch.testing.assert_close(total, total_of_delta(delta, nb), **tight)
     errs.append(float((delta - d_ref).abs().max()))
     rel = ((total - t_ref).abs() / t_ref.abs()).tolist()
     drawn = torch.arange(cap, device=nb.device) < nb[:, None]
@@ -1069,7 +1116,7 @@ def robust_kernels_held(spec, data, stats, fs, key, family="student_t",
         f"{'held to the plain sum of its own δ, ' if own_total else ''}"
         f"{gap_bright:.3g} from plain) and at the "
         f"candidates' C={cap} ({n_cand.tolist()} drawn, z_update bitwise) "
-        f"within 1e-5 of plain, max|δ-δ_plain| {max(errs):.3g}; stored δ "
+        f"within {close} of plain, max|δ-δ_plain| {max(errs):.3g}; stored δ "
         f"vs fresh max {carry:.3g}, stored lp {fs.sampler.lp.tolist()} vs "
         f"fresh {lp.tolist()}; the candidates' total {total.tolist()}, "
         f"plain {t_ref.tolist()} (relative {rel}), smallest δ "
@@ -2395,7 +2442,11 @@ def decode_attention_phase(name, b, h, hk, d, w, t, window, dtype, dev, gen):
     v = torch.randn(b, w, hk, d, generator=gen).to(dtype).to(dev)
     pos = _ring_pos(w, t, dev)
     args = (q, k, v, pos, t, window)
+    before = ops.launch_count
     got = ops.decode_attention(*args)
+    if ops.launch_count - before != 1:
+        raise AssertionError(f"decode_attention[{name}]: "
+                             f"{ops.launch_count - before} launches a call")
     want = decode_attention_ref(*args)
     torch.cuda.synchronize()
     for a, r in zip(got, want):
@@ -3240,6 +3291,258 @@ def descent_check(model, dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 16. The LM head (FlyMC over models/lastlayer.py) and the dense decoders
+# ---------------------------------------------------------------------------
+
+
+def wide_bright_phase(name, n, d, kc, c, dev):
+    """The wide softmax ``bright_glm`` kernel (past 16 classes) against its
+    plain version at (N, D, Kc, C), one chain: θ at scale 0.003 (the
+    lastlayer prior's), ξ the logits of a θ 0.001 away (a MAP-tuned bound
+    near its tangency), 5 padded slots. δ to ``WIDE_CLOSE``; the total to
+    the plain sum of the kernel's own δ (log(expm1 δ) near δ ≈ 0). One
+    device kernel a call, ``bright_glm_wide_kernel``."""
+    from repro_torch.kernels.bright_glm import ops
+    from repro_torch.kernels.bright_glm.ref import (bright_glm_ref,
+                                                    total_of_delta)
+
+    g = torch.Generator(device=dev).manual_seed(kc + c)
+    x = torch.randn(n, d, generator=g, device=dev)
+    t = torch.randint(0, kc, (n,), generator=g, device=dev)
+    theta = 0.003 * torch.randn(1, kc, d, generator=g, device=dev)
+    xi = x @ (theta[0] + 0.001 * torch.randn(kc, d, generator=g,
+                                             device=dev)).t()
+    idx = torch.randperm(n, generator=g, device=dev)[:c].to(torch.int32)
+    idx = idx[None]
+    nb = torch.full((1,), c - 5, dtype=torch.int64, device=dev)
+    args = (x, t, xi, idx, nb, theta)
+    call = lambda: ops.bright_glm(*args, family="softmax")
+    before = ops.wide_launch_count
+    delta, total = call()
+    torch.cuda.synchronize()
+    if ops.wide_launch_count - before != 1:
+        raise AssertionError(f"wide bright_glm[{name}]: not one wide launch")
+    d_ref, t_ref = bright_glm_ref(*args, family="softmax")
+    torch.testing.assert_close(delta, d_ref, **WIDE_CLOSE)
+    own = total_of_delta(delta, nb)
+    torch.testing.assert_close(total, own, rtol=1e-5, atol=1e-5)
+    err = float((delta - d_ref).abs().max())
+    ms = median_ms(call, reps=10, warm=2)
+    dev_ms = device_ms(call, ("bright_glm",), reps=10)
+    kernels = device_kernels(call, reps=5)
+    per_call = sum(map(len, kernels)) / len(kernels)
+    q_ms = queued_ms(call, reps=20)
+    plain = median_ms(lambda: bright_glm_ref(*args, family="softmax"),
+                      reps=3, warm=1)
+    b_ms, b_by = bound(kc * d * 4 + c * (4 + 4 * d + 8 + 4 * kc) + c * 4 + 4,
+                       2.0 * c * kc * d)
+    log(f"bright_glm wide[{name}: N={n} D={d} Kc={kc} C={c}] "
+        f"max|δ-δ_plain|={err:.3g} (|δ| ≤ {float(d_ref.abs().max()):.4g}), "
+        f"total {float(total[0]):.7g}, plain sum of its δ "
+        f"{float(own[0]):.7g}, plain total {float(t_ref[0]):.7g}; call "
+        f"{ms:.4f} ms (device {dev_ms} ms, {per_call} device kernels a call, "
+        f"queued {q_ms:.4f} ms; {2 * c * kc * d / dev_ms / 1e9:.2f} TFLOP/s), "
+        f"plain {plain:.1f} ms, bound {b_ms:.6f} ms ({b_by})")
+    one_kernel_a_call({"phase": f"wide-{name}", "device_kernels": kernels},
+                      "bright_glm_wide_kernel")
+    del x, xi, theta, delta, d_ref
+    torch.cuda.empty_cache()
+    return {"phase": name, "N": n, "D": d, "Kc": kc, "C": c,
+            "max_abs_err": err, "ms": dev_ms, "call_ms": ms,
+            "kernels_per_call": per_call, "queued_ms": q_ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def wide_kernel_phases(dev):
+    """The wide ``bright_glm`` kernel at the lastlayer run's shape and at
+    the reduced twin's."""
+    from repro_torch.configs import get_config, get_reduced
+
+    n = LL_BATCH * (LL_SEQ - 1)
+    cap = max(64, n // 4)  # the example's bright capacity
+    full, twin = get_config(LL_ARCH), get_reduced(LL_ARCH)
+    return [
+        wide_bright_phase("lm-head", n, full.d_model, full.padded_vocab(),
+                          cap, dev),
+        wide_bright_phase("twin", n, twin.d_model, twin.padded_vocab(), cap,
+                          dev),
+    ]
+
+
+class _StatsTrace:
+    """A collector of the per-iteration StepStats alone: the default trace
+    would also keep every θ sample, 1.58 GB each at the LM head."""
+
+    def init(self, num_samples, position, stats):
+        from repro_torch.core.flymc import StepStats
+
+        return StepStats(*(a.new_zeros((a.shape[0], num_samples))
+                           for a in stats)), [0]
+
+    def update(self, carry, position, stats):
+        bufs, n = carry
+        for b, a in zip(bufs, stats):
+            b[:, n[0]] = a
+        n[0] += 1
+        return carry
+
+    def finalize(self, carry):
+        return carry[0]
+
+
+def lastlayer_path(dev):
+    """FlyMC over llama3.2-3b's head at full width and depth: the
+    backbone's f32 features of ``LL_BATCH × LL_SEQ`` random tokens
+    (``lastlayer_glm``), the backbone freed, ``map_estimate`` and
+    ``map_tuned``, then ``api.firefly(kernel="mala", backend="pallas",
+    z_backend="fused")`` with the reference example's q_db and capacity
+    for ``LL_ITERS`` iterations from θ_MAP moved off the tangency, at a
+    step sized to the head (see ``LL_GAP``). Prints ms/iter, queries/iter,
+    the mean bright count against N, the accept rate and both kernels'
+    launches; checks the launches against the steps and inits (every
+    ``bright_glm`` launch the wide kernel's, three a step), that some datum
+    was bright, some proposal accepted and θ moved, finite θ, and both
+    kernels against their plain versions on the final state (δ to
+    ``LL_CLOSE``, the bright total to the plain total). Returns (launches,
+    max|δ − δ_plain|)."""
+    from repro_torch import api
+    from repro_torch import random as jr
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.bright_glm import ops as bops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.lastlayer import lastlayer_glm
+
+    cfg = get_config(LL_ARCH)
+    t0 = time.perf_counter()
+    lm = T.init_model(cfg, 0, dev, torch.float32)
+    n_params = sum(p.numel() for p in lm.parameters())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (LL_BATCH, LL_SEQ),
+                           generator=gen, device=dev)
+    model = lastlayer_glm(lm, tokens, prior_scale=LL_PRIOR)
+    del lm
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t_feat = time.perf_counter() - t0
+    n, d = model.data.x.shape
+    if not bool(torch.isfinite(model.data.x).all()):
+        raise AssertionError("lastlayer: non-finite backbone features")
+    t0 = time.perf_counter()
+    theta_map = model.map_estimate(jr.key(2), steps=LL_MAP_STEPS, lr=0.05)
+    tuned = model.map_tuned(theta_map)
+    del model
+    torch.cuda.synchronize()
+    t_map = time.perf_counter() - t0
+    x2 = float(tuned.data.x.square().sum(1).mean())
+    eps0 = math.sqrt(4 * LL_GAP / (tuned.theta_shape[0] * x2))
+    theta0 = theta_map + eps0 * jr.normal(jr.key(5), theta_map.shape)
+    cap = max(64, n // 4)
+    alg = api.firefly(tuned, kernel="mala", capacity=cap, cand_capacity=cap,
+                      q_db=LL_Q, step_size=LL_STEP_OF_EPS * eps0,
+                      adapt_target="auto", backend="pallas", z_backend="fused")
+    _reset_launches()
+    wide0 = bops.wide_launch_count
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = api.sample(alg, jr.key(3), LL_ITERS, init_position=theta0,
+                    collectors={"stats": _StatsTrace()})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    wide = bops.wide_launch_count - wide0
+    # MALA: the θ-update, the candidates and the gradient's refresh after
+    # the z-move, each one launch a step
+    want = {"bright_glm": 3 * tr.steps_run + tr.inits_run,
+            "z_update": tr.steps_run}
+    if launches != want or wide != launches["bright_glm"]:
+        raise AssertionError(f"lastlayer launches {launches} (wide {wide}); "
+                             f"expected {want}, all wide")
+    fs = tr.final_state
+    if not (bool(torch.isfinite(fs.sampler.theta).all())
+            and bool(torch.isfinite(fs.sampler.lp).all())):
+        raise AssertionError("lastlayer: non-finite θ or log density")
+    st = tr.results["stats"]
+    q = float(st.lik_queries.double().mean())
+    bright = float(st.n_bright.double().mean())
+    acc = float(st.accept_prob.double().mean())
+    moved = float((fs.sampler.theta[0] != theta0).double().mean())
+    if not (bright > 0 and acc > 0 and moved > 0):
+        raise AssertionError(f"lastlayer: the chain did no FlyMC work: mean "
+                             f"bright {bright}, accept {acc}, moved {moved}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    err = robust_kernels_held(tr.algorithm.spec, tuned.data, tuned.stats, fs,
+                              jr.key(4), family="softmax",
+                              label="lastlayer path", close=LL_CLOSE)
+    log(f"lastlayer path [{LL_ARCH} full width, {n_params / 1e9:.3f} B "
+        f"params, f32 features of {LL_BATCH}×{LL_SEQ - 1} = {n} tokens, "
+        f"head θ {tuple(tuned.theta_shape)}; MALA, one chain, {LL_ITERS} "
+        f"iterations from θ_MAP + {eps0:.3g}·noise (mean |x|² {x2:.1f}) at "
+        f"step {LL_STEP_OF_EPS * eps0:.3g}]: features {t_feat:.1f} s, MAP ({LL_MAP_STEPS} Adam "
+        f"steps) + tuning {t_map:.1f} s; {wall * 1e3 / LL_ITERS:.1f} ms/iter "
+        f"({tr.steps_run} steps incl. re-runs, {tr.inits_run} inits, "
+        f"capacity {tr.algorithm.spec.capacity}); queries/iter {q:.1f} vs "
+        f"N = {n}; mean bright tokens {bright:.1f} of {n}; accept "
+        f"{acc:.3f}, share of θ moved {moved:.3g}; launches {launches} (wide "
+        f"{wide}); peak memory {peak / 2**30:.2f} GiB")
+    del tr, tuned, theta_map, theta0, alg, fs
+    torch.cuda.empty_cache()
+    return {**launches, "bright_glm_wide": wide}, err
+
+
+def dense_serve_path(dev):
+    """The dense decoders through ``launch.serve.serve`` at their published
+    widths in bf16 (qwen1.5-110b cut to 2 layers): prefill and greedy
+    decode; one ``decode_attention`` launch a layer a decode step; the
+    kernel held against its plain version at each config's (G, D, W).
+    Returns ({arch: launches}, decode_attention phases)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as aops
+    from repro_torch.launch.serve import serve
+
+    launches, phases = {}, []
+    gen = torch.Generator().manual_seed(23)
+    seq = DENSE_PROMPT + DENSE_GEN
+    steps = DENSE_GEN - 1
+    for arch, n_layers in DENSE_ARCHS:
+        cfg = get_config(arch)
+        layers = n_layers or cfg.n_layers
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        aops.launch_count = 0
+        ids, stats = serve(arch, batch=DENSE_BATCH, prompt_len=DENSE_PROMPT,
+                           gen=DENSE_GEN, seed=0, full=True,
+                           dtype=torch.bfloat16, device=dev,
+                           n_layers=n_layers)
+        wall = time.perf_counter() - t0
+        launches[arch] = aops.launch_count
+        if aops.launch_count != layers * steps:
+            raise AssertionError(f"{arch}: {aops.launch_count} decode_attention"
+                                 f" launches, want {layers * steps}")
+        if ids.shape != (DENSE_BATCH, DENSE_GEN) or not bool(
+                ((ids >= 0) & (ids < cfg.vocab_size)).all()):
+            raise AssertionError(f"{arch}: bad generated ids")
+        peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.empty_cache()
+        g = cfg.n_heads // cfg.n_kv_heads
+        ph = decode_attention_phase(
+            arch, DENSE_BATCH, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim, seq, seq - 2, None, torch.bfloat16, dev,
+            gen)
+        phases.append(ph)
+        log(f"dense serve [{arch}, {layers} of {cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, G = {g}, D = {cfg.resolved_head_dim}, "
+            f"bf16, batch {DENSE_BATCH}, prompt {DENSE_PROMPT}, {DENSE_GEN} "
+            f"greedy tokens]: prefill {stats['prefill_s'] * 1e3:.3f} ms, "
+            f"decode {stats['decode_s'] * 1e3 / steps:.3f} ms/token, "
+            f"{stats['tok_per_s']:.1f} tok/s, peak memory "
+            f"{peak / 2**30:.2f} GiB, {wall:.1f} s with the init; "
+            f"decode_attention {launches[arch] // steps} launches a step; "
+            f"first tokens {ids[0].tolist()}")
+    return launches, phases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3255,7 +3558,10 @@ def main() -> int:
 
     card = card_line()
     dev = torch.device("cuda", torch.cuda.current_device())
-    t0 = time.perf_counter()
+    t0 = start = time.perf_counter()
+
+    def done(phase: str) -> None:  # where the run's time goes, phase by phase
+        log(f"-- {phase}: done at {time.perf_counter() - start:.1f} s")
     _build.library()
     build_s = time.perf_counter() - t0
     log(f"card: {card}")
@@ -3272,35 +3578,52 @@ def main() -> int:
     scan, scan_bwd = rglru_kernel_phases(dev)
     wkv = rwkv_kernel_phases(dev)
     ce, ce_grads = train_kernel_phases(dev)
+    wide = wide_kernel_phases(dev)
+    done("kernel phases")
     launches = main_path(mnist)
     waits = step_syncs(mnist)
     if waits:
         raise AssertionError(f"the FlyMC step waits for the card: {waits}")
+    done("main path")
     convergence_path()
+    done("convergence path")
     gradient_path()
     exactness(mnist)
     hmc_launches = hmc_path(mnist)
     plain_engines(mnist)
+    done("gradient, exactness, HMC, plain engines")
     del mnist
     torch.cuda.empty_cache()
     robust_launches, robust_err, theta_map = robust_path()
     torch.cuda.empty_cache()
+    done("robust path")
     service_launches, service_err, service_jobs, service_res = service_path()
     torch.cuda.empty_cache()
+    done("service path")
     restored_launches, chaos_err = checkpoint_path(service_jobs, service_res)
     torch.cuda.empty_cache()
+    done("checkpoint path")
     vmap_mix_launches, vmap_launches, vmap_err = vmap_service_path(
         service_jobs, service_res)
     del service_jobs, service_res
     torch.cuda.empty_cache()
+    done("vmap service path")
     dist_launches, dist_err = dist_path(theta_map)
     torch.cuda.empty_cache()
+    done("dist path")
 
     serve_exactness(dev)
     serve_launches = serve_path(dev)
     rwkv_serve_exactness(dev)
     rwkv_launches = rwkv_serve_path(dev)
     torch.cuda.empty_cache()
+    done("recurrentgemma and rwkv serving")
+    dense_launches, dense_attn = dense_serve_path(dev)
+    torch.cuda.empty_cache()
+    done("dense serving")
+    ll_launches, ll_err = lastlayer_path(dev)
+    torch.cuda.empty_cache()
+    done("lastlayer path")
 
     train_launches, model, _ = train_path(dev)
     step_breakdown(model, dev)
@@ -3310,6 +3633,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     resumed_launches = train_resume_path(dev, n_train)
     torch.cuda.empty_cache()
+    done("training")
 
     for p in bright + z + scan + scan_bwd:
         one_kernel_a_call(p, "bright_glm_kernel" if p in bright
@@ -3343,10 +3667,21 @@ def main() -> int:
          "plain_ms": main_b["plain_ms"],
          "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
          "library_ms": None, "phases": bright},
+        {"name": "bright_glm_wide", "route": "cuda",
+         "source": "src/repro_torch/csrc/bright_glm.cu",
+         "replaces": "src/repro/kernels/bright_glm/kernel.py:173",
+         "launches": ll_launches["bright_glm_wide"],
+         "max_abs_err": max([p["max_abs_err"] for p in wide] + [ll_err]),
+         "max_abs_err_lastlayer": ll_err,
+         "ms": wide[0]["ms"], "call_ms": wide[0]["call_ms"],
+         "queued_ms": wide[0]["queued_ms"], "plain_ms": wide[0]["plain_ms"],
+         "bound_ms": wide[0]["bound_ms"], "bound_by": wide[0]["bound_by"],
+         "library_ms": None, "phases": wide},
         {"name": "z_update", "route": "cuda",
          "source": "src/repro_torch/csrc/z_update.cu",
          "replaces": "src/repro/kernels/z_update/kernel.py:129",
          "launches": launches["z_update"],
+         "launches_lastlayer": ll_launches["z_update"],
          "launches_robust": robust_launches["z_update"],
          "launches_hmc": hmc_launches["z_update"],
          "launches_service": service_launches["z_update"],
@@ -3363,11 +3698,12 @@ def main() -> int:
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:115",
          "launches": serve_launches["decode_attention"],
-         "max_abs_err": max(p["max_abs_err"] for p in attn),
+         **{f"launches_{a}": v for a, v in dense_launches.items()},
+         "max_abs_err": max(p["max_abs_err"] for p in attn + dense_attn),
          "ms": attn[0]["ms"], "call_ms": attn[0]["call_ms"],
          "plain_ms": attn[0]["plain_ms"], "bound_ms": attn[0]["bound_ms"],
          "bound_by": attn[0]["bound_by"], "library_ms": attn[0]["library_ms"],
-         "phases": attn},
+         "phases": attn + dense_attn},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:61",

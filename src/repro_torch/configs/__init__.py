@@ -17,10 +17,10 @@ from repro_torch.models.config import ModelConfig, _MISSING, reduced
 # to its config module; the others to the reason they wait.
 _REGISTRY: dict[str, tuple[str | None, str | None]] = {
     "whisper-tiny": (None, _MISSING["encdec"]),
-    "qwen1.5-110b": (None, _MISSING["sp"]),
-    "stablelm-1.6b": (None, _MISSING["sp"]),
-    "qwen2-7b": (None, _MISSING["sp"]),
-    "llama3.2-3b": (None, _MISSING["sp"]),
+    "qwen1.5-110b": ("qwen1_5_110b", None),
+    "stablelm-1.6b": ("stablelm_1_6b", None),
+    "qwen2-7b": ("qwen2_7b", None),
+    "llama3.2-3b": ("llama3_2_3b", None),
     "mixtral-8x7b": (None, _MISSING["moe"]),
     "arctic-480b": (None, _MISSING["moe"]),
     "recurrentgemma-9b": ("recurrentgemma_9b", None),

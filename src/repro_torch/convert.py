@@ -142,7 +142,9 @@ def lm_params(params_np: dict, cfg: ModelConfig, device="cuda",
     port's :class:`~repro_torch.models.transformer.LM`. The reference's
     attention sublayer ``attn`` is the block's ``mix`` here; an RWKV block
     has ``ln1``, ``ln2`` and ``mix`` (with the channel mix's ``cm_*``) and
-    no ``ffn``."""
+    no ``ffn``. The dense decoders' leaves load by the same names: the
+    QKV biases ``bq``/``bk``/``bv`` (qwen), swiglu's third matrix ``w3``,
+    and each norm's ``scale`` (RMSNorm or layernorm alike)."""
     model = LM(cfg, device, dtype)
     _load(model.embed, params_np["embed"])
     _load(model.final_norm, params_np["final_norm"])

@@ -168,9 +168,29 @@ class LogisticBound:
 # ---------------------------------------------------------------------------
 
 
+def _a_mul_tree(v: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (v - tree_sum(v)[..., None] / v.shape[-1])
+
+
+class _AMul(torch.autograd.Function):
+    """A·v with the mean a ``tree_sum``; A is symmetric, so its VJP is A·g,
+    summed the same way. Autograd's own VJP of a mean sums the broadcast
+    cotangent with a library reduction whose order changes with the chain
+    count on the card (at 512 classes)."""
+
+    @staticmethod
+    def forward(ctx, v):
+        return _a_mul_tree(v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a_mul_tree(g)
+
+
 def _a_mul(v: torch.Tensor) -> torch.Tensor:
-    """Apply Böhning curvature A = ½(I - 𝟙𝟙ᵀ/K) along the last axis."""
-    return 0.5 * (v - v.mean(dim=-1, keepdim=True))
+    """Apply Böhning curvature A = ½(I - 𝟙𝟙ᵀ/K) along the last axis, in a
+    fixed summation order both ways (batch-invariant)."""
+    return _AMul.apply(v)
 
 
 def _softmax_log_lik_eta(eta, t):
@@ -224,11 +244,19 @@ class SoftmaxBound:
 
     @staticmethod
     def collapsed(theta, stats: CollapsedStats):
+        """-½ tr(AθSθᵀ) + tr(θR) + c per chain. (Aθ_k) @ S is one 2-D
+        ``torch.matmul`` a chain, on a fresh (Kc, D) operand and a shared
+        or fresh (D, D) S: its shape and alignment are the same whatever
+        K or the lane stack, so a chain's value and gradient are the same
+        bits batched or solo on a device. O(Kc·D + D²) a chain, where an
+        elementwise product would hold (Kc, D, D): 4.8 TB at an LM head."""
         s_mat, r_mat, c = stats  # shared, or each chain's (K, ...)
         a_theta = _a_mul(theta.transpose(-1, -2)).transpose(-1, -2)  # (K,Kc,D)
-        # (AθS)[k, j, e] = Σ_d (Aθ)[k, j, d] S[d, e]
-        s_t = s_mat.transpose(-1, -2).unsqueeze(-3)
-        a_theta_s = tree_sum(a_theta[..., None, :] * s_t, dim=-1)
+        own = s_mat.dim() == 3
+        a_theta_s = torch.stack([
+            torch.matmul(a_theta[k].clone(),
+                         s_mat[k].clone() if own else s_mat)
+            for k in range(theta.shape[0])])
         quad = flat_tree_sum(a_theta_s * theta)
         lin = flat_tree_sum(theta * r_mat.transpose(-1, -2))
         return -0.5 * quad + lin + c

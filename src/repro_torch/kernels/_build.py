@@ -103,6 +103,12 @@ def _declare(lib) -> None:
         i, i64, i64, i64, i64, p,  # L x_lane t_lane xi_lane idx_lane stream
     ]
     lib.bright_glm_launch.restype = i
+    lib.bright_glm_wide_launch.argtypes = [
+        p, p, p, p, i64, p, p, p, p, p,  # x t xi idx idx_stride nb θ δ part tot
+        p, p, p, i, i, i, i, i,  # stats arrivals tile_arrivals K C N D kt
+        i, i64, i64, i64, i64, p,  # L x_lane t_lane xi_lane idx_lane stream
+    ]
+    lib.bright_glm_wide_launch.restype = i
     lib.z_candidates_launch.argtypes = [
         p, i64, i64, p, p, p, p,  # arr arr_stride arr_lane num kw cand count
         p, p, i64,  # ctl status status_stride

@@ -8,13 +8,18 @@ raises); a CPU tensor goes to the plain version in :mod:`.ref`. Chains are
 the leading axis of ``idx``, ``n_bright`` and ``theta``; ``x``, ``t`` and
 ``xi`` are shared by every chain and never broadcast. A stack of L datasets
 with a leading lane axis (the sampling service's ``"vmap"`` lanes) goes
-with ``(L, K, ...)`` chain operands: one launch for every lane.
+with ``(L, K, ...)`` chain operands: one launch for every lane. A launch
+goes to one of two kernels of the same source: the register kernel where
+θ_k's classes × D fit it (at most 16 classes, 48 KiB), the wide kernel for
+a softmax past that (an LM head's vocabulary), which streams θ_k; the
+wrapper raises, naming the operand, for what neither takes.
 
 The gradient (MALA, HMC) is a ``torch.autograd.Function`` whose forward is the
 kernel and whose backward re-evaluates the rows with the plain version, as
 the reference's ``custom_vjp`` does; it is taken with respect to θ only.
-The row cotangents are summed into θ with ``tree_sum`` over the slot axis,
-so padded slots (exact zeros) leave the gradient bitwise unchanged.
+The row cotangents are summed into θ with ``tree_sum`` over the slot axis
+(past the register kernel, by blocked matmuls summed in block order), so
+padded slots (exact zeros) leave the gradient bitwise unchanged.
 """
 
 from __future__ import annotations
@@ -28,22 +33,49 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.bright_glm.ref import (
     BLOCK_ROWS,
     FAMILIES,
+    MAX_CLASSES,
+    SMEM_BYTES,
     bright_glm_ref,
     delta_of_scores,
     flat_chains,
+    register_path,
     row_scores,
+    wide_theta_grad,
 )
 
 _FAMILY_CODE = {"logistic": 0, "student_t": 1, "softmax": 2}
-_MAX_CLASSES = 16  # kMaxClasses in csrc/bright_glm.cu
-_SMEM_BYTES = 48 * 1024  # θ staged in static-limit shared memory
-_MAX_CHAINS = 65535  # the launch's grid y: one row of blocks a chain
+_MAX_CHAINS = 65535  # the launch's grid y (z on the wide path): a chain each
+# The wide softmax kernel (bright_glm_wide_kernel): rows a CTA, classes a
+# split (a CTA), statistics a row, and its grid's limit on splits.
+WIDE_ROWS, WIDE_SPLIT, _WIDE_STATS, _MAX_SPLITS = 64, 2048, 10, 65535
 
 launch_count = 0  # kernel launches through this wrapper (one per call)
+wide_launch_count = 0  # of which the wide softmax kernel's
 # Per-chain arrival counters of the kernel's in-launch total, one int32
 # workspace per (device, stream), zeroed once and left zeroed by every call
-# (csrc/bright_glm.cu). Calls on one stream run in order and share it.
+# (csrc/bright_glm.cu). Calls on one stream run in order and share it. The
+# wide kernel also counts each (chain, row tile)'s splits in
+# ``_tile_arrivals``, kept the same way.
 _arrivals: dict[tuple[int, int], torch.Tensor] = {}
+_tile_arrivals: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _takes(kt: int, d: int, softmax: bool) -> bool:
+    """Whether one of the two kernels takes θ's ``kt`` classes × D."""
+    if kt < 1:
+        return False
+    if register_path(kt, d):
+        return True
+    return softmax and -(-kt // WIDE_SPLIT) <= _MAX_SPLITS
+
+
+def _workspace(store, key, n, device):
+    """The zeroed int32 counters of ``store[key]``, grown to ``n``."""
+    ws = store.get(key)
+    if ws is None or ws.numel() < n:
+        ws = torch.zeros(n, dtype=torch.int32, device=device)
+        store[key] = ws
+    return ws
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -93,9 +125,10 @@ def _refuse(x, t, xi, idx, n_bright, theta, softmax):
     th_shape = lead + ((kt, d) if softmax else (d,))
     _require(theta.dtype == torch.float32 and theta.shape == th_shape
              and theta.is_contiguous(), f"theta must be contiguous {th_shape} f32")
-    _require(kt <= _MAX_CLASSES and kt * d * 4 <= _SMEM_BYTES,
-             f"theta's {kt} classes × D={d} exceed the kernel's {_MAX_CLASSES} "
-             "classes or its shared memory")
+    _require(_takes(kt, d, softmax),
+             f"theta's {kt} classes × D={d}: the register kernel takes 1 to "
+             f"{MAX_CLASSES} classes within {SMEM_BYTES} bytes, the wide "
+             f"(softmax) kernel 1 to {_MAX_SPLITS * WIDE_SPLIT} classes")
     _require(c > 0 and min(lead) > 0 and n > 0,
              f"empty buffer (chains {lead}, C={c}, N={n})")
     _require(math.prod(lead) <= _MAX_CHAINS,
@@ -105,7 +138,7 @@ def _refuse(x, t, xi, idx, n_bright, theta, softmax):
 
 
 def _launch(x, t, xi, idx, n_bright, theta, family, nu, sigma):
-    global launch_count
+    global launch_count, wide_launch_count
     # What the kernel reads, as one expression: device, dtype, shape,
     # stride and shared-memory size. Only if it fails does _refuse run the
     # checks one by one to name the operand.
@@ -128,7 +161,7 @@ def _launch(x, t, xi, idx, n_bright, theta, family, nu, sigma):
               and n_bright.is_contiguous()
               and theta.dtype == torch.float32 and theta.is_contiguous()
               and theta.shape == lead + ((kt, d) if softmax else (d,))
-              and kt <= _MAX_CLASSES and kt * d * 4 <= _SMEM_BYTES
+              and _takes(kt, d, softmax)
               and c > 0 and min(lead) > 0 and n > 0
               and math.prod(lead) <= _MAX_CHAINS)
     if not ok:
@@ -141,26 +174,36 @@ def _launch(x, t, xi, idx, n_bright, theta, family, nu, sigma):
                                if lanes else (0, 0, 0))
     idx_lane = idx.stride(0) if lanes else 0
     lk = L * k
+    wide = not register_path(kt, d)
     lib = _build.library()
     stream = _build.stream_ptr(x.device)
-    arrivals = _arrivals.get((di, stream))
-    if arrivals is None or arrivals.numel() < lk:
-        arrivals = torch.zeros(lk, dtype=torch.int32, device=x.device)
-        _arrivals[(di, stream)] = arrivals
-    # One allocation: δ (L·K, C), the totals (L·K,), then the block partials.
+    arrivals = _workspace(_arrivals, (di, stream), lk, x.device)
+    # One allocation: δ (L·K, C), the totals (L·K,), the block partials,
+    # then (wide kernel) the splits' statistics.
     nblk = -(-c // BLOCK_ROWS)
-    buf = torch.empty(lk * (c + 1 + nblk), dtype=torch.float32,
+    tiles = -(-c // WIDE_ROWS)
+    n_stats = (lk * tiles * -(-kt // WIDE_SPLIT) * _WIDE_STATS * WIDE_ROWS
+               if wide else 0)
+    buf = torch.empty(lk * (c + 1 + nblk) + n_stats, dtype=torch.float32,
                       device=x.device)
     delta = buf.as_strided(lead + (c,), (k * c, c, 1)[-len(lead) - 1:])
     total = buf.as_strided(lead, (k, 1)[-len(lead):], lk * c)
     ptr = buf.data_ptr()
-    code = lib.bright_glm_launch(
-        x.data_ptr(), t.data_ptr(), xi.data_ptr(), idx.data_ptr(),
-        idx.stride(-2), n_bright.data_ptr(), theta.data_ptr(), ptr,
-        ptr + 4 * lk * (c + 1), ptr + 4 * lk * c, arrivals.data_ptr(), k, c,
-        n, d, kt, _FAMILY_CODE[family], nu, sigma, (nu + 1.0) / 2.0, L,
-        x_lane, t_lane, xi_lane, idx_lane, stream,
-    )
+    head = (x.data_ptr(), t.data_ptr(), xi.data_ptr(), idx.data_ptr(),
+            idx.stride(-2), n_bright.data_ptr(), theta.data_ptr(), ptr,
+            ptr + 4 * lk * (c + 1), ptr + 4 * lk * c)
+    lanes_args = (L, x_lane, t_lane, xi_lane, idx_lane, stream)
+    if wide:
+        tile_arrivals = _workspace(_tile_arrivals, (di, stream), lk * tiles,
+                                   x.device)
+        code = lib.bright_glm_wide_launch(
+            *head, ptr + 4 * lk * (c + 1 + nblk), arrivals.data_ptr(),
+            tile_arrivals.data_ptr(), k, c, n, d, kt, *lanes_args)
+        wide_launch_count += 1
+    else:
+        code = lib.bright_glm_launch(
+            *head, arrivals.data_ptr(), k, c, n, d, kt, _FAMILY_CODE[family],
+            nu, sigma, (nu + 1.0) / 2.0, *lanes_args)
     launch_count += 1
     _build.check(code, "bright_glm")
     return delta, total
@@ -207,11 +250,15 @@ class _BrightGLM(torch.autograd.Function):
                 grads.append(torch.where(valid, g_total.reshape(-1, 1),
                                          torch.zeros_like(delta)))
             (g_scores,) = torch.autograd.grad(outs, (scores,), grads)
-        if family == "softmax":  # (K, C, Kc) ⊗ (K, C, D) → (K, Kc, D)
-            prod = g_scores[:, :, :, None] * rows[:, :, None, :]
-        else:  # (K, C) ⊗ (K, C, D) → (K, D)
-            prod = g_scores[:, :, None] * rows
-        g_theta = tree_sum(prod, dim=1).reshape(theta.shape)
+        if family != "softmax":  # (K, C) ⊗ (K, C, D) → (K, D)
+            g_theta = tree_sum(g_scores[:, :, None] * rows, dim=1)
+        elif register_path(g_scores.shape[-1], rows.shape[-1]):
+            # (K, C, Kc) ⊗ (K, C, D) → (K, Kc, D)
+            g_theta = tree_sum(g_scores[:, :, :, None] * rows[:, :, None, :],
+                               dim=1)
+        else:
+            g_theta = wide_theta_grad(g_scores, rows)
+        g_theta = g_theta.reshape(theta.shape)
         return g_theta, None, None, None, None, None, None, None, None
 
 

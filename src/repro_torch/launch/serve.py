@@ -10,6 +10,8 @@ caller passes ``device="cpu"``.
 Usage (on a machine with an NVIDIA GPU):
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llama3.2-3b --full --batch 4 --prompt-len 512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-9b --full --batch 4 --prompt-len 2304 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch rwkv6-7b --full --batch 4 --prompt-len 2048 --gen 32
@@ -18,6 +20,7 @@ Usage (on a machine with an NVIDIA GPU):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -39,15 +42,17 @@ def _clock(dev: torch.device) -> float:
 @torch.inference_mode()
 def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
           seed: int = 0, full: bool = False, dtype=torch.bfloat16,
-          device="cuda"):
+          device="cuda", n_layers: int | None = None):
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens and decode
     ``gen`` tokens greedily (the first from the prefill's last hidden
     state, then ``gen - 1`` decode steps). Weights, activations and the KV
-    cache are ``dtype``. Returns (generated ids (batch, gen) int64 on the
-    host, {prefill_s, decode_s, tok_per_s}) with times from host clocks
-    around ``torch.cuda.synchronize()``."""
+    cache are ``dtype``; ``n_layers`` cuts the depth. Returns (generated
+    ids (batch, gen) int64 on the host, {prefill_s, decode_s, tok_per_s})
+    with times from host clocks around ``torch.cuda.synchronize()``."""
     dev = resolve_device(device)
     cfg = get_config(arch) if full else get_reduced(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = T.init_model(cfg, seed, dev, dtype)
     seq_cap = prompt_len + gen
     gen_tok = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -76,7 +81,12 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="recurrentgemma-9b")
+    ap.add_argument("--arch", default="llama3.2-3b",
+                    help="llama3.2-3b, qwen2-7b, stablelm-1.6b, qwen1.5-110b, "
+                         "recurrentgemma-9b or rwkv6-7b")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth (qwen1.5-110b's 80 layers do not fit "
+                         "one card)")
     ap.add_argument("--full", action="store_true",
                     help="published width (default: the reduced twin)")
     ap.add_argument("--batch", type=int, default=4)
@@ -87,7 +97,8 @@ def main():
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     ids, stats = serve(args.arch, args.batch, args.prompt_len, args.gen,
-                       args.seed, args.full, _DTYPES[args.dtype], args.device)
+                       args.seed, args.full, _DTYPES[args.dtype], args.device,
+                       args.n_layers)
     print(f"generated shape {tuple(ids.shape)}")
     print(f"prefill {stats['prefill_s']:.3f}s decode {stats['decode_s']:.3f}s "
           f"({stats['tok_per_s']:.1f} tok/s)")

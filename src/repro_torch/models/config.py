@@ -7,9 +7,12 @@ describes every architecture the reference supports; :func:`check_supported`
 says which of them the port can build so far.
 
 Parallelism modes (kept for parity with the reference's configs):
-  * ``sp`` — sequence-parallel residual stream (attention-dominant archs).
+  * ``sp`` — sequence-parallel residual stream (attention-dominant archs:
+    the dense decoders).
   * ``tp`` — replicated-seq residual stream with head/feature-sharded mixers
-    (recurrence archs). On one device every collective is the identity.
+    (recurrence archs). On one device every collective is the identity, so
+    both modes run the same math; they differ in their layers' weights
+    (QKV biases, swiglu) and, in the reference, their sharding.
 """
 
 from __future__ import annotations
@@ -119,8 +122,6 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 
 # What the port lacks, by the ROADMAP item (queue 1) that adds it.
 _MISSING = {
-    "sp": "sequence-parallel attention configs (ROADMAP queue 1 item 9a: "
-          "dense/SP attention on the decode kernel)",
     "moe": "MoE blocks (ROADMAP queue 1 item 9e: MoE, encdec and VLM)",
     "encdec": "encoder-decoder models (ROADMAP queue 1 item 9e: MoE, encdec "
               "and VLM)",
@@ -128,6 +129,9 @@ _MISSING = {
     "remat": "remat through torch.utils.checkpoint (ROADMAP queue 1 item 9c)",
     "rwkv_train": "rwkv6 training on the card: a WKV6 backward (ROADMAP "
                   "queue 1 item 9b)",
+    "dense_train": "dense (SP-mode) training: ce_loss_sp, the swiglu and "
+                   "QKV-bias backward, bf16 AdamW moments (ROADMAP queue 1 "
+                   "item 9g)",
 }
 
 
@@ -139,12 +143,13 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: {_MISSING[cfg.family]}")
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: {_MISSING['moe']}")
-    # RWKV blocks have no MLP (their channel mix takes its place), so the
-    # gelu-only MLP check applies only to the kinds that have one.
-    has_mlp = bool(set(cfg.block_pattern) & {"attn", "rglru"})
-    if (cfg.parallel_mode != "tp" or cfg.norm != "rmsnorm"
-            or (has_mlp and cfg.mlp != "gelu")):
-        raise NotImplementedError(f"{cfg.name}: {_MISSING['sp']}")
+    if cfg.parallel_mode not in ("sp", "tp"):
+        raise NotImplementedError(f"{cfg.name}: parallel mode "
+                                  f"{cfg.parallel_mode!r}")
+    if cfg.norm not in ("rmsnorm", "layernorm") or cfg.mlp not in (
+            "gelu", "swiglu"):
+        raise NotImplementedError(f"{cfg.name}: norm {cfg.norm!r}, mlp "
+                                  f"{cfg.mlp!r}")
     unknown = set(cfg.block_pattern) - {"attn", "rglru", "rwkv"}
     if unknown:
         raise NotImplementedError(f"{cfg.name}: block kinds {sorted(unknown)}")
@@ -155,10 +160,13 @@ def check_supported(cfg: ModelConfig) -> None:
 def check_trainable(cfg: ModelConfig, device) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for a config
     the port cannot train on ``device`` (a ``torch.device`` or its name):
-    on the card every block kind needs a kernel with a backward, which
-    ``attn`` and ``rglru`` have and ``rwkv`` has not yet; on the CPU every
-    kind differentiates through its plain version."""
+    the dense (SP-mode) family on neither device; on the card every block
+    kind needs a kernel with a backward, which ``attn`` and ``rglru`` have
+    and ``rwkv`` has not yet; on the CPU every TP-mode kind differentiates
+    through its plain version."""
     check_supported(cfg)
+    if cfg.parallel_mode == "sp":
+        raise NotImplementedError(f"{cfg.name}: {_MISSING['dense_train']}")
     kind = getattr(device, "type", str(device).split(":")[0])
     if kind == "cuda" and "rwkv" in cfg.block_pattern:
         raise NotImplementedError(f"{cfg.name}: {_MISSING['rwkv_train']}")

@@ -1,13 +1,16 @@
 """Model layers of the LM serving and training paths, single device.
 
-The port's counterpart of :mod:`repro.models.layers`, with only what the
-recurrentgemma and rwkv6 paths run: norms, RoPE, the chunked
-(online-softmax) prefill attention, the head-parallel ("TP mode") attention
-and MLP, the RG-LRU mixer, the RWKV6 time and channel mixes and the
-embedding. Each function keeps the reference's name; ``w`` is the layer's
-:class:`~repro_torch.models.params.Params` module where the reference takes
-a weight dict. On one device every gather and psum of the reference is the
-identity and is left out.
+The port's counterpart of :mod:`repro.models.layers`, with what the
+recurrentgemma, rwkv6 and dense decoder (llama3.2, qwen2, stablelm,
+qwen1.5) paths run: norms (RMSNorm and the bias-free layernorm), RoPE, the
+chunked (online-softmax) prefill attention, one attention sublayer (with
+its optional QKV bias) and one MLP (gelu or swiglu) for both the
+sequence-parallel ("SP mode") and head-parallel ("TP mode") stacks, the
+RG-LRU mixer, the RWKV6 time and channel mixes and the embedding. Each function keeps the reference's name;
+``w`` is the layer's :class:`~repro_torch.models.params.Params` module
+where the reference takes a weight dict. On one device every gather, psum
+and reduce-scatter of the reference is the identity and is left out, so SP
+attention is the plain computation over the whole sequence.
 
 Weights are cast to the compute ``dtype`` where the reference's
 ``gather_param`` casts them (a no-op when the model is stored in ``dtype``).
@@ -84,11 +87,18 @@ def norm_defs(d: int) -> dict[str, WDef]:
     return {"scale": WDef((d,), init="ones")}
 
 
-def apply_norm(x, w: Params, dtype):
-    """RMSNorm in float32 (the only norm of the archs the port runs; the
-    reference's bias-free layernorm branch waits with the SP configs)."""
+def apply_norm(x, w: Params, dtype, kind: str = "rmsnorm"):
+    """RMSNorm, or the bias-free layernorm (``kind="layernorm"``:
+    stablelm), in float32, times the scale cast to ``dtype``."""
     xf = x.float()
-    xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
+    if kind == "rmsnorm":
+        xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
+    elif kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = torch.square(xf - mu).mean(-1, keepdim=True)
+        xf = (xf - mu) * torch.rsqrt(var + 1e-6)
+    else:
+        raise ValueError(f"unknown norm {kind!r}")
     return (xf * w.scale.to(dtype).float()).to(dtype)
 
 
@@ -167,49 +177,91 @@ def chunked_attention(q, k, v, q_pos, k_pos, causal: bool = True,
 
 
 # ---------------------------------------------------------------------------
-# Attention sublayer — TP mode (recurrentgemma local attention)
+# Attention sublayer — SP mode (the dense decoders) and TP mode
+# (recurrentgemma local attention): one body on one device
 # ---------------------------------------------------------------------------
 
 
-def attn_tp_defs(cfg: ModelConfig) -> dict[str, WDef]:
+def attn_defs(cfg: ModelConfig) -> dict[str, WDef]:
+    """Q, K, V and output projections, and with ``cfg.qkv_bias`` (qwen)
+    zero-initialised Q, K and V biases."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    return {"wq": WDef((d, qd)), "wk": WDef((d, kvd)), "wv": WDef((d, kvd)),
+    defs = {"wq": WDef((d, qd)), "wk": WDef((d, kvd)), "wv": WDef((d, kvd)),
             "wo": WDef((qd, d))}
+    if cfg.qkv_bias:
+        defs.update(bq=WDef((qd,), init="zeros"), bk=WDef((kvd,), init="zeros"),
+                    bv=WDef((kvd,), init="zeros"))
+    return defs
+
+
+def qkv_proj(x, w: Params, name: str):
+    """``x @ w{name}`` (+ ``b{name}`` where the layer has biases), both in
+    x's dtype, as the reference's ``proj``."""
+    dtype = x.dtype
+    y = x @ getattr(w, "w" + name).to(dtype)
+    if "b" + name in w.defs:
+        y = y + getattr(w, "b" + name).to(dtype)
+    return y
 
 
 def attn_tp(x, w: Params, cfg: ModelConfig, *, causal: bool = True,
-            window: int | None = None, return_kv: bool = False):
-    """Head-parallel attention (on one device: all heads). x: (B, S, d).
-    With ``return_kv`` also returns the roped (k, v) for the decode cache."""
+            window: int | None = None, chunk: int = 1024,
+            return_kv: bool = False):
+    """All heads over the whole sequence (on one device the reference's
+    head split, or its K/V gather in SP mode, is the identity): GQA, the
+    QKV bias where the layer has one, RoPE at absolute positions, KV chunks
+    of ``chunk`` (the reference's TP mode takes 1,024, its SP mode 512).
+    x: (B, S, d). With ``return_kv`` also returns the roped (k, v) for the
+    decode cache."""
     dtype = x.dtype
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ w.wq.to(dtype)).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ w.wk.to(dtype)).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ w.wv.to(dtype)).reshape(b, s, cfg.n_kv_heads, hd)
+    q = qkv_proj(x, w, "q").reshape(b, s, cfg.n_heads, hd)
+    k = qkv_proj(x, w, "k").reshape(b, s, cfg.n_kv_heads, hd)
+    v = qkv_proj(x, w, "v").reshape(b, s, cfg.n_kv_heads, hd)
     pos = torch.arange(s, dtype=torch.int32, device=x.device)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
-    out = chunked_attention(q, k, v, pos, pos, causal=causal, window=window)
+    out = chunked_attention(q, k, v, pos, pos, causal=causal, window=window,
+                            chunk=chunk)
     y = out.reshape(b, s, cfg.q_dim) @ w.wo.to(dtype)
     if return_kv:
         return y, (k, v)
     return y
 
 
+attn_sp = functools.partial(attn_tp, chunk=512)  # the reference's SP name
+
+
 # ---------------------------------------------------------------------------
-# MLP — TP variant, gelu branch (the swiglu branch waits with the SP configs)
+# MLP — gelu or swiglu, either mode
 # ---------------------------------------------------------------------------
 
 
 def mlp_defs(cfg: ModelConfig) -> dict[str, WDef]:
     d, ff = cfg.d_model, cfg.d_ff
-    return {"w1": WDef((d, ff)), "w2": WDef((ff, d))}
+    defs = {"w1": WDef((d, ff)), "w2": WDef((ff, d))}
+    if cfg.mlp == "swiglu":
+        defs["w3"] = WDef((d, ff))
+    return defs
 
 
-def mlp_tp(x, w: Params):
+def mlp_tp(x, w: Params, kind: str = "gelu"):
+    """gelu(x·w1)·w2, or silu(x·w1)·(x·w3)·w2 (swiglu), in x's dtype: the
+    MLP of either mode on one device (TP's psum, and SP's all-gather and
+    reduce-scatter, are identities; SP's sequence chunks only bound the
+    reference's transients, as rows are independent)."""
     dtype = x.dtype
-    return _gelu(x @ w.w1.to(dtype)) @ w.w2.to(dtype)
+    h = x @ w.w1.to(dtype)
+    if kind == "swiglu":
+        h = F.silu(h) * (x @ w.w3.to(dtype))
+    else:
+        h = _gelu(h)
+    return h @ w.w2.to(dtype)
+
+
+def mlp_sp(x, w: Params, cfg: ModelConfig):  # the reference's SP name
+    return mlp_tp(x, w, cfg.mlp)
 
 
 # ---------------------------------------------------------------------------
@@ -391,11 +443,11 @@ def rwkv_block_chunked(x, blk, cfg: ModelConfig, capture: bool = False):
     ys = []
     for t0 in range(0, s, chunk):
         xc = x[:, t0:t0 + chunk]
-        m, state, sh_tm = rwkv_mix(apply_norm(xc, blk.ln1, dtype), blk.mix,
-                                   cfg, state, sh_tm)
+        m, state, sh_tm = rwkv_mix(apply_norm(xc, blk.ln1, dtype, cfg.norm),
+                                   blk.mix, cfg, state, sh_tm)
         xc = xc + m
-        cm, sh_cm = rwkv_channel_mix(apply_norm(xc, blk.ln2, dtype), blk.mix,
-                                     sh_cm)
+        cm, sh_cm = rwkv_channel_mix(apply_norm(xc, blk.ln2, dtype, cfg.norm),
+                                     blk.mix, sh_cm)
         ys.append(xc + cm)
     y = torch.cat(ys, dim=1)
     if capture:
@@ -415,7 +467,9 @@ def embed_defs(cfg: ModelConfig) -> dict[str, WDef]:
 
 def embed_tokens(ids, w: Params, dtype):
     """ids: (B, S) → (B, S, d). Rows are gathered, then cast (the reference
-    casts the table first; the values are the same)."""
+    casts the table first; the values are the same). One lookup for both
+    modes: on one device the reference's vocab-parallel psum (TP) and
+    reduce-scatter into sequence parallelism (SP) are identities."""
     return w.table[ids].to(dtype)
 
 

@@ -1,10 +1,13 @@
 """Serving: prefill + single-token greedy decode, single device.
 
 The port's counterpart of :mod:`repro.models.serving` for the TP-mode
-block kinds (recurrentgemma's and rwkv6's):
+block kinds (recurrentgemma's and rwkv6's) and the dense decoders' SP-mode
+attention:
 
-  * Attention layers keep a ring KV cache of capacity W (the local window,
-    or the whole context if shorter). A ``pos`` buffer holds the absolute
+  * Attention layers keep a ring KV cache of capacity W (the local or
+    sliding window, or the whole context: a dense decoder's full causal
+    ring). On one device the reference's sequence-sharded ring and its
+    cross-shard softmax merge are the whole ring. A ``pos`` buffer holds the absolute
     position of each slot (-1 = empty): slot s holds position p ≡ s (mod W),
     so causal/window masking works under wraparound. Decode attends through
     :mod:`repro_torch.kernels.decode_attention` (a CUDA kernel on the card).
@@ -107,13 +110,14 @@ def _decode_attend(q, kbuf, vbuf, pos_buf, t: int, window):
 
 def _attn_decode(x, w, cache, cfg: ModelConfig, t: int, seq_len: int,
                  window):
-    """x: (B, 1, d). Returns y (B, 1, d); updates the ring in place."""
+    """x: (B, 1, d). GQA (Hk = ``cfg.n_kv_heads``) with the QKV bias where
+    the layer has one. Returns y (B, 1, d); updates the ring in place."""
     dtype = x.dtype
     b = x.shape[0]
     hd = cfg.resolved_head_dim
-    q = (x @ w.wq.to(dtype)).reshape(b, 1, cfg.n_heads, hd)
-    k = (x @ w.wk.to(dtype)).reshape(b, 1, cfg.n_kv_heads, hd)
-    v = (x @ w.wv.to(dtype)).reshape(b, 1, cfg.n_kv_heads, hd)
+    q = L.qkv_proj(x, w, "q").reshape(b, 1, cfg.n_heads, hd)
+    k = L.qkv_proj(x, w, "k").reshape(b, 1, cfg.n_kv_heads, hd)
+    v = L.qkv_proj(x, w, "v").reshape(b, 1, cfg.n_kv_heads, hd)
     pos = torch.full((1,), t, dtype=torch.int32, device=x.device)
     q = L.rope(q, pos, cfg.rope_theta)
     k = L.rope(k, pos, cfg.rope_theta)
@@ -190,10 +194,10 @@ def _rwkv_cm_decode(x, w, cache):
 
 def _decode_block(x, blk, cache, cfg: ModelConfig, t: int, seq_len: int):
     dtype = x.dtype
-    h = L.apply_norm(x, blk.ln1, dtype)
+    h = L.apply_norm(x, blk.ln1, dtype, cfg.norm)
     if blk.kind == "rwkv":
         x = x + _rwkv_decode(h, blk.mix, cache, cfg)
-        h = L.apply_norm(x, blk.ln2, dtype)
+        h = L.apply_norm(x, blk.ln2, dtype, cfg.norm)
         return x + _rwkv_cm_decode(h, blk.mix, cache)
     if blk.kind == "attn":
         win = cfg.swa_window or cfg.local_attn_window
@@ -203,8 +207,8 @@ def _decode_block(x, blk, cache, cfg: ModelConfig, t: int, seq_len: int):
     else:
         raise ValueError(blk.kind)
     x = x + a
-    h = L.apply_norm(x, blk.ln2, dtype)
-    return x + L.mlp_tp(h, blk.ffn)
+    h = L.apply_norm(x, blk.ln2, dtype, cfg.norm)
+    return x + L.mlp_tp(h, blk.ffn, cfg.mlp)  # one token: the MLP of either mode
 
 
 def vocab_parallel_argmax(logits):
@@ -223,7 +227,7 @@ def decode_step(model: T.LM, cache: dict, token, seq_len: int,
     x = L.embed_tokens(token, model.embed, dtype)
     for blk, c in zip(model.blocks, cache["layers"]):
         x = _decode_block(x, blk, c, cfg, t, seq_len)
-    x = L.apply_norm(x, model.final_norm, dtype)
+    x = L.apply_norm(x, model.final_norm, dtype, cfg.norm)
     logits = (x @ model.embed.head.to(dtype)).float()
     cache["t"] = t + 1
     return vocab_parallel_argmax(logits), logits, cache

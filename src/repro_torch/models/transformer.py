@@ -1,8 +1,9 @@
 """Transformer assembly for the LM paths: modules, init, forward, and the
 training step (loss, global gradient norm, clip, AdamW).
 
-The port's counterpart of :mod:`repro.models.transformer` for TP-mode
-(recurrence) archs on one device: recurrentgemma and rwkv6. A model is an
+The port's counterpart of :mod:`repro.models.transformer` on one device
+for the TP-mode (recurrence) archs, recurrentgemma and rwkv6, and the
+SP-mode dense decoders, llama3.2, qwen2, stablelm and qwen1.5. A model is an
 :class:`LM` module: the embedding (table and untied head), one
 :class:`Block` per layer in layer order, and the final norm. The reference
 stacks each pattern slot's weights over layer groups and scans over the
@@ -33,14 +34,14 @@ from repro_torch.optim import AdamWState, adamw_init, adamw_update, warmup_cosin
 
 def _slot_defs(cfg: ModelConfig, kind: str) -> dict[str, dict]:
     """Weight declarations of one block, by sublayer (the reference's
-    ``_slot_defs`` for the ``attn``-in-TP-mode, ``rglru`` and ``rwkv``
+    ``_slot_defs`` for the ``attn`` (SP or TP mode), ``rglru`` and ``rwkv``
     kinds). An RWKV block has no ``ffn``: its channel mix is in ``mix``."""
     d = cfg.d_model
     if kind == "rwkv":
         return {"ln1": L.norm_defs(d), "ln2": L.norm_defs(d),
                 "mix": L.rwkv_defs(cfg)}
     if kind == "attn":
-        mix = L.attn_tp_defs(cfg)
+        mix = L.attn_defs(cfg)
     elif kind == "rglru":
         mix = L.rglru_defs(cfg)
     else:
@@ -62,8 +63,8 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """A decoder-only LM of TP-mode blocks (recurrentgemma's and rwkv6's
-    kinds)."""
+    """A decoder-only LM: TP-mode blocks (recurrentgemma's and rwkv6's
+    kinds) or SP-mode dense attention blocks."""
 
     def __init__(self, cfg: ModelConfig, device="cuda",
                  dtype=torch.float32):
@@ -102,9 +103,11 @@ def _block_fwd(x, blk: Block, cfg: ModelConfig, capture: bool = False):
         return L.rwkv_block_chunked(x, blk, cfg, capture=capture)
     dtype = x.dtype
     cache = {}
-    h = L.apply_norm(x, blk.ln1, dtype)
+    h = L.apply_norm(x, blk.ln1, dtype, cfg.norm)
     if blk.kind == "attn":
-        a = L.attn_tp(h, blk.mix, cfg, window=cfg.local_attn_window,
+        a = L.attn_tp(h, blk.mix, cfg,
+                      window=cfg.swa_window or cfg.local_attn_window,
+                      chunk=512 if cfg.parallel_mode == "sp" else 1024,
                       return_kv=capture)
         if capture:
             a, cache["kv_full"] = a
@@ -115,8 +118,8 @@ def _block_fwd(x, blk: Block, cfg: ModelConfig, capture: bool = False):
     else:
         raise ValueError(blk.kind)
     x = x + a
-    h = L.apply_norm(x, blk.ln2, dtype)
-    return x + L.mlp_tp(h, blk.ffn), cache
+    h = L.apply_norm(x, blk.ln2, dtype, cfg.norm)
+    return x + L.mlp_tp(h, blk.ffn, cfg.mlp), cache
 
 
 def forward_hidden(model: LM, tokens, dtype=torch.bfloat16,
@@ -129,7 +132,7 @@ def forward_hidden(model: LM, tokens, dtype=torch.bfloat16,
     for blk in model.blocks:
         x, cap = _block_fwd(x, blk, cfg, capture=capture)
         captured.append(cap)
-    x = L.apply_norm(x, model.final_norm, dtype)
+    x = L.apply_norm(x, model.final_norm, dtype, cfg.norm)
     if capture:
         return x, captured
     return x

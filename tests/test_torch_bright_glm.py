@@ -142,7 +142,7 @@ def test_kernel_path_refuses_bad_operands_before_launch(fault):
     """The card path's checks, run on CPU tensors (which pass its device
     checks), refuse each bad operand with a ValueError before the library is
     built or the arrival workspace is touched, naming the operand."""
-    family = "softmax" if fault in ("classes", "shared_memory") else "logistic"
+    family = "softmax" if fault == "classes" else "logistic"
     x, t, xi, idx, nb, theta = _torch(*_inputs(family, 2, 24))
     if fault == "x_dtype":
         x = x.double()
@@ -166,12 +166,12 @@ def test_kernel_path_refuses_bad_operands_before_launch(fault):
         theta = theta[:, :-1].contiguous()
     elif fault == "theta_strided":
         theta = theta.t().contiguous().t()
-    elif fault == "classes":  # 17 classes > the kernel's 16
-        xi = torch.zeros(N, 17)
-        theta = torch.zeros(2, 17, D)
-    elif fault == "shared_memory":  # Kt·D floats > 48 KiB
-        x = torch.zeros(N, 4097)
-        theta = torch.zeros(2, KC, 4097)
+    elif fault == "classes":  # a softmax of no class: neither kernel's
+        xi = torch.zeros(N, 0)
+        theta = torch.zeros(2, 0, D)
+    elif fault == "shared_memory":  # Kt·D floats > 48 KiB, not a softmax
+        x = torch.zeros(N, 12289)
+        theta = torch.zeros(2, 12289)
     elif fault == "empty":
         idx, nb, theta = idx[:0], nb[:0], theta[:0]
     before = dict(tops._arrivals)

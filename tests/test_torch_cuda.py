@@ -683,6 +683,28 @@ def test_rglru_scan_bwd_kernel_matches_plain_bitwise(dev, b, s, c, with_h0,
     assert d_la is None and d_h0 is None and torch.equal(d_bx, want[1])
 
 
+def _in_own_process(call: str):
+    """``call`` (an expression over this module's names, returning JSON
+    data) evaluated in a fresh Python process, and its result. Profiler
+    traces that must not follow earlier traces of this process run so."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    path = os.pathsep.join([str(here.parent / "src"), str(here)]
+                           + [os.environ.get("PYTHONPATH", "")])
+    code = ("import json, test_torch_cuda as t\n"
+            f"print(json.dumps(t.{call}))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=path))
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def _rglru_kernels_a_call(direction):
     """The device kernels of each of 10 traced rglru wrapper calls (see
     :func:`_device_kernels`), the calls made and the launches counted."""
@@ -711,22 +733,8 @@ def test_rglru_scan_one_kernel_per_call(dev, direction):
     same process one test later. The trace, not the kernel, is what the
     earlier tests disturb, so this test does not share their process.
     """
-    import json
-    import os
-    import subprocess
-    import sys
-    from pathlib import Path
-
-    here = Path(__file__).resolve().parent
-    path = os.pathsep.join([str(here.parent / "src"), str(here)]
-                           + [os.environ.get("PYTHONPATH", "")])
-    code = ("import json, test_torch_cuda as t\n"
-            f"print(json.dumps(t._rglru_kernels_a_call({direction!r})))\n")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=600,
-                         env=dict(os.environ, PYTHONPATH=path))
-    assert out.returncode == 0, out.stderr[-4000:]
-    calls, made, launched = json.loads(out.stdout.strip().splitlines()[-1])
+    calls, made, launched = _in_own_process(
+        f"_rglru_kernels_a_call({direction!r})")
     name = ("rglru_scan_kernel" if direction == "forward"
             else "rglru_scan_bwd_kernel")
     assert launched == made
@@ -1184,3 +1192,195 @@ def test_dist_step_on_card_waits_only_in_its_collectives(dev):
             got["sites"]
         assert sum(got["sites"].values()) <= 12
         np.testing.assert_array_equal(got["theta"], out[0]["theta"])
+
+
+# ---------------------------------------------------------------------------
+# The wide softmax path (an LM head), the collapsed term and the dense
+# decoders on the card
+# ---------------------------------------------------------------------------
+
+
+def _wide_inputs(n, d, kc, k, c, dev, seed=0):
+    """Softmax operands past the register kernel: θ at 0.3/√D, ξ the logits
+    of a nearby θ (MAP-tuned-like), padding sentinels at the end."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, d, generator=g)
+    t = torch.randint(0, kc, (n,), generator=g)
+    theta = 0.3 * torch.randn(k, kc, d, generator=g) / d**0.5
+    xi = x @ (theta[0] + 0.05 * torch.randn(kc, d, generator=g) / d**0.5).t()
+    idx = torch.stack([torch.randperm(n, generator=g)[:c]
+                       for _ in range(k)]).to(torch.int32)
+    idx[:, -3:] = n
+    nb = torch.randint(0, c, (k,), generator=g)
+    return [a.to(dev) for a in (x, t, xi, idx, nb, theta)]
+
+
+# δ: max|Δ| ≤ 1e-4 + 1e-5·|δ| against the plain version (classes summed in
+# another order); the total against the plain sum of the kernel's own δ at
+# rtol 1e-5 (log(expm1 δ) amplifies δ's rounding near 0).
+_WIDE_DELTA = dict(rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,d,kc,c", [
+    (300, 7, 17, 40), (200, 128, 512, 24), (600, 70, 5000, 100),
+    (90, 4100, 3, 9),
+])
+def test_bright_glm_wide_kernel_matches_plain(dev, n, d, kc, c):
+    """Past 16 classes (or 48 KiB of Θ_k) the softmax goes to the wide
+    kernel, one launch a call; the register kernel is not used."""
+    from repro_torch.kernels.bright_glm.ref import total_of_delta
+
+    x, t, xi, idx, nb, theta = _wide_inputs(n, d, kc, 2, c, dev)
+    assert not bops.register_path(kc, d)
+    before, wide = bops.launch_count, bops.wide_launch_count
+    delta, total = bops.bright_glm(x, t, xi, idx, nb, theta, family="softmax")
+    torch.cuda.synchronize()
+    assert bops.launch_count - before == 1
+    assert bops.wide_launch_count - wide == 1
+    d_ref, _ = bright_glm_ref(x, t, xi, idx, nb, theta, family="softmax")
+    torch.testing.assert_close(delta, d_ref, **_WIDE_DELTA)
+    torch.testing.assert_close(total, total_of_delta(delta, nb), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_bright_glm_wide_kernel_is_capacity_and_batch_invariant(dev):
+    """A row's δ and a chain's total do not depend on the buffer capacity
+    (more padding past n_bright), on the chain count or on a lane stack:
+    bitwise."""
+    x, t, xi, idx, nb, theta = _wide_inputs(500, 64, 3000, 3, 200, dev,
+                                            seed=1)
+    nb = torch.tensor([150, 37, 0], device=dev)
+    d_all, t_all = bops.bright_glm(x, t, xi, idx, nb, theta,
+                                   family="softmax")
+    d_cap, t_cap = bops.bright_glm(x, t, xi, idx[:, :160], nb, theta,
+                                   family="softmax")
+    assert torch.equal(d_cap, d_all[:, :160]) and torch.equal(t_cap, t_all)
+    for k in range(3):
+        d1, t1 = bops.bright_glm(x, t, xi, idx[k:k + 1], nb[k:k + 1],
+                                 theta[k:k + 1], family="softmax")
+        assert torch.equal(d1[0], d_all[k]) and torch.equal(t1[0], t_all[k])
+    xl, tl, xil = (torch.stack([a, a]) for a in (x, t, xi))
+    d_l, t_l = bops.bright_glm(xl, tl, xil, torch.stack([idx, idx]),
+                               torch.stack([nb, nb]),
+                               torch.stack([theta, theta]), family="softmax")
+    assert torch.equal(d_l[1], d_all) and torch.equal(t_l[1], t_all)
+
+
+def test_bright_glm_wide_many_tiles_repeated_is_bitwise_stable(dev):
+    """32 row tiles × 3 splits a chain, K = 2, 300 calls: the tickets of
+    both levels never let a total or a δ differ from the first call's, and
+    the tile counters come back clean (a later call at another shape is
+    still exact)."""
+    x, t, xi, idx, nb, theta = _wide_inputs(3000, 48, 4500, 2, 2048, dev,
+                                            seed=2)
+    nb = torch.tensor([2048, 999], device=dev)
+    d0, t0 = bops.bright_glm(x, t, xi, idx, nb, theta, family="softmax")
+    diff = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(300):
+        d, tot = bops.bright_glm(x, t, xi, idx, nb, theta, family="softmax")
+        diff += (d != d0).sum() + (tot != t0).sum()
+    assert int(diff) == 0
+    d1, _ = bops.bright_glm(x, t, xi, idx[:, :33], nb.clamp(max=33), theta,
+                            family="softmax")
+    d_ref, _ = bright_glm_ref(x, t, xi, idx[:, :33], nb.clamp(max=33), theta,
+                              family="softmax")
+    torch.testing.assert_close(d1, d_ref, **_WIDE_DELTA)
+
+
+def _wide_kernels_a_call():
+    """The device kernels of each of 5 traced wide ``bright_glm`` calls
+    (see :func:`_device_kernels`), the calls made and the wide launches
+    counted."""
+    x, t, xi, idx, nb, theta = _wide_inputs(400, 96, 2500, 2, 128,
+                                            torch.device("cuda"))
+    fn = lambda: bops.bright_glm(x, t, xi, idx, nb, theta, family="softmax")
+    before = bops.wide_launch_count
+    calls, made = _device_kernels(fn, reps=5)
+    return calls, made, bops.wide_launch_count - before
+
+
+def test_bright_glm_wide_one_device_kernel_per_call(dev):
+    """One device kernel a call, the wide one, traced in a process of its
+    own (see :func:`test_rglru_scan_one_kernel_per_call`: after the FlyMC
+    kernels' traces in this process the profiler records nothing)."""
+    calls, made, launched = _in_own_process("_wide_kernels_a_call()")
+    assert launched == made
+    assert all(len(c) == 1 and "bright_glm_wide_kernel" in c[0]
+               for c in calls), calls
+
+
+def test_bright_glm_wide_gradient_on_card(dev):
+    """MALA's gradient through the wide kernel: its backward is the plain
+    version's, on the card against the CPU's."""
+    x, t, xi, idx, nb, theta = _wide_inputs(300, 40, 700, 2, 48, dev)
+    th = theta.clone().requires_grad_(True)
+    _, total = bops.bright_glm(x, t, xi, idx, nb, th, family="softmax")
+    (g,) = torch.autograd.grad(total.sum(), th)
+    cpu = [a.cpu() for a in (x, t, xi, idx, nb)]
+    th_c = theta.cpu().requires_grad_(True)
+    _, total_c = bops.bright_glm(*cpu, th_c, family="softmax")
+    (g_c,) = torch.autograd.grad(total_c.sum(), th_c)
+    torch.testing.assert_close(g.cpu(), g_c, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("kc,d", [(512, 64), (4096, 128)])
+def test_softmax_collapsed_is_batch_invariant_on_card(dev, kc, d):
+    from _torch_grad_invariance import assert_softmax_collapsed_batch_invariant
+
+    assert_softmax_collapsed_batch_invariant(kc, d, dev)
+
+
+def test_lastlayer_chain_on_card(dev):
+    """FlyMC over the reduced llama3.2-3b head on the card (Kc = 512, the
+    wide kernel): every θ-update and candidate call launches it, the chain
+    is finite, and its final bright set, started off the tangency so that
+    it is not empty, has δ that agrees with the plain version (1e-5
+    absolute and relative) and with the chains' stored δ."""
+    from repro_torch.core import brightness
+    from repro_torch.models.lastlayer import lastlayer_glm
+
+    lm = T.init_model(get_reduced("llama3.2-3b"), 0, dev, torch.float32)
+    toks = torch.randint(0, 512, (4, 33),
+                         generator=torch.Generator().manual_seed(5)).to(dev)
+    m = lastlayer_glm(lm, toks, prior_scale=0.003)
+    theta_map = m.map_estimate(jr.key(6, device=dev), steps=40)
+    tuned = m.map_tuned(theta_map)
+    # a mean Böhning gap of ~0.05 a token: ¼·Kc·|x|²·ε0² over flat logits
+    x2 = float(tuned.data.x.square().sum(1).mean())
+    eps0 = (0.2 / (tuned.theta_shape[0] * x2)) ** 0.5
+    theta0 = theta_map + eps0 * jr.normal(jr.key(8, device=dev),
+                                          (2, *theta_map.shape))
+    alg = api.firefly(tuned, kernel="mala", capacity=64, cand_capacity=64,
+                      q_db=0.05, step_size=0.25 * eps0, adapt_target="auto",
+                      device=dev)
+    b0, w0, z0 = bops.launch_count, bops.wide_launch_count, zops.launch_count
+    tr = api.sample(alg, jr.key(7, device=dev), 10, num_chains=2,
+                    init_position=theta0, device=dev)
+    assert bops.wide_launch_count - w0 == bops.launch_count - b0 > 0
+    assert zops.launch_count - z0 == tr.steps_run > 0
+    assert bool(torch.isfinite(tr.theta).all())
+    fs, spec = tr.final_state, tr.algorithm.spec
+    idx, mask = brightness.bright_buffer(fs.bright, spec.capacity)
+    assert bool(mask.any(1).all())
+    args = (tuned.data.x, tuned.data.t, tuned.data.xi, idx, fs.bright.num,
+            fs.sampler.theta)
+    kw = dict(family="softmax", **spec.bound.fused_kernel_kwargs())
+    delta, _ = bops.bright_glm(*args, **kw)
+    d_ref, _ = bright_glm_ref(*args, **kw)
+    assert float(d_ref[mask].min()) > 1e-3
+    torch.testing.assert_close(delta[mask], d_ref[mask], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(fs.sampler.aux[mask], delta[mask], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2-7b", "stablelm-1.6b",
+                                  "qwen1.5-110b"])
+def test_serve_dense_reduced_on_card(dev, arch):
+    """The dense decoders' reduced twins (2 layers) through ``serve`` on the
+    card, in float32: one ``decode_attention`` launch a layer a decode
+    step."""
+    a0 = aops.launch_count
+    ids, _ = serve(arch, batch=2, prompt_len=20, gen=4, seed=3,
+                   dtype=torch.float32, device=dev)
+    assert aops.launch_count - a0 == 2 * 3
+    assert ids.shape == (2, 4) and bool(((ids >= 0) & (ids < 512)).all())

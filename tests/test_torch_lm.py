@@ -220,7 +220,9 @@ def test_bf16_decode_stays_close_to_f32():
 
 
 @pytest.mark.parametrize(
-    "arch", [a for a in ARCH_IDS if a not in (ARCH, "rwkv6-7b")])
+    "arch", [a for a in ARCH_IDS if a not in (
+        ARCH, "rwkv6-7b", "llama3.2-3b", "qwen2-7b", "stablelm-1.6b",
+        "qwen1.5-110b")])  # the dense family: tests/test_torch_dense.py
 def test_unsupported_arch_raises(arch):
     """Every other arch names the ROADMAP item it waits for; none runs as
     something else."""
@@ -231,8 +233,9 @@ def test_unsupported_arch_raises(arch):
 def test_unsupported_config_cannot_build_a_model():
     moe = dataclasses.replace(get_reduced(ARCH), name="moe-like",
                               moe=MoEConfig(n_experts=4, top_k=2))
-    sp = dataclasses.replace(get_reduced(ARCH), parallel_mode="sp")
-    for cfg in (moe, sp):
+    vlm = dataclasses.replace(get_reduced(ARCH), name="vlm-like",
+                              family="vlm")
+    for cfg in (moe, vlm):
         assert isinstance(cfg, ModelConfig)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.LM(cfg, "cpu")
