@@ -5,9 +5,11 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``, at
 first use), then runs its paths — the FlyMC chain (RWMH, MALA, HMC and the
-paper's robust-regression slice path), the recurrentgemma-9b, rwkv6-7b
-and dense decoder (llama3.2-3b, qwen2-7b, stablelm-1.6b, qwen1.5-110b) LM
-serving paths, FlyMC over llama3.2-3b's LM head, and the
+paper's robust-regression slice path), the recurrentgemma-9b, rwkv6-7b,
+dense decoder (llama3.2-3b, qwen2-7b, stablelm-1.6b, qwen1.5-110b), MoE
+(mixtral-8x7b, arctic-480b), encoder-decoder (whisper-tiny) and VLM
+(llava-next-mistral-7b) LM serving paths, FlyMC over llama3.2-3b's LM
+head, and the
 recurrentgemma-9b training step — each with its kernels (six sources;
 ``rglru_scan.cu`` holds a forward and a backward kernel, ``bright_glm.cu``
 a register and a wide softmax kernel):
@@ -79,7 +81,7 @@ a register and a wide softmax kernel):
    queue and join between chunks), 128 samples in chunks of 32, the kernel
    engines; and the same jobs one after another through ``api.sample``.
    An instrumented service run (sync debug mode, counted launches) warms
-   both sides; then sequential, service, service, sequential, timed.
+   both sides; then sequential and service, timed.
    Prints the service's wall seconds beside the sequential runs', committed
    chain-samples/s and the re-run share of the lane-steps, latency p50/p95,
    mean slot occupancy, overflow re-runs and grown capacities, ms per
@@ -109,14 +111,15 @@ a register and a wide softmax kernel):
    of 5. under ``lane_backend="vmap"``, every result bitwise the ``"map"``
    run's; then a group of 8 logistic MNIST jobs with 2 chains each (seeds
    0–7): solo, an instrumented ``"vmap"`` run (each kernel launched once a
-   group step, for all 8 lanes), then map, vmap, vmap, map timed warm, each
+   group step, for all 8 lanes), then map and vmap timed warm, each
    bitwise the solo runs; prints wall seconds, ms a lane-step and committed
    chain-samples/s of both backends, and holds both kernels, lane-stacked,
    on the group's final lanes;
 6b. runs data-sharded FlyMC on the one card (``dist_path``): 4 ranks
    (processes, gloo over CUDA tensors) run the reference example's problem
    (``examples/distributed_flymc.py``: logistic, N = 32,768, D = 11, RWMH,
-   capacity 256 a shard, q_db 0.01, 1,500 iterations; 64 chains from θ_MAP
+   capacity 256 a shard, q_db 0.01, 750 iterations (the example runs
+   1,500); 64 chains from θ_MAP
    at step 0.03), with the
    streamed moments, R̂ and query budget held to the offline trace, the
    all-reduces a step counted (≤ 4 SUM, ≤ 1 MAX, none in the z-phase),
@@ -197,7 +200,24 @@ a register and a wide softmax kernel):
    stablelm-1.6b at full width and depth, qwen1.5-110b at full width cut
    to 2 layers; bf16, batch 4, a 128-token prompt, 8 greedy tokens; prefill
    ms and decode ms/token; one ``decode_attention`` launch a layer a
-   decode step; the kernel held at each config's (G, D, W)); and FlyMC
+   decode step; the kernel held at each config's (G, D, W)); the
+   serving contract of 7. for mixtral-8x7b (2 layers, one 7-token prompt,
+   so that no MoE pair drops: a decode step and the forward see other
+   token counts, so other capacities), whisper-tiny (1,504 frames, 64
+   tokens) and llava-next-mistral-7b (576 patches, 640 tokens) at full
+   width in float32; then the MoE, encoder-decoder and VLM families
+   through ``serve``
+   (``family_serve_path``: mixtral-8x7b at full width cut to 20 of 32
+   layers with a 6,144-token prompt past its 4,096 window, arctic-480b
+   cut to 2 of 35 layers with 128 tokens, whisper-tiny whole over its
+   1,504 encoder frames with 64 tokens, llava-next-mistral-7b whole with
+   576 patch positions and 64 text tokens; bf16, batch 4, 8 greedy
+   tokens; prefill ms, decode ms/token beside the step's byte bound
+   (every expert read), peak memory, the prefill's MoE ``drop_frac``;
+   ``decode_attention`` launched once a layer a decode step, twice for
+   whisper; the kernel held at each new (G, D, W, window), whisper's
+   cross-attention over the encoder (t = 10^9) and mixtral's wrapped
+   window among them); and FlyMC
    over llama3.2-3b's head (``lastlayer_path``: f32 features of 8 × 128
    tokens from the full-depth backbone, 100 MAP steps, the reference
    example's MALA FlyMC for 20 iterations with ``backend="pallas",
@@ -261,13 +281,13 @@ DESCENT_STEPS = 8
 ROBUST_ITERS, ROBUST_BURN, ROBUST_FULL_ITERS = 200, 50, 3
 ROBUST_RMSE_MAX = 0.02
 # HMC path at the MNIST width, and the plain-engine yardstick.
-HMC_WARMUP, HMC_SAMPLES, HMC_LEAPFROG = 60, 150, 10
+HMC_WARMUP, HMC_SAMPLES, HMC_LEAPFROG = 30, 75, 10
 PLAIN_ITERS = 100
 # The sampling service: job_mix's five kinds at the paper's widths, 8 jobs,
 # 8 chain slots (the mix has 11 chains), 128 samples in chunks of 32. The
-# timed comparison with the sequential solo runs alternates the two sides
-# (sequential, service, service, sequential) after an instrumented service
-# run that warms both.
+# timed comparison with the sequential solo runs is one pair (sequential,
+# then service) after an instrumented service run that warms both: the
+# alternated two pairs did not fit the smoke's time limit on a slow host.
 SERVICE_SLOTS, SERVICE_SAMPLES, SERVICE_CHUNK, SERVICE_WARMUP = 8, 128, 32, 100
 SERVICE_REASONS = ("max_samples", "converged")
 # The chaos harness on the card: a seed whose schedule, at run_schedule's
@@ -280,13 +300,14 @@ RESUME_STEPS, RESUME_BATCH, RESUME_SEQ = 8, 8, 129
 CE_TOKENS = TRAIN_BATCH * (TRAIN_SEQ - 1)  # fused_ce's T on the path: 4096
 # The service's "vmap" lanes: the lane-stacked kernel phases (8 lanes × 2
 # chains at the MNIST width) and a group of 8 logistic MNIST jobs, K = 2,
-# seeds 0–7, run solo, under "map" and under "vmap" (timed map, vmap, vmap,
-# map after an instrumented run), 64 samples in chunks of 32.
+# seeds 0–7, run solo, under "map" and under "vmap" (timed map, then vmap,
+# after an instrumented run), 64 samples in chunks of 32.
 LANES, LANE_CHAINS, LANE_SAMPLES = 8, 2, 64
 # Data-sharded FlyMC on the one card: 4 gloo ranks over CUDA tensors. The
 # reference example's problem (examples/distributed_flymc.py: logistic,
-# N = 32,768, D = 11, RWMH, capacity 256 a shard, q_db 0.01, 1,500
-# iterations, a quarter of them warmup; 64 chains, the example's one chain
+# N = 32,768, D = 11, RWMH, capacity 256 a shard, q_db 0.01; the example's
+# 1,500 iterations cut to 750 to fit the smoke's time limit on a slow host,
+# a quarter of them warmup; 64 chains, the example's one chain
 # 64 times over, started at θ_MAP: RWMH in these 11 dimensions reads
 # split-R̂ ~1.3 after 1,500 steps (8 chains, CPU), so the posterior held
 # against the single-device run's is read from 64 chains on each side; one
@@ -295,7 +316,7 @@ LANES, LANE_CHAINS, LANE_SAMPLES = 8, 2, 64
 # iterations, the robust problem at the OPV width on 4 ranks (slice, from
 # θ_MAP, 100 iterations, burn 25), and a chain fleet of 4 ranks × 2 chains
 # at the MNIST width.
-DIST_RANKS, DIST_N, DIST_D, DIST_ITERS, DIST_CAP = 4, 32_768, 11, 1500, 256
+DIST_RANKS, DIST_N, DIST_D, DIST_ITERS, DIST_CAP = 4, 32_768, 11, 750, 256
 DIST_Q, DIST_CHAINS, NCCL_ITERS = 0.01, 64, 50
 # The example's RWMH starts at step 0.1, which its warmup's Robbins–Monro
 # adaptation takes more than its 375 steps to shrink at this N: 8 chains
@@ -332,6 +353,25 @@ LL_CLOSE = dict(rtol=1e-3, atol=1e-5)
 DENSE_ARCHS = (("llama3.2-3b", None), ("qwen2-7b", None),
                ("stablelm-1.6b", None), ("qwen1.5-110b", 2))
 DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = 4, 128, 8
+# The MoE, encoder-decoder and VLM families through launch/serve.py, bf16,
+# batch 4, 8 greedy tokens: (arch, layers or None for all, prompt).
+# mixtral-8x7b at full width cut to 20 of its 32 layers (58.1 GB of its
+# 93.4 GB), a 6,144-token prompt past its 4,096 window (the ring wraps;
+# the prefill's MoE sees 2 sequence chunks of 3,072); arctic-480b at full
+# width cut to 2 of its 35 layers (27.2 GB a layer); whisper-tiny whole
+# over its 1,504 encoder frames; llava-next-mistral-7b whole, its prompt
+# 576 patch positions and 64 text tokens. Whole, mixtral and arctic wait
+# for tensor parallelism.
+FAMILY_ARCHS = (("mixtral-8x7b", 20, 6144), ("arctic-480b", 2, 128),
+                ("whisper-tiny", None, 64),
+                ("llava-next-mistral-7b", None, 640))
+FAMILY_BATCH, FAMILY_GEN = 4, 8
+# Their decode-vs-forward checks in float32 (arch, layers, batch, prompt):
+# mixtral at 2 layers (11.6 GB) with one 7-token prompt, so that its
+# forward's 8 tokens fit every expert's capacity of 8 (no pair drops in
+# the forward, the prefill or the decode step); whisper and llava whole.
+FAMILY_EXACT = (("mixtral-8x7b", 2, 1, 7), ("whisper-tiny", None, 2, 64),
+                ("llava-next-mistral-7b", None, 2, 640))
 
 
 def log(msg: str) -> None:
@@ -1416,8 +1456,7 @@ def service_path():
     occupancy and re-run lane-steps recorded. Its launches are worked out
     from the engines' counted lane-steps and inits, and a group chunk
     without overflow must wait on the card once. Then, warm, the timed
-    comparison without instrumentation: sequential, service, service,
-    sequential. Every service run must be bitwise the solo runs, with no
+    comparison without instrumentation: sequential, then service. Every service run must be bitwise the solo runs, with no
     fault event (a retried chunk would hide a failed launch) and every job
     retired on ``max_samples`` or ``converged``; the ESS job must stop
     early. Both kernels are held against their plain versions on each
@@ -1478,7 +1517,7 @@ def service_path():
 
     seq_walls, svc_walls, lat = [], [], []
     solo = None
-    for side in ("sequential", "service", "service", "sequential"):
+    for side in ("sequential", "service"):
         if side == "sequential":
             out, wall = _sequential(jobs)
             if solo is None:
@@ -1528,7 +1567,8 @@ def service_path():
 
     rerun_steps = sum(x for _, _, x in chunks)
     chain_samples = sum(res[j.job_id].committed * j.num_chains for j in jobs)
-    seq_s, svc_s = sum(seq_walls) / 2, sum(svc_walls) / 2
+    seq_s, svc_s = (sum(seq_walls) / len(seq_walls),
+                    sum(svc_walls) / len(svc_walls))
     lat = np.array(lat)
     ess = res[conv.job_id].results["ess"]["ess"]
     groups = [(group_label(e.group_key), e.reruns, e.capacity, e.cand_capacity,
@@ -1538,7 +1578,7 @@ def service_path():
         f"slot budget {SERVICE_SLOTS} of "
         f"{sum(j.num_chains for j in jobs)} chains, {SERVICE_SAMPLES} samples, "
         f"chunk {SERVICE_CHUNK}; {card_line()}]: timed in the order "
-        f"sequential, service, service, sequential: service wall "
+        f"sequential, service: service wall "
         f"{[round(w, 3) for w in svc_walls]} s, sequential solo api.sample "
         f"{[round(w, 3) for w in seq_walls]} s (ratio of means "
         f"{svc_s / seq_s:.3f}); committed chain-samples/s service "
@@ -1687,7 +1727,7 @@ def vmap_service_path(jobs, ref):
     against the engines' group steps. Then a group of 8 logistic MNIST
     jobs, K = 2 (:func:`vmap_group`): its solo runs, an instrumented "vmap"
     run (launches once a group step: 8 lanes a launch), then timed warm
-    runs in the order map, vmap, vmap, map, each bitwise the solo runs.
+    runs in the order map, vmap, each bitwise the solo runs.
     Prints wall s, ms a lane-step and committed chain-samples/s of both
     backends. Both kernels are held on the group's final lanes, stacked.
     Returns the two instrumented runs' launches and the hold's largest
@@ -1717,7 +1757,7 @@ def vmap_service_path(jobs, ref):
                              f"{lane_steps} lane-steps over {steps} group "
                              f"steps (want one engine of {LANES} lanes)")
     walls = {"map": [], "vmap": []}
-    for backend in ("map", "vmap", "vmap", "map"):
+    for backend in ("map", "vmap"):
         t_svc, t_res, wall, _ = _serviced(group, lane_backend=backend,
                                           slots=slots)
         _check_service_run(f"{backend} group (timed)", t_svc, t_res, group,
@@ -1733,8 +1773,8 @@ def vmap_service_path(jobs, ref):
         f"'vmap' bitwise the 'map' run (group steps, lane-steps, inits "
         f"{mix_steps}, launches {mix_launches}); group of {LANES} logistic "
         f"MNIST {N_MNIST}x{D_MNIST} jobs, K={LANE_CHAINS}, {LANE_SAMPLES} "
-        f"samples, chunk {SERVICE_CHUNK}: timed in the order map, vmap, "
-        f"vmap, map: wall map {[round(w, 3) for w in walls['map']]} s, vmap "
+        f"samples, chunk {SERVICE_CHUNK}: timed in the order map, vmap: "
+        f"wall map {[round(w, 3) for w in walls['map']]} s, vmap "
         f"{[round(w, 3) for w in walls['vmap']]} s (ratio of means vmap/map "
         f"{mean['vmap'] / mean['map']:.3f}); ms a lane-step map "
         f"{mean['map'] * 1e3 / lane_steps:.3f}, vmap "
@@ -2007,7 +2047,7 @@ def dist_path(theta_map):
     two ranks on one device), started once through
     ``repro_torch.distributed.launch.run_ranks``, each run: the reference
     example's problem (:func:`_dist_problem`, RWMH, capacity 256 a shard,
-    q_db 0.01, 1,500 iterations; the streamed moments, R̂ and query budget
+    q_db 0.01, ``DIST_ITERS`` iterations; the streamed moments, R̂ and query budget
     checked against the offline trace; all-reduces a step counted by
     ``repro_torch.distributed.comm`` and held to ≤ 4 SUM and ≤ 1 MAX with
     none in the z-phase; host waits a step; launches against steps and
@@ -2431,7 +2471,12 @@ def _ring_pos(w: int, t: int, dev) -> torch.Tensor:
     return torch.where(p >= 0, p, -1).to(torch.int32).to(dev)
 
 
-def decode_attention_phase(name, b, h, hk, d, w, t, window, dtype, dev, gen):
+def decode_attention_phase(name, b, h, hk, d, w, t, window, dtype, dev, gen,
+                           pos=None):
+    """The kernel against its plain version at one shape: a ring of ``w``
+    slots after writing positions 0..t (or the given ``pos``: a
+    cross-attention's 0..W-1), timed beside the plain version and
+    ``scaled_dot_product_attention``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import ops
@@ -2440,7 +2485,7 @@ def decode_attention_phase(name, b, h, hk, d, w, t, window, dtype, dev, gen):
     q = torch.randn(b, h, d, generator=gen).to(dev)
     k = torch.randn(b, w, hk, d, generator=gen).to(dtype).to(dev)
     v = torch.randn(b, w, hk, d, generator=gen).to(dtype).to(dev)
-    pos = _ring_pos(w, t, dev)
+    pos = _ring_pos(w, t, dev) if pos is None else pos.to(dev)
     args = (q, k, v, pos, t, window)
     before = ops.launch_count
     got = ops.decode_attention(*args)
@@ -2583,40 +2628,65 @@ def rglru_kernel_phases(dev):
     return scan, scan_bwd
 
 
-def serve_exactness(dev):
+def decode_exactness(dev, arch: str, batch: int, prompt: int,
+                     n_layers: int | None = None) -> None:
     """tests/test_serving.py::test_decode_matches_forward at the published
-    width, in float32: prefill + one decode step against the full forward."""
+    width (``n_layers`` cuts the depth), in float32: prefill ``prompt``
+    tokens (whisper's frames or llava's patches drawn as ``serve`` draws
+    them) + one decode step against the full forward over ``prompt + 1``
+    tokens, logits at rtol/atol 2e-3 and the greedy token equal to the
+    forward's argmax. An MoE's decode step and forward see other token
+    counts, so other capacities: the check needs a forward in which no
+    pair drops (the decode step's capacity of 8 holds its tokens), and
+    fails otherwise."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.models import serving as SV
     from repro_torch.models import transformer as T
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t0 = time.perf_counter()
     model = T.init_model(cfg, 0, dev, torch.float32)
     n_params = sum(p.numel() for p in model.parameters())
     gen = torch.Generator(device=dev).manual_seed(1)
-    toks = torch.randint(0, cfg.vocab_size, (EXACT_BATCH, EXACT_PROMPT + 1),
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt + 1),
                          generator=gen, device=dev)
-    seq_len = EXACT_PROMPT + 1
+    stub = {}
+    if cfg.family == "encdec":
+        stub["frames"] = 0.1 * torch.randn(batch, cfg.encoder_seq,
+                                           cfg.d_model, generator=gen,
+                                           device=dev)
+    if cfg.family == "vlm":
+        stub["patches"] = 0.1 * torch.randn(batch, cfg.patch_positions,
+                                            cfg.d_model, generator=gen,
+                                            device=dev)
+    seq_len = prompt + 1
     with torch.inference_mode():
-        cache, _ = SV.prefill(model, toks[:, :EXACT_PROMPT], seq_len,
-                              torch.float32, torch.float32)
-        nxt, logits, cache = SV.decode_step(model, cache,
-                                            toks[:, EXACT_PROMPT:], seq_len,
-                                            torch.float32)
+        cache, _ = SV.prefill(model, toks[:, :prompt], seq_len,
+                              torch.float32, torch.float32, **stub)
+        nxt, logits, cache = SV.decode_step(model, cache, toks[:, prompt:],
+                                            seq_len, torch.float32)
         del cache
-        h = T.forward_hidden(model, toks, torch.float32)
+        h, aux = T.forward_hidden(model, toks, torch.float32, aux=True,
+                                  **stub)
         ref = (h[:, -1:] @ model.embed.head).float()
     torch.cuda.synchronize()
+    if float(aux["drop_frac"]) != 0.0:
+        raise AssertionError(f"{arch}: the forward drops MoE pairs")
     err = float((logits - ref).abs().max())
     torch.testing.assert_close(logits, ref, rtol=2e-3, atol=2e-3)
     if not torch.equal(nxt[:, 0], ref[:, 0].argmax(-1)):
-        raise AssertionError("greedy token differs from the forward's argmax")
-    log(f"serving exactness [{ARCH} full width, {n_params / 1e9:.3f} B "
-        f"params, float32, batch {EXACT_BATCH}]: prefill {EXACT_PROMPT} + 1 "
-        f"decode step vs forward over {seq_len} tokens: max|Δ logits| "
-        f"{err:.3g} (tolerance 2e-3), greedy tokens {nxt[:, 0].tolist()} == "
-        f"forward argmax; {time.perf_counter() - t0:.1f} s")
+        raise AssertionError(f"{arch}: greedy token differs from the "
+                             "forward's argmax")
+    log(f"serving exactness [{arch} full width, {cfg.n_layers} layers, "
+        f"{n_params / 1e9:.3f} B params, float32, batch {batch}]: prefill "
+        f"{prompt} + 1 decode step vs forward over {seq_len} tokens: "
+        f"max|Δ logits| {err:.3g} (tolerance 2e-3), greedy tokens "
+        f"{nxt[:, 0].tolist()} == forward argmax; "
+        f"{time.perf_counter() - t0:.1f} s")
     del model, h, ref, logits
     torch.cuda.empty_cache()
 
@@ -3543,6 +3613,100 @@ def dense_serve_path(dev):
     return launches, phases
 
 
+def decode_read_bytes(cfg, layers: int, batch: int, ring: int,
+                      itemsize: int = 2) -> int:
+    """Bytes one decode step must read at least: every weight of the
+    decoder's blocks (an MoE's every expert, as the capacity dispatch runs
+    all E of them), the final norm and the head, ``batch`` rows of the
+    embedding table, and each layer's ring (``ring`` valid slots of K and
+    V) and cross-attention K/V (whisper's encoder runs in prefill only)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+
+    meta = T.LM(dataclasses.replace(cfg, n_layers=layers), "meta",
+                torch.bfloat16)
+    weights = sum(p.numel() for m in (meta.blocks, meta.final_norm)
+                  for p in m.parameters())
+    weights += meta.embed.head.numel() + batch * cfg.d_model
+    kv = 2 * batch * cfg.n_kv_heads * cfg.resolved_head_dim
+    cross = cfg.encoder_seq if cfg.family == "encdec" else 0
+    return (weights + layers * kv * (ring + cross)) * itemsize
+
+
+def family_serve_path(dev):
+    """The MoE, encoder-decoder and VLM families through
+    ``launch.serve.serve`` at their published widths in bf16
+    (``FAMILY_ARCHS``: mixtral-8x7b cut to 20 layers, arctic-480b to 2):
+    prefill and greedy decode; ``decode_attention`` launched once a layer
+    a decode step, twice for whisper (its cross-attention); the ids in
+    range. Prints prefill ms, decode ms/token beside the step's byte bound,
+    tok/s, peak memory and the prefill's MoE ``drop_frac`` (the mean over
+    layers), then holds the kernel against its plain version at each new
+    (G, D, W, window): mixtral's wrapped, windowed ring, arctic's G = 7,
+    whisper's self-attention and its cross-attention over the 1,504
+    encoder positions (t = 10^9), llava's ring. Returns ({arch:
+    launches}, decode_attention phases)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as aops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.serving import CROSS_T
+
+    launches, phases = {}, []
+    gen = torch.Generator().manual_seed(24)
+    steps = FAMILY_GEN - 1
+    bf16 = torch.bfloat16
+    for arch, n_layers, prompt in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        layers = n_layers or cfg.n_layers
+        cross = cfg.family == "encdec"
+        seq = prompt + FAMILY_GEN
+        ring = min(cfg.swa_window or seq, seq)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        aops.launch_count = 0
+        ids, stats = serve(arch, batch=FAMILY_BATCH, prompt_len=prompt,
+                           gen=FAMILY_GEN, seed=0, full=True, dtype=bf16,
+                           device=dev, n_layers=n_layers)
+        wall = time.perf_counter() - t0
+        launches[arch] = aops.launch_count
+        want = (1 + cross) * layers * steps
+        if aops.launch_count != want:
+            raise AssertionError(f"{arch}: {aops.launch_count} decode_attention"
+                                 f" launches, want {want}")
+        if ids.shape != (FAMILY_BATCH, FAMILY_GEN) or not bool(
+                ((ids >= 0) & (ids < cfg.vocab_size)).all()):
+            raise AssertionError(f"{arch}: bad generated ids")
+        peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.empty_cache()
+        read = decode_read_bytes(cfg, layers, FAMILY_BATCH, ring)
+        tok_ms = stats["decode_s"] * 1e3 / steps
+        drop = (f", prefill MoE drop_frac {stats['drop_frac']:.6f}"
+                if "drop_frac" in stats else "")
+        log(f"family serve [{arch}, {layers} of {cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, G = {cfg.n_heads // cfg.n_kv_heads}, "
+            f"D = {cfg.resolved_head_dim}, bf16, batch {FAMILY_BATCH}, "
+            f"prompt {prompt}, {FAMILY_GEN} greedy tokens]: prefill "
+            f"{stats['prefill_s'] * 1e3:.3f} ms, decode {tok_ms:.3f} "
+            f"ms/token (bound {read / HBM_BYTES_PER_S * 1e3:.3f} ms: "
+            f"{read / 1e9:.3f} GB a step), {stats['tok_per_s']:.1f} tok/s, "
+            f"peak memory {peak / 2**30:.2f} GiB{drop}, {wall:.1f} s with "
+            f"the init; decode_attention {launches[arch] // steps} launches "
+            f"a step; first tokens {ids[0].tolist()}")
+        h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        t = seq - 2
+        phases.append(decode_attention_phase(
+            f"{arch}{'-wrapped' if cfg.swa_window else ''}", FAMILY_BATCH, h,
+            hk, d, ring, t, cfg.swa_window, bf16, dev, gen))
+        if cross:
+            w = cfg.encoder_seq
+            phases.append(decode_attention_phase(
+                f"{arch}-cross", FAMILY_BATCH, h, hk, d, w, CROSS_T, None,
+                bf16, dev, gen, pos=torch.arange(w, dtype=torch.int32)))
+    return launches, phases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3612,7 +3776,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     done("dist path")
 
-    serve_exactness(dev)
+    decode_exactness(dev, ARCH, EXACT_BATCH, EXACT_PROMPT)
     serve_launches = serve_path(dev)
     rwkv_serve_exactness(dev)
     rwkv_launches = rwkv_serve_path(dev)
@@ -3621,6 +3785,11 @@ def main() -> int:
     dense_launches, dense_attn = dense_serve_path(dev)
     torch.cuda.empty_cache()
     done("dense serving")
+    for arch, n_layers, batch, prompt in FAMILY_EXACT:
+        decode_exactness(dev, arch, batch, prompt, n_layers)
+    family_launches, family_attn = family_serve_path(dev)
+    torch.cuda.empty_cache()
+    done("MoE, encdec and VLM serving")
     ll_launches, ll_err = lastlayer_path(dev)
     torch.cuda.empty_cache()
     done("lastlayer path")
@@ -3699,11 +3868,13 @@ def main() -> int:
          "replaces": "src/repro/kernels/decode_attention/kernel.py:115",
          "launches": serve_launches["decode_attention"],
          **{f"launches_{a}": v for a, v in dense_launches.items()},
-         "max_abs_err": max(p["max_abs_err"] for p in attn + dense_attn),
+         **{f"launches_{a}": v for a, v in family_launches.items()},
+         "max_abs_err": max(p["max_abs_err"]
+                            for p in attn + dense_attn + family_attn),
          "ms": attn[0]["ms"], "call_ms": attn[0]["call_ms"],
          "plain_ms": attn[0]["plain_ms"], "bound_ms": attn[0]["bound_ms"],
          "bound_by": attn[0]["bound_by"], "library_ms": attn[0]["library_ms"],
-         "phases": attn + dense_attn},
+         "phases": attn + dense_attn + family_attn},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:61",

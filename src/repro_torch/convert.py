@@ -126,8 +126,12 @@ def per_layer(tree: dict, cfg: ModelConfig) -> list[dict]:
 
 @torch.no_grad()
 def _load(mod: Params, leaves: dict) -> None:
-    if set(leaves) != set(mod.defs):
-        raise ValueError(f"weights {sorted(leaves)} != {sorted(mod.defs)}")
+    groups = {n for n, _ in mod.named_children()}  # nested Params
+    if set(leaves) != set(mod.defs) | groups:
+        raise ValueError(f"weights {sorted(leaves)} != "
+                         f"{sorted(set(mod.defs) | groups)}")
+    for name in groups:
+        _load(getattr(mod, name), leaves[name])
     for name in mod.defs:
         a = np.asarray(leaves[name])
         p = getattr(mod, name)
@@ -144,11 +148,21 @@ def lm_params(params_np: dict, cfg: ModelConfig, device="cuda",
     has ``ln1``, ``ln2`` and ``mix`` (with the channel mix's ``cm_*``) and
     no ``ffn``. The dense decoders' leaves load by the same names: the
     QKV biases ``bq``/``bk``/``bv`` (qwen), swiglu's third matrix ``w3``,
-    and each norm's ``scale`` (RMSNorm or layernorm alike)."""
+    and each norm's ``scale`` (RMSNorm or layernorm alike); so do an MoE
+    ``ffn``'s ``router``, ``w1``..``w3`` and ``dense`` group (arctic), a
+    decoder block's ``ln_cross`` and ``cross`` (whisper), and the
+    encoder's ``enc_blocks`` (stacked over ``encoder_layers``, each layer
+    one of ``model.enc_blocks``) and ``enc_norm``."""
     model = LM(cfg, device, dtype)
     _load(model.embed, params_np["embed"])
     _load(model.final_norm, params_np["final_norm"])
-    for blk, tree in zip(model.blocks, per_layer(params_np, cfg)):
+    blocks = list(zip(model.blocks, per_layer(params_np, cfg)))
+    if cfg.family == "encdec":
+        _load(model.enc_norm, params_np["enc_norm"])
+        enc = params_np["enc_blocks"]  # stacked over encoder_layers
+        blocks += [(blk, _tree_map(lambda a: a[i], enc))
+                   for i, blk in enumerate(model.enc_blocks)]
+    for blk, tree in blocks:
         src = {("attn" if (blk.kind, n) == ("attn", "mix") else n): n
                for n, _ in blk.named_children()}
         if set(tree) != set(src):

@@ -98,8 +98,16 @@ def profile_decode(arch: str, batch: int = 4, prompt_len: int = 2304,
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=gen, device=dev)
+    frontend = {}  # whisper's frames, llava's patches: as serve draws them
+    if cfg.family == "encdec":
+        frontend["frames"] = 0.1 * torch.randn(
+            batch, cfg.encoder_seq, cfg.d_model, generator=gen, device=dev)
+    if cfg.family == "vlm":
+        frontend["patches"] = 0.1 * torch.randn(
+            batch, cfg.patch_positions, cfg.d_model, generator=gen,
+            device=dev)
     cache, h = SV.prefill(model, prompts, cap, dtype=torch.bfloat16,
-                          kv_dtype=torch.bfloat16)
+                          kv_dtype=torch.bfloat16, **frontend)
     tok = SV.vocab_parallel_argmax((h[:, -1:] @ model.embed.head).float())
 
     wrapper = attn_ops.decode_attention

@@ -3,12 +3,12 @@
 A copy of :mod:`repro.models.config` (``MoEConfig``, ``ModelConfig``,
 ``_expand_pattern``, ``layer_kinds``, ``reduced``): the port imports nothing
 of the JAX package, not even its pure-Python dataclasses. One frozen dataclass
-describes every architecture the reference supports; :func:`check_supported`
-says which of them the port can build so far.
+describes every architecture the reference supports, and the port builds
+each of them; :func:`check_trainable` says which it can train so far.
 
 Parallelism modes (kept for parity with the reference's configs):
   * ``sp`` — sequence-parallel residual stream (attention-dominant archs:
-    the dense decoders).
+    the dense, MoE, encoder-decoder and VLM families).
   * ``tp`` — replicated-seq residual stream with head/feature-sharded mixers
     (recurrence archs). On one device every collective is the identity, so
     both modes run the same math; they differ in their layers' weights
@@ -122,27 +122,22 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 
 # What the port lacks, by the ROADMAP item (queue 1) that adds it.
 _MISSING = {
-    "moe": "MoE blocks (ROADMAP queue 1 item 9e: MoE, encdec and VLM)",
-    "encdec": "encoder-decoder models (ROADMAP queue 1 item 9e: MoE, encdec "
-              "and VLM)",
-    "vlm": "VLM frontends (ROADMAP queue 1 item 9e: MoE, encdec and VLM)",
     "remat": "remat through torch.utils.checkpoint (ROADMAP queue 1 item 9c)",
     "rwkv_train": "rwkv6 training on the card: a WKV6 backward (ROADMAP "
                   "queue 1 item 9b)",
-    "dense_train": "dense (SP-mode) training: ce_loss_sp, the swiglu and "
-                   "QKV-bias backward, bf16 AdamW moments (ROADMAP queue 1 "
-                   "item 9g)",
+    "dense_train": "dense, MoE, encdec and VLM (SP-mode) training: "
+                   "ce_loss_sp, the swiglu, QKV-bias, MoE (with its lb_loss "
+                   "term) and cross-attention backward, bf16 AdamW moments "
+                   "(ROADMAP queue 1 item 9g)",
 }
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for any block
-    kind, family or parallel mode the port cannot run yet; the port never
-    runs a config as something else."""
-    if cfg.family in ("encdec", "vlm"):
-        raise NotImplementedError(f"{cfg.name}: {_MISSING[cfg.family]}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: {_MISSING['moe']}")
+    """Raise ``NotImplementedError`` for any block kind, norm, MLP or
+    parallel mode the port cannot run; the port never runs a config as
+    something else. Every family of the reference serves: dense, MoE,
+    encoder-decoder, VLM (stub frontends), and the RG-LRU and RWKV6
+    recurrences."""
     if cfg.parallel_mode not in ("sp", "tp"):
         raise NotImplementedError(f"{cfg.name}: parallel mode "
                                   f"{cfg.parallel_mode!r}")
@@ -160,12 +155,13 @@ def check_supported(cfg: ModelConfig) -> None:
 def check_trainable(cfg: ModelConfig, device) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for a config
     the port cannot train on ``device`` (a ``torch.device`` or its name):
-    the dense (SP-mode) family on neither device; on the card every block
-    kind needs a kernel with a backward, which ``attn`` and ``rglru`` have
-    and ``rwkv`` has not yet; on the CPU every TP-mode kind differentiates
-    through its plain version."""
+    the SP-mode families (dense, MoE, encdec, VLM), and any config with an
+    MoE (the loss lacks its balance term), on neither device; on
+    the card every block kind needs a kernel with a backward, which
+    ``attn`` and ``rglru`` have and ``rwkv`` has not yet; on the CPU every
+    TP-mode kind differentiates through its plain version."""
     check_supported(cfg)
-    if cfg.parallel_mode == "sp":
+    if cfg.parallel_mode == "sp" or cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: {_MISSING['dense_train']}")
     kind = getattr(device, "type", str(device).split(":")[0])
     if kind == "cuda" and "rwkv" in cfg.block_pattern:

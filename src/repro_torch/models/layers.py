@@ -1,12 +1,13 @@
 """Model layers of the LM serving and training paths, single device.
 
-The port's counterpart of :mod:`repro.models.layers`, with what the
-recurrentgemma, rwkv6 and dense decoder (llama3.2, qwen2, stablelm,
-qwen1.5) paths run: norms (RMSNorm and the bias-free layernorm), RoPE, the
-chunked (online-softmax) prefill attention, one attention sublayer (with
-its optional QKV bias) and one MLP (gelu or swiglu) for both the
-sequence-parallel ("SP mode") and head-parallel ("TP mode") stacks, the
-RG-LRU mixer, the RWKV6 time and channel mixes and the embedding. Each function keeps the reference's name;
+The port's counterpart of :mod:`repro.models.layers`, with what every
+family's path runs (recurrentgemma, rwkv6, the dense decoders, mixtral and
+arctic, whisper, llava): norms (RMSNorm and the bias-free layernorm), RoPE,
+the chunked (online-softmax) prefill attention, one attention sublayer
+(with its optional QKV bias, or as a cross-attention) and one MLP (gelu or
+swiglu) for both the sequence-parallel ("SP mode") and head-parallel ("TP
+mode") stacks, the capacity-dispatched MoE, the RG-LRU mixer, the RWKV6
+time and channel mixes and the embedding. Each function keeps the reference's name;
 ``w`` is the layer's :class:`~repro_torch.models.params.Params` module
 where the reference takes a weight dict. On one device every gather, psum
 and reduce-scatter of the reference is the identity and is left out, so SP
@@ -182,13 +183,14 @@ def chunked_attention(q, k, v, q_pos, k_pos, causal: bool = True,
 # ---------------------------------------------------------------------------
 
 
-def attn_defs(cfg: ModelConfig) -> dict[str, WDef]:
+def attn_defs(cfg: ModelConfig, cross: bool = False) -> dict[str, WDef]:
     """Q, K, V and output projections, and with ``cfg.qkv_bias`` (qwen)
-    zero-initialised Q, K and V biases."""
+    zero-initialised Q, K and V biases; a cross-attention (``cross``,
+    whisper's decoder) has none."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     defs = {"wq": WDef((d, qd)), "wk": WDef((d, kvd)), "wv": WDef((d, kvd)),
             "wo": WDef((qd, d))}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         defs.update(bq=WDef((qd,), init="zeros"), bk=WDef((kvd,), init="zeros"),
                     bv=WDef((kvd,), init="zeros"))
     return defs
@@ -206,24 +208,30 @@ def qkv_proj(x, w: Params, name: str):
 
 def attn_tp(x, w: Params, cfg: ModelConfig, *, causal: bool = True,
             window: int | None = None, chunk: int = 1024,
-            return_kv: bool = False):
+            return_kv: bool = False, kv_source=None, use_rope: bool = True):
     """All heads over the whole sequence (on one device the reference's
     head split, or its K/V gather in SP mode, is the identity): GQA, the
     QKV bias where the layer has one, RoPE at absolute positions, KV chunks
     of ``chunk`` (the reference's TP mode takes 1,024, its SP mode 512).
-    x: (B, S, d). With ``return_kv`` also returns the roped (k, v) for the
-    decode cache."""
+    x: (B, S, d). ``kv_source`` (B, S_kv, d) is a cross-attention's key and
+    value input (whisper's encoder output; with ``causal=False`` and
+    ``use_rope=False``). With ``return_kv`` also returns the (roped) (k, v)
+    for the decode cache."""
     dtype = x.dtype
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
+    kv_in = x if kv_source is None else kv_source
+    s_kv = kv_in.shape[1]
     q = qkv_proj(x, w, "q").reshape(b, s, cfg.n_heads, hd)
-    k = qkv_proj(x, w, "k").reshape(b, s, cfg.n_kv_heads, hd)
-    v = qkv_proj(x, w, "v").reshape(b, s, cfg.n_kv_heads, hd)
-    pos = torch.arange(s, dtype=torch.int32, device=x.device)
-    q = rope(q, pos, cfg.rope_theta)
-    k = rope(k, pos, cfg.rope_theta)
-    out = chunked_attention(q, k, v, pos, pos, causal=causal, window=window,
-                            chunk=chunk)
+    k = qkv_proj(kv_in, w, "k").reshape(b, s_kv, cfg.n_kv_heads, hd)
+    v = qkv_proj(kv_in, w, "v").reshape(b, s_kv, cfg.n_kv_heads, hd)
+    q_pos = torch.arange(s, dtype=torch.int32, device=x.device)
+    k_pos = torch.arange(s_kv, dtype=torch.int32, device=x.device)
+    if use_rope:
+        q = rope(q, q_pos, cfg.rope_theta)
+        k = rope(k, k_pos, cfg.rope_theta)
+    out = chunked_attention(q, k, v, q_pos, k_pos, causal=causal,
+                            window=window, chunk=chunk)
     y = out.reshape(b, s, cfg.q_dim) @ w.wo.to(dtype)
     if return_kv:
         return y, (k, v)
@@ -262,6 +270,127 @@ def mlp_tp(x, w: Params, kind: str = "gelu"):
 
 def mlp_sp(x, w: Params, cfg: ModelConfig):  # the reference's SP name
     return mlp_tp(x, w, cfg.mlp)
+
+
+def _auto_chunk(b: int, s: int, d: int, budget: int = 1 << 27) -> int:
+    """The reference's ``_auto_chunk`` on one device: the largest
+    power-of-two halving of ``s`` (down to 16) whose (B, chunk, d) bf16
+    tensor stays under ``budget`` bytes, halved again until it divides
+    ``s``. The reference's MoE sees one such sequence chunk a call, so its
+    capacity, and which pairs it drops, depend on it."""
+    chunk = s
+    while chunk > 16 and b * chunk * d * 2 > budget:
+        chunk //= 2
+    while s % chunk:
+        chunk //= 2
+    return max(chunk, 1)
+
+
+# ---------------------------------------------------------------------------
+# MoE — capacity-based sort dispatch over every expert
+# ---------------------------------------------------------------------------
+
+
+def moe_defs(cfg: ModelConfig) -> dict[str, WDef | dict]:
+    """The router (d, E), the experts' swiglu matrices w1, w3 (E, d, ff)
+    and w2 (E, ff, d), and with ``dense_residual`` (arctic) a dense FFN
+    ``dense`` beside them."""
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    defs = {"router": WDef((d, e)), "w1": WDef((e, d, ff)),
+            "w2": WDef((e, ff, d)), "w3": WDef((e, d, ff))}
+    if cfg.moe.dense_residual:
+        defs["dense"] = mlp_defs(cfg)
+    return defs
+
+
+def moe_route(tokens, router, cfg: ModelConfig):
+    """Top-k routing of (T, d) tokens and each (token, expert) pair's slot.
+
+    The router product in the tokens' dtype, then float32 softmax, top-k
+    and renormalised gates; the T·k pairs (token-major) sorted stably by
+    expert, a pair's position within its expert found by a left
+    ``searchsorted``, and the pairs past the capacity dropped (an
+    expert's capacity: cf·k·T/E rounded down, then up to a multiple of 8,
+    at least 8). Returns a dict of ``probs`` (T, E), ``gate``/``expert``
+    (T, k), ``order`` (the stable sort's permutation), ``ok`` (kept, in
+    sorted order), ``slot`` (E·cap for a dropped pair) and ``cap``. Shapes
+    depend on T alone: no host read, so a decode step never waits on the
+    card."""
+    t = tokens.shape[0]
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    cap = int(cfg.moe.capacity_factor * k * t / e)
+    cap = max(8, ((cap + 7) // 8) * 8)
+    logits = (tokens @ router.to(tokens.dtype)).float()
+    probs = torch.softmax(logits, -1)
+    gate, expert = torch.topk(probs, k)
+    gate = gate / gate.sum(-1, keepdim=True)
+    sorted_e, order = torch.sort(expert.reshape(-1), stable=True)
+    pos = (torch.arange(t * k, device=tokens.device)
+           - torch.searchsorted(sorted_e, sorted_e, side="left"))
+    ok = pos < cap
+    slot = torch.where(ok, sorted_e * cap + pos, e * cap)
+    return {"probs": probs, "gate": gate, "expert": expert, "order": order,
+            "ok": ok, "slot": slot, "cap": cap}
+
+
+def moe_tokens(tokens, w: Params, cfg: ModelConfig):
+    """The reference's ``_moe_tokens``: (T, d) tokens through their top-k
+    experts at a fixed capacity. Returns (y (T, d), aux {lb_loss,
+    drop_frac}).
+
+    The kept pairs are scattered into an (E·cap + 1, d) buffer whose last
+    row takes the dropped ones and is discarded; every expert runs its
+    swiglu over all cap rows (batched products over the E experts, as the
+    reference computes them, empty rows included); the outputs are
+    gathered back to the pairs (zero for a dropped one), put back in
+    token-major order and summed over k with the gates, in the tokens'
+    dtype. ``lb_loss`` is the Switch balance term E·Σ_e f_e·p̄_e / k,
+    ``drop_frac`` the share of pairs dropped."""
+    dtype = tokens.dtype
+    t, d = tokens.shape
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    r = moe_route(tokens, w.router, cfg)
+    cap, order, ok, slot = r["cap"], r["order"], r["ok"], r["slot"]
+    buf = torch.zeros(e * cap + 1, d, dtype=dtype, device=tokens.device)
+    buf.index_copy_(0, slot, tokens.index_select(0, order // k))
+    buf = buf[:e * cap].view(e, cap, d)
+    h = F.silu(torch.bmm(buf, w.w1.to(dtype))) * torch.bmm(buf,
+                                                            w.w3.to(dtype))
+    yb = torch.bmm(h, w.w2.to(dtype)).view(e * cap, d)
+    y_sorted = torch.where(ok[:, None],
+                           yb.index_select(0, slot.clamp(max=e * cap - 1)), 0)
+    y_assign = torch.empty_like(y_sorted).index_copy_(0, order, y_sorted)
+    y = (y_assign.view(t, k, d) * r["gate"][..., None].to(dtype)).sum(1)
+    onehot = r["expert"][..., None] == torch.arange(e, device=tokens.device)
+    frac_tokens = onehot.float().sum(1).mean(0)
+    aux = {"lb_loss": e * (frac_tokens * r["probs"].mean(0)).sum() / k,
+           "drop_frac": 1.0 - ok.float().mean()}
+    return y, aux
+
+
+def moe_sp(x, w: Params, cfg: ModelConfig, chunk: int | None = None):
+    """The reference's SP-mode MoE on one device: (B, S, d) in sequence
+    chunks of ``chunk`` (default :func:`_auto_chunk`'s), each chunk's B·chunk
+    tokens one :func:`moe_tokens` call, plus the dense residual FFN
+    (swiglu) where the layer has one. Returns (y, aux), aux the mean over
+    chunks."""
+    b, s, d = x.shape
+    chunk = chunk or _auto_chunk(b, s, d)
+    assert s <= chunk or s % chunk == 0, (s, chunk)
+    dense = getattr(w, "dense", None)
+    ys, auxes = [], []
+    for c0 in range(0, s, chunk):
+        xc = x[:, c0:c0 + chunk]
+        y, aux = moe_tokens(xc.reshape(-1, d), w, cfg)
+        y = y.view(xc.shape)
+        if dense is not None:
+            y = y + mlp_tp(xc, dense, "swiglu")
+        ys.append(y)
+        auxes.append(aux)
+    if len(ys) == 1:
+        return ys[0], auxes[0]
+    return torch.cat(ys, 1), {n: torch.stack([a[n] for a in auxes]).mean()
+                              for n in auxes[0]}
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Serving: prefill + single-token greedy decode, single device.
 
-The port's counterpart of :mod:`repro.models.serving` for the TP-mode
-block kinds (recurrentgemma's and rwkv6's) and the dense decoders' SP-mode
-attention:
+The port's counterpart of :mod:`repro.models.serving` for every family:
+the TP-mode block kinds (recurrentgemma's and rwkv6's) and the SP-mode
+attention of the dense, MoE, encoder-decoder and VLM families:
 
   * Attention layers keep a ring KV cache of capacity W (the local or
     sliding window, or the whole context: a dense decoder's full causal
@@ -11,6 +11,13 @@ attention:
     position of each slot (-1 = empty): slot s holds position p ≡ s (mod W),
     so causal/window masking works under wraparound. Decode attends through
     :mod:`repro_torch.kernels.decode_attention` (a CUDA kernel on the card).
+  * An encoder-decoder's (whisper's) layers also keep the cross-attention's
+    K/V over the encoder's output (``ck``, ``cv``), written once by
+    prefill; each decode step attends them through the same kernel, every
+    encoder position valid (:data:`CROSS_T`, no window).
+  * An MoE layer's decode step routes the batch's B tokens as one call of
+    the capacity dispatch (:func:`~repro_torch.models.layers.moe_tokens`):
+    fixed shapes, no host read.
   * RG-LRU layers keep the per-channel state (B, r) and the last three
     pre-conv inputs (B, 3, r), both float32.
   * RWKV6 layers keep the per-head WKV state (B, H, D, D) and the last
@@ -72,12 +79,19 @@ def _slot_cache_shapes(cfg: ModelConfig, kind: str, b: int, seq_len: int,
 
 def init_cache(cfg: ModelConfig, b: int, seq_len: int,
                kv_dtype=torch.bfloat16, device="cuda") -> dict:
-    """Zero cache (pos = -1 ⇒ empty), one dict per layer."""
+    """Zero cache (pos = -1 ⇒ empty), one dict per layer; an
+    encoder-decoder's layers also hold the cross-attention's K/V over the
+    encoder's positions (``ck``, ``cv``: (B, S_enc, Hk, D)), which prefill
+    computes once."""
     layers = []
     for kind in layer_kinds(cfg):
+        shapes = _slot_cache_shapes(cfg, kind, b, seq_len, kv_dtype)
+        if cfg.family == "encdec":
+            cross = (b, cfg.encoder_seq, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+            shapes.update(ck=(cross, kv_dtype), cv=(cross, kv_dtype))
         out = {}
-        for name, (shape, dt) in _slot_cache_shapes(
-                cfg, kind, b, seq_len, kv_dtype).items():
+        for name, (shape, dt) in shapes.items():
             fill = -1 if name == "pos" else 0
             out[name] = torch.full(shape, fill, dtype=dt, device=device)
         layers.append(out)
@@ -127,6 +141,39 @@ def _attn_decode(x, w, cache, cfg: ModelConfig, t: int, seq_len: int,
     out = _decode_attend(q, cache["k"], cache["v"], cache["pos"], t, window)
     out = out.to(dtype).reshape(b, 1, cfg.q_dim)
     return out @ w.wo.to(dtype)
+
+
+# The query position a cross-attention's decode passes the kernel: past every
+# encoder position, so the causal test keeps them all (the reference's).
+CROSS_T = 10**9
+
+
+def _cross_decode(x, w, cache, cfg: ModelConfig):
+    """Whisper's cross-attention at decode: the token's query against the
+    encoder's K/V that prefill stored (``ck``, ``cv``), at positions
+    0..S_enc-1 with no window and no RoPE. x: (B, 1, d); returns y
+    (B, 1, d)."""
+    dtype = x.dtype
+    b = x.shape[0]
+    q = L.qkv_proj(x, w, "q").reshape(b, 1, cfg.n_heads,
+                                      cfg.resolved_head_dim)
+    ck, cv = cache["ck"], cache["cv"]
+    pos = torch.arange(ck.shape[1], dtype=torch.int32, device=ck.device)
+    out = _decode_attend(q, ck, cv, pos, CROSS_T, None)
+    return out.to(dtype).reshape(b, 1, cfg.q_dim) @ w.wo.to(dtype)
+
+
+def _moe_decode(h, w, cfg: ModelConfig):
+    """The MoE of one decode step: the (B, d) tokens are one
+    :func:`~repro_torch.models.layers.moe_tokens` call (T = B, so the
+    capacity is the batch's), plus the dense residual FFN (swiglu) where
+    the layer has one. h: (B, 1, d)."""
+    b, _, d = h.shape
+    y, _ = L.moe_tokens(h.reshape(b, d), w, cfg)
+    y = y.reshape(b, 1, d)
+    if hasattr(w, "dense"):
+        y = y + L.mlp_tp(h, w.dense, "swiglu")
+    return y
 
 
 def _rglru_decode(x, w, cache, cfg: ModelConfig):
@@ -207,7 +254,12 @@ def _decode_block(x, blk, cache, cfg: ModelConfig, t: int, seq_len: int):
     else:
         raise ValueError(blk.kind)
     x = x + a
+    if hasattr(blk, "cross"):
+        h = L.apply_norm(x, blk.ln_cross, dtype, cfg.norm)
+        x = x + _cross_decode(h, blk.cross, cache, cfg)
     h = L.apply_norm(x, blk.ln2, dtype, cfg.norm)
+    if blk.kind == "attn" and cfg.moe is not None:
+        return x + _moe_decode(h, blk.ffn, cfg)
     return x + L.mlp_tp(h, blk.ffn, cfg.mlp)  # one token: the MLP of either mode
 
 
@@ -256,14 +308,22 @@ def _ring_from_full(kf, vf, prompt_len: int, w_total: int):
 
 
 def prefill(model: T.LM, tokens, seq_len: int, dtype=torch.bfloat16,
-            kv_dtype=torch.bfloat16):
-    """Process a full prompt (B, S); returns (cache, hidden (B, S, d)).
+            kv_dtype=torch.bfloat16, frames=None, patches=None,
+            aux: bool = False):
+    """Process a full prompt (B, S) (with whisper's ``frames`` or llava's
+    ``patches``, the stub frontends' inputs); returns (cache, hidden
+    (B, S, d)), and with ``aux`` also the MoE's {lb_loss, drop_frac}
+    (means over layers).
 
-    The forward is the prefill forward (chunked attention, the RG-LRU and
-    WKV scan kernels); capture collects per-layer K/V and final recurrent
-    states and this function lays them out into the decode cache."""
+    The forward is the prefill forward (chunked attention, the MoE's
+    sequence chunks, the RG-LRU and WKV scan kernels); capture collects
+    per-layer K/V (and a cross-attention's K/V over the encoder's output)
+    and final recurrent states and this function lays them out into the
+    decode cache."""
     cfg = model.cfg
-    h, captured = T.forward_hidden(model, tokens, dtype, capture=True)
+    h, captured, moe_aux = T.forward_hidden(model, tokens, dtype, capture=True,
+                                            frames=frames, patches=patches,
+                                            aux=True)
     s_prompt = tokens.shape[1]
     layers = []
     for kind, cap in zip(layer_kinds(cfg), captured):
@@ -271,10 +331,14 @@ def prefill(model: T.LM, tokens, seq_len: int, dtype=torch.bfloat16,
             kf, vf = cap["kv_full"]
             w_total = attn_cache_len(cfg, "attn", seq_len)
             k, v, pos = _ring_from_full(kf, vf, s_prompt, w_total)
-            layers.append({"k": k.to(kv_dtype), "v": v.to(kv_dtype),
-                           "pos": pos})
+            out = {"k": k.to(kv_dtype), "v": v.to(kv_dtype), "pos": pos}
+            if "cross_kv_full" in cap:
+                ckf, cvf = cap["cross_kv_full"]
+                out.update(ck=ckf.to(kv_dtype), cv=cvf.to(kv_dtype))
+            layers.append(out)
         elif kind in ("rglru", "rwkv"):
             layers.append(cap)
         else:
             raise ValueError(kind)
-    return {"t": s_prompt, "layers": layers}, h
+    cache = {"t": s_prompt, "layers": layers}
+    return (cache, h, moe_aux) if aux else (cache, h)

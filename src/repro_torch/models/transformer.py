@@ -2,10 +2,12 @@
 training step (loss, global gradient norm, clip, AdamW).
 
 The port's counterpart of :mod:`repro.models.transformer` on one device
-for the TP-mode (recurrence) archs, recurrentgemma and rwkv6, and the
-SP-mode dense decoders, llama3.2, qwen2, stablelm and qwen1.5. A model is an
-:class:`LM` module: the embedding (table and untied head), one
-:class:`Block` per layer in layer order, and the final norm. The reference
+for every family: the TP-mode (recurrence) archs, recurrentgemma and rwkv6,
+and the SP-mode ones, the dense decoders (llama3.2, qwen2, stablelm,
+qwen1.5), the MoE (mixtral, arctic), the encoder-decoder (whisper) and the
+VLM (llava). A model is an :class:`LM` module: the embedding (table and
+untied head), one :class:`Block` per layer in layer order, the final norm,
+and for whisper the encoder's blocks and norm. The reference
 stacks each pattern slot's weights over layer groups and scans over the
 groups, unrolling the remainder (recurrentgemma's 38 = 12×3 + 2); here the
 group loop is a plain Python loop over ``LM.blocks``, whose layer ``i`` is
@@ -15,6 +17,8 @@ maps the reference's tree onto it).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -32,39 +36,51 @@ from repro_torch.models.params import Params, init_params
 from repro_torch.optim import AdamWState, adamw_init, adamw_update, warmup_cosine
 
 
-def _slot_defs(cfg: ModelConfig, kind: str) -> dict[str, dict]:
+def _slot_defs(cfg: ModelConfig, kind: str,
+               cross: bool = False) -> dict[str, dict]:
     """Weight declarations of one block, by sublayer (the reference's
     ``_slot_defs`` for the ``attn`` (SP or TP mode), ``rglru`` and ``rwkv``
-    kinds). An RWKV block has no ``ffn``: its channel mix is in ``mix``."""
+    kinds). An RWKV block has no ``ffn``: its channel mix is in ``mix``. An
+    attention block's ``ffn`` is the MoE where ``cfg.moe`` is set; with
+    ``cross`` (whisper's decoder) it also has ``ln_cross`` and ``cross``."""
     d = cfg.d_model
     if kind == "rwkv":
         return {"ln1": L.norm_defs(d), "ln2": L.norm_defs(d),
                 "mix": L.rwkv_defs(cfg)}
     if kind == "attn":
-        mix = L.attn_defs(cfg)
-    elif kind == "rglru":
-        mix = L.rglru_defs(cfg)
-    else:
-        raise ValueError(kind)
-    return {"ln1": L.norm_defs(d), "mix": mix, "ln2": L.norm_defs(d),
-            "ffn": L.mlp_defs(cfg)}
+        defs = {"ln1": L.norm_defs(d), "mix": L.attn_defs(cfg),
+                "ln2": L.norm_defs(d),
+                "ffn": L.moe_defs(cfg) if cfg.moe else L.mlp_defs(cfg)}
+        if cross:
+            defs.update(ln_cross=L.norm_defs(d),
+                        cross=L.attn_defs(cfg, cross=True))
+        return defs
+    if kind == "rglru":
+        return {"ln1": L.norm_defs(d), "mix": L.rglru_defs(cfg),
+                "ln2": L.norm_defs(d), "ffn": L.mlp_defs(cfg)}
+    raise ValueError(kind)
 
 
 class Block(nn.Module):
-    """One layer: norm → mixer (local attention or RG-LRU) → norm → MLP, or
-    an RWKV block (norm → time mix → norm → channel mix). The attention
-    mixer is named ``mix`` here; the reference calls it ``attn``."""
+    """One layer: norm → mixer (attention or RG-LRU) → [norm →
+    cross-attention] → norm → MLP or MoE, or an RWKV block (norm → time mix
+    → norm → channel mix). The attention mixer is named ``mix`` here; the
+    reference calls it ``attn``."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, device, dtype):
+    def __init__(self, cfg: ModelConfig, kind: str, device, dtype,
+                 cross: bool = False):
         super().__init__()
         self.kind = kind
-        for name, defs in _slot_defs(cfg, kind).items():
+        for name, defs in _slot_defs(cfg, kind, cross).items():
             self.add_module(name, Params(defs, device, dtype))
 
 
 class LM(nn.Module):
-    """A decoder-only LM: TP-mode blocks (recurrentgemma's and rwkv6's
-    kinds) or SP-mode dense attention blocks."""
+    """An LM of any family: TP-mode blocks (recurrentgemma's and rwkv6's
+    kinds) or SP-mode attention blocks (dense, MoE, VLM), and for the
+    encoder-decoder family (whisper) the decoder's blocks with
+    cross-attention, ``enc_blocks`` (``encoder_layers`` attention blocks
+    with a dense MLP) and ``enc_norm``."""
 
     def __init__(self, cfg: ModelConfig, device="cuda",
                  dtype=torch.float32):
@@ -72,10 +88,17 @@ class LM(nn.Module):
         check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
+        cross = cfg.family == "encdec"
         self.embed = Params(L.embed_defs(cfg), dev, dtype)
         self.blocks = nn.ModuleList(
-            Block(cfg, kind, dev, dtype) for kind in layer_kinds(cfg))
+            Block(cfg, kind, dev, dtype, cross) for kind in layer_kinds(cfg))
         self.final_norm = Params(L.norm_defs(cfg.d_model), dev, dtype)
+        if cross:
+            enc_cfg = dataclasses.replace(cfg, moe=None)
+            self.enc_blocks = nn.ModuleList(
+                Block(enc_cfg, "attn", dev, dtype)
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = Params(L.norm_defs(cfg.d_model), dev, dtype)
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
@@ -95,9 +118,12 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
 # ---------------------------------------------------------------------------
 
 
-def _block_fwd(x, blk: Block, cfg: ModelConfig, capture: bool = False):
-    """One block. x: (B, S, d). Returns (x, cache): the layer's contribution
-    to the serving cache when ``capture`` (prefill), else {}."""
+def _block_fwd(x, blk: Block, cfg: ModelConfig, capture: bool = False,
+               enc=None, aux: list | None = None):
+    """One block. x: (B, S, d); ``enc`` the encoder's output that a
+    cross-attention block attends. Returns (x, cache): the layer's
+    contribution to the serving cache when ``capture`` (prefill), else {}.
+    An MoE block appends its {lb_loss, drop_frac} to ``aux``."""
     if blk.kind == "rwkv":
         # Time-chunked whole block; the state and shifts carry across chunks.
         return L.rwkv_block_chunked(x, blk, cfg, capture=capture)
@@ -118,24 +144,72 @@ def _block_fwd(x, blk: Block, cfg: ModelConfig, capture: bool = False):
     else:
         raise ValueError(blk.kind)
     x = x + a
+    if hasattr(blk, "cross") and enc is not None:
+        h = L.apply_norm(x, blk.ln_cross, dtype, cfg.norm)
+        c = L.attn_sp(h, blk.cross, cfg, causal=False, kv_source=enc,
+                      use_rope=False, return_kv=capture)
+        if capture:
+            c, cache["cross_kv_full"] = c
+        x = x + c
     h = L.apply_norm(x, blk.ln2, dtype, cfg.norm)
-    return x + L.mlp_tp(h, blk.ffn, cfg.mlp), cache
+    if blk.kind == "attn" and cfg.moe is not None:
+        y, moe_aux = L.moe_sp(h, blk.ffn, cfg)
+        if aux is not None:
+            aux.append(moe_aux)
+    else:
+        y = L.mlp_tp(h, blk.ffn, cfg.mlp)
+    return x + y, cache
+
+
+def _encoder_block_fwd(x, blk: Block, cfg: ModelConfig):
+    """One encoder block (whisper): non-causal self-attention with RoPE,
+    then the dense MLP."""
+    dtype = x.dtype
+    h = L.apply_norm(x, blk.ln1, dtype, cfg.norm)
+    x = x + L.attn_sp(h, blk.mix, cfg, causal=False)
+    h = L.apply_norm(x, blk.ln2, dtype, cfg.norm)
+    return x + L.mlp_sp(h, blk.ffn, cfg)
+
+
+def encode(model: LM, frames, dtype=torch.bfloat16):
+    """The encoder over stub frame embeddings (B, S_enc, d): its blocks,
+    then ``enc_norm``."""
+    cfg = model.cfg
+    enc = frames.to(dtype)
+    for blk in model.enc_blocks:
+        enc = _encoder_block_fwd(enc, blk, cfg)
+    return L.apply_norm(enc, model.enc_norm, dtype, cfg.norm)
 
 
 def forward_hidden(model: LM, tokens, dtype=torch.bfloat16,
-                   capture: bool = False):
-    """Token ids (B, S) → final-norm hidden states (B, S, d); with
-    ``capture`` also the per-layer cache contributions, in layer order."""
+                   capture: bool = False, frames=None, patches=None,
+                   aux: bool = False):
+    """Token ids (B, S) (+ the stub frontends' inputs) → final-norm hidden
+    states (B, S, d); with ``capture`` also the per-layer cache
+    contributions, in layer order; with ``aux`` then also the MoE's
+    {lb_loss, drop_frac}, each the mean over layers (zeros without MoE).
+
+    VLM (llava): ``patches`` (B, P, d) overwrite the token embeddings at
+    positions [0, P) (``cfg.patch_positions``). Encoder-decoder (whisper):
+    ``frames`` (B, S_enc, d) run through the encoder, and every decoder
+    block cross-attends to its output."""
     cfg = model.cfg
     x = L.embed_tokens(tokens, model.embed, dtype)
-    captured = []
+    if cfg.family == "vlm":
+        n = min(cfg.patch_positions, x.shape[1])
+        x = torch.cat([patches[:, :n].to(dtype), x[:, n:]], 1)
+    enc = encode(model, frames, dtype) if cfg.family == "encdec" else None
+    captured, auxes = [], []
     for blk in model.blocks:
-        x, cap = _block_fwd(x, blk, cfg, capture=capture)
+        x, cap = _block_fwd(x, blk, cfg, capture=capture, enc=enc, aux=auxes)
         captured.append(cap)
     x = L.apply_norm(x, model.final_norm, dtype, cfg.norm)
-    if capture:
-        return x, captured
-    return x
+    out = (x, captured) if capture else (x,)
+    if aux:
+        zero = torch.zeros((), device=x.device)
+        out += ({n: torch.stack([a[n] for a in auxes]).mean() if auxes
+                 else zero for n in ("lb_loss", "drop_frac")},)
+    return out if len(out) > 1 else x
 
 
 # ---------------------------------------------------------------------------

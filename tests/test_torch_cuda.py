@@ -1384,3 +1384,94 @@ def test_serve_dense_reduced_on_card(dev, arch):
                    dtype=torch.float32, device=dev)
     assert aops.launch_count - a0 == 2 * 3
     assert ids.shape == (2, 4) and bool(((ids >= 0) & (ids < 512)).all())
+
+
+FAMILIES = ("mixtral-8x7b", "arctic-480b", "whisper-tiny",
+            "llava-next-mistral-7b")
+
+
+def _frontend(cfg, b, dev, gen):
+    """The stub frontend's input of an encdec or VLM twin, else nothing."""
+    if cfg.family == "encdec":
+        return {"frames": 0.1 * torch.randn(b, cfg.encoder_seq, cfg.d_model,
+                                            generator=gen, device=dev)}
+    if cfg.family == "vlm":
+        return {"patches": 0.1 * torch.randn(
+            b, cfg.patch_positions, cfg.d_model, generator=gen, device=dev)}
+    return {}
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_decode_step_never_waits_on_the_card(dev, arch):
+    """The MoE, encdec and VLM twins' decode steps issue their work without
+    making the host wait (the MoE's routing, sort, capacity and scatter
+    have shapes fixed by the batch; whisper's cross-attention positions are
+    made on the card): under ``set_sync_debug_mode("error")`` a
+    synchronising call raises. mixtral's 70-token prompt is longer than
+    its 64-token window: the ring wraps."""
+    cfg = get_reduced(arch)
+    model = T.init_model(cfg, 0, dev, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prompt, steps = 70, 4
+    prompts = torch.randint(0, cfg.vocab_size, (2, prompt), generator=gen,
+                            device=dev)
+    with torch.inference_mode():
+        cache, h = SV.prefill(model, prompts, prompt + steps,
+                              dtype=torch.bfloat16, kv_dtype=torch.bfloat16,
+                              **_frontend(cfg, 2, dev, gen))
+        tok = SV.vocab_parallel_argmax((h[:, -1:] @ model.embed.head).float())
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(steps):
+                tok, _, cache = SV.decode_step(model, cache, tok,
+                                               prompt + steps, torch.bfloat16)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert cache["t"] == prompt + steps
+    assert bool(((tok >= 0) & (tok < cfg.vocab_size)).all())
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "arctic-480b"])
+@pytest.mark.parametrize("t", [4, 256])
+def test_moe_tokens_on_card_matches_cpu(dev, arch, t):
+    """``moe_tokens`` on the card against its CPU run in float32, the same
+    weights and tokens (with a common mean, so that some pairs drop at
+    T = 256): the routing (experts, sort order, kept pairs, slots) and
+    ``drop_frac`` exactly, y and ``lb_loss`` at 1e-4 (products summed in
+    another order); the routing held 1e-4 from ties first."""
+    from repro_torch.models import layers as L
+
+    cfg = get_reduced(arch)
+    model = T.init_model(cfg, 0, "cpu", torch.float32)
+    ffn = model.blocks[0].ffn
+    x = torch.randn(t, cfg.d_model,
+                    generator=torch.Generator().manual_seed(t)) + 1.0
+    r_cpu = L.moe_route(x, ffn.router, cfg)
+    p = r_cpu["probs"].sort(-1, descending=True).values
+    assert float((p[:, 1] - p[:, 2]).min()) >= 1e-4
+    y_cpu, aux_cpu = L.moe_tokens(x, ffn, cfg)
+    ffn_dev = T.init_model(cfg, 0, "cpu", torch.float32).to(dev).blocks[0].ffn
+    y, aux = L.moe_tokens(x.to(dev), ffn_dev, cfg)
+    r = L.moe_route(x.to(dev), ffn_dev.router, cfg)
+    for name in ("expert", "order", "ok", "slot"):
+        assert torch.equal(r[name].cpu(), r_cpu[name]), name
+    assert float(aux["drop_frac"]) == float(aux_cpu["drop_frac"])
+    if t == 256:
+        assert float(aux_cpu["drop_frac"]) > 0
+    torch.testing.assert_close(y.cpu(), y_cpu, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux["lb_loss"].cpu(), aux_cpu["lb_loss"],
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_serve_family_reduced_on_card(dev, arch):
+    """The MoE, encdec and VLM twins through ``serve`` on the card in
+    float32: one ``decode_attention`` launch a layer a decode step, and for
+    whisper one more over the encoder's K/V."""
+    cross = get_reduced(arch).family == "encdec"
+    a0 = aops.launch_count
+    ids, _ = serve(arch, batch=2, prompt_len=70, gen=4, seed=3,
+                   dtype=torch.float32, device=dev)
+    assert aops.launch_count - a0 == (1 + cross) * 2 * 3
+    assert ids.shape == (2, 4) and bool(((ids >= 0) & (ids < 512)).all())
