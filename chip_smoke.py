@@ -222,7 +222,24 @@ a register and a wide softmax kernel):
    tokens from the full-depth backbone, 100 MAP steps, the reference
    example's MALA FlyMC for 20 iterations with ``backend="pallas",
    z_backend="fused"``; ms/iter, queries/iter, mean bright tokens against
-   N, three wide launches a step, both kernels held on the final state).
+   N, three wide launches a step, both kernels held on the final state);
+17. trains the SP-mode families through ``train_reduced`` at their
+   published widths (``train_sp_path``): llama3.2-3b whole (28 layers,
+   remat), mixtral-8x7b cut to 2 of 32 layers (all 8 experts, the
+   ``lb_loss`` term), qwen1.5-110b cut to 1 of 80 layers (bf16 AdamW
+   moments, the QKV bias), whisper-tiny whole (remat; 1,504 frames) and
+   llava-next-mistral-7b cut to 12 of 32 layers (remat; 576 patch rows);
+   f32 master weights, bf16 compute, batch 2 × 2048 tokens, 4 steps each:
+   one ``fused_ce`` launch a step and no ``decode_attention``,
+   ``rglru_scan`` or ``rwkv6_scan`` launch, finite losses and gradient
+   norms, qwen1.5-110b's moments stored in bf16; prints step ms (median
+   after the first), tokens/s, peak memory beside the training state's
+   bytes, losses, gradient norms, mixtral's ``lb_loss`` and
+   ``drop_frac``, and llama3.2-3b's step split by CUDA events. Before it,
+   with the kernel phases, ``fused_ce`` and ``FusedCE``'s backward (chunks
+   of B·c = 512 rows, the SP loss's) are held against their plain versions
+   at each new head: T = 4,096 and (D, V) = (3,072, 128,256),
+   (4,096, 32,000), (8,192, 152,064) and (384, 51,968).
 
 Any failure raises (nonzero exit, no result line). The build's ptxas
 registers, shared memory and spills are printed per kernel. The last two
@@ -372,6 +389,20 @@ FAMILY_BATCH, FAMILY_GEN = 4, 8
 # the forward, the prefill or the decode step); whisper and llava whole.
 FAMILY_EXACT = (("mixtral-8x7b", 2, 1, 7), ("whisper-tiny", None, 2, 64),
                 ("llava-next-mistral-7b", None, 2, 640))
+# SP-mode training through launch/train.py at published widths, bf16
+# compute, f32 master weights, batch 2 × 2048 tokens, 4 steps:
+# (arch, layers or None for all, remat). llama3.2-3b whole (57.7 GB of
+# training state: it fits only with remat), mixtral-8x7b cut to 2 of 32
+# layers (50.6 GB), qwen1.5-110b to 1 of 80 (46.2 GB with its bf16
+# moments), whisper-tiny whole, llava-next-mistral-7b to 12 of 32 (46.1 GB).
+# arctic-480b (163 GB of state a layer) waits for expert parallelism.
+SP_TRAIN = (("llama3.2-3b", None, True), ("mixtral-8x7b", 2, False),
+            ("qwen1.5-110b", 1, False), ("whisper-tiny", None, True),
+            ("llava-next-mistral-7b", 12, True))
+SP_STEPS, SP_BATCH, SP_SEQ = 4, 2, 2049
+# The new LM heads of fused_ce on the SP path (d_model, padded vocab come
+# from these configs; llava's is mixtral's): T = SP_BATCH × (SP_SEQ − 1).
+SP_HEADS = ("llama3.2-3b", "mixtral-8x7b", "qwen1.5-110b", "whisper-tiny")
 
 
 def log(msg: str) -> None:
@@ -3007,10 +3038,12 @@ def fused_ce_phase(name, t, d, v, dtype, dev, gen, round_logits=False):
             "library_max_abs_err": lib_err}
 
 
-def fused_ce_grad_phase(t, d, v, dev, gen, name="backward-f32"):
-    """``FusedCE``'s backward (the reference's chunk VJP) at the path's
-    shape in float32, against autograd through the plain version over
-    1024-token chunks: dx and dw within 1e-4 of their largest value."""
+def fused_ce_grad_phase(t, d, v, dev, gen, name="backward-f32",
+                        chunk=None):
+    """``FusedCE``'s backward (the reference's chunk VJP, ``chunk`` rows a
+    chunk: the TP loss's 256 by default) at the path's shape in float32,
+    against autograd through the plain version over 1024-token chunks: dx
+    and dw within 1e-4 of their largest value."""
     from repro_torch.kernels.fused_ce import ops
     from repro_torch.kernels.fused_ce.ref import fused_ce_ref
 
@@ -3018,11 +3051,12 @@ def fused_ce_grad_phase(t, d, v, dev, gen, name="backward-f32"):
     w = torch.randn(d, v, generator=gen, device=dev) / d**0.5
     lab = torch.randint(0, v, (t,), generator=gen, device=dev)
     c = torch.rand(t, generator=gen, device=dev) / t
+    chunk = chunk or ops.BWD_CHUNK
 
     def backward_ms(dtype):
         xg = x.to(dtype, copy=True).requires_grad_()
         wg = w.to(dtype, copy=True).requires_grad_()
-        loss = (ops.fused_ce(xg, wg, lab) * c).sum()
+        loss = (ops.fused_ce(xg, wg, lab, chunk=chunk) * c).sum()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss.backward()
@@ -3047,13 +3081,13 @@ def fused_ce_grad_phase(t, d, v, dev, gen, name="backward-f32"):
         torch.testing.assert_close(a, ref, rtol=0, atol=1e-4 * scale)
         errs.append(float((a - ref).abs().max()) / scale)
     log(f"FusedCE backward[T={t} D={d} V={v} float32, chunks of "
-        f"{ops.BWD_CHUNK}]: max|Δ dx|, max|Δ dw| = {errs[0]:.3g}, "
+        f"{chunk}]: max|Δ dx|, max|Δ dw| = {errs[0]:.3g}, "
         f"{errs[1]:.3g} of their largest value (tolerance 1e-4); backward "
         f"{bwd_ms:.3f} ms in float32 (first call), {bwd_bf16_ms:.3f} ms in "
         f"bfloat16 (second call; host clock)")
     del x, w, wr, dx, dw, dx_ref
     torch.cuda.empty_cache()
-    return {"phase": name, "T": t, "D": d, "V": v,
+    return {"phase": name, "T": t, "D": d, "V": v, "chunk": chunk,
             "max_rel_err": max(errs), "bwd_ms": bwd_ms,
             "bwd_bf16_ms": bwd_bf16_ms}
 
@@ -3170,6 +3204,29 @@ def train_kernel_phases(dev):
     ce_grads.append(fused_ce_grad_phase(t, d, v, dev, tgen,
                                         name="twin-backward"))
     return ce, ce_grads
+
+
+def sp_ce_phases(dev):
+    """``fused_ce`` (bf16 in the path's rounding mode) and ``FusedCE``'s
+    backward (float32; chunks of B·c = 512 rows, the SP loss's) at each new
+    LM head of the SP training path (``SP_HEADS``: T = 4,096 tokens of the
+    config's d_model and padded vocabulary). Returns (forward phases,
+    backward phases)."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    t = SP_BATCH * (SP_SEQ - 1)
+    chunk = SP_BATCH * min(SP_SEQ - 1, 256)
+    ce, grads = [], []
+    for arch in SP_HEADS:
+        cfg = get_config(arch)
+        d, v = cfg.d_model, cfg.padded_vocab()
+        ce.append(fused_ce_phase(arch, t, d, v, torch.bfloat16, dev, gen,
+                                 round_logits=True))
+        grads.append(fused_ce_grad_phase(t, d, v, dev, gen,
+                                         name=f"{arch}-backward",
+                                         chunk=chunk))
+    return ce, grads
 
 
 def train_path(dev):
@@ -3299,12 +3356,13 @@ def train_resume_path(dev, n_full: int):
     return launches
 
 
-def step_breakdown(model, dev):
+def step_breakdown(model, dev, remat: bool = False):
     """One more training step at the path's width, split by CUDA events:
     the forward (``loss_fn``, with its ``fused_ce`` launch), the backward
-    (``loss.backward()``, with the CE's chunked VJP and 2 ``rglru_scan``
-    launches) and the optimizer (global norm, clip and AdamW over every
-    parameter), as ``make_train_step`` runs them."""
+    (``loss.backward()``, with the CE's chunked VJP, and for
+    recurrentgemma 2 ``rglru_scan`` launches; with ``remat`` the groups'
+    forwards again) and the optimizer (global norm, clip and AdamW over
+    every parameter), as ``make_train_step`` runs them."""
     from repro_torch.launch.train import synthetic_batch
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw_update, warmup_cosine
@@ -3316,7 +3374,7 @@ def step_breakdown(model, dev):
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     torch.cuda.synchronize()
     ev[0].record()
-    loss, _ = T.loss_fn(model, batch, torch.bfloat16)
+    loss, _ = T.loss_fn(model, batch, torch.bfloat16, remat=remat)
     ev[1].record()
     loss.backward()
     ev[2].record()
@@ -3334,8 +3392,9 @@ def step_breakdown(model, dev):
     parts = {"forward_ms": ev[0].elapsed_time(ev[1]),
              "backward_ms": ev[1].elapsed_time(ev[2]),
              "optimizer_ms": ev[2].elapsed_time(ev[3])}
-    log(f"train step breakdown [{ARCH} full width, {model.cfg.n_layers} "
-        f"layers, bf16, batch {TRAIN_BATCH} x {TRAIN_SEQ - 1}; CUDA events]: "
+    log(f"train step breakdown [{model.cfg.name} full width, "
+        f"{model.cfg.n_layers} layers, bf16, remat {remat}, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ - 1}; CUDA events]: "
         + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
     return parts
 
@@ -3359,6 +3418,96 @@ def descent_check(model, dev):
         raise AssertionError(f"loss did not fall on a fixed batch: {losses}")
     del opt
     torch.cuda.empty_cache()
+
+
+def train_sp_path(dev):
+    """The SP-mode families through ``train_reduced`` at their published
+    widths (``SP_TRAIN``), bf16 compute, f32 master weights, batch
+    SP_BATCH × (SP_SEQ − 1), SP_STEPS steps each: one ``fused_ce`` launch a
+    step and no other kernel's, finite losses and gradient norms, moments
+    stored in the config's ``opt_dtype`` (bf16 for qwen1.5-110b). Prints
+    per model the step ms (median after the first), tokens/s, peak memory
+    beside the training state (weights, gradients, m and v), losses,
+    gradient norms, and mixtral's ``lb_loss`` and ``drop_frac``; then
+    llama3.2-3b's step split by :func:`step_breakdown`. Returns ({arch:
+    fused_ce launches}, {arch: numbers})."""
+    from repro_torch.kernels.decode_attention import ops as aops
+    from repro_torch.kernels.fused_ce import ops as cops
+    from repro_torch.kernels.rglru_scan import ops as rops
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.train import train_reduced
+
+    launches, numbers = {}, {}
+    init_opt = train_mod.T.init_opt
+    for arch, n_layers, remat in SP_TRAIN:
+        made = []
+
+        def recorded(model):  # the AdamW state train_reduced makes
+            made.append(init_opt(model))
+            return made[-1]
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cops.launch_count = rops.launch_count = rops.bwd_launch_count = 0
+        aops.launch_count = wops.launch_count = 0
+        train_mod.T.init_opt = recorded
+        try:
+            model, hist = train_reduced(
+                arch, steps=SP_STEPS, batch=SP_BATCH, seq=SP_SEQ,
+                log_every=SP_STEPS, seed=0, full=True, n_layers=n_layers,
+                dtype=torch.bfloat16, device=dev, remat=remat)
+        finally:
+            train_mod.T.init_opt = init_opt
+        got = {"fused_ce": cops.launch_count,
+               "decode_attention": aops.launch_count,
+               "rglru_scan": rops.launch_count,
+               "rwkv6_scan": wops.launch_count}
+        want = {"fused_ce": SP_STEPS, "decode_attention": 0, "rglru_scan": 0,
+                "rwkv6_scan": 0}
+        if got != want:
+            raise AssertionError(f"{arch} training launches {got}, want "
+                                 f"{want}")
+        if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                   for h in hist):
+            raise AssertionError(f"{arch} training not finite: {hist}")
+        cfg = model.cfg
+        opt_dtype = getattr(torch, cfg.opt_dtype)
+        (opt,) = made
+        bad = [n for n, t in list(opt.m.items()) + list(opt.v.items())
+               if t.dtype != opt_dtype]
+        if bad or int(opt.step) != SP_STEPS:
+            raise AssertionError(f"{arch}: AdamW state step {int(opt.step)}, "
+                                 f"moments not {opt_dtype}: {bad[:4]}")
+        del opt, made
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        state = n_params * (4 + 4 + 2 * torch.finfo(opt_dtype).bits // 8)
+        step_ms = statistics.median(h["seconds"] for h in hist[1:]) * 1e3
+        tokens = SP_BATCH * (SP_SEQ - 1)
+        moe = (f", lb_loss {[round(h['lb_loss'], 5) for h in hist]}, "
+               f"drop_frac {[round(h['drop_frac'], 6) for h in hist]}"
+               if cfg.moe is not None else "")
+        log(f"train sp [{arch} full width, {cfg.n_layers} of "
+            f"{train_mod.get_config(arch).n_layers} layers, "
+            f"{n_params / 1e9:.3f} B params, remat {remat}, bf16 compute, f32 "
+            f"master, {cfg.opt_dtype} AdamW moments, batch {SP_BATCH} x "
+            f"{SP_SEQ - 1} tokens, {SP_STEPS} steps; {card_line()}]: step ms "
+            f"{[round(h['seconds'] * 1e3, 3) for h in hist]}, median after "
+            f"the first {step_ms:.3f} ms, {tokens / step_ms * 1e3:.1f} "
+            f"tokens/s, peak memory {peak / 2**30:.2f} GiB "
+            f"({peak / 1e9:.2f} GB; training state {state / 1e9:.2f} GB); "
+            f"loss {[round(h['loss'], 4) for h in hist]}, grad norm "
+            f"{[round(h['grad_norm'], 4) for h in hist]}{moe}")
+        launches[arch] = got["fused_ce"]
+        numbers[arch] = {"step_ms": step_ms, "peak_gb": peak / 1e9,
+                         "state_gb": state / 1e9,
+                         "tokens_per_s": tokens / step_ms * 1e3}
+        if arch == "llama3.2-3b":
+            numbers[arch]["breakdown"] = step_breakdown(model, dev, remat)
+        del model, hist
+        torch.cuda.empty_cache()
+    return launches, numbers
 
 
 # ---------------------------------------------------------------------------
@@ -3742,6 +3891,7 @@ def main() -> int:
     scan, scan_bwd = rglru_kernel_phases(dev)
     wkv = rwkv_kernel_phases(dev)
     ce, ce_grads = train_kernel_phases(dev)
+    sp_ce, sp_ce_grads = sp_ce_phases(dev)
     wide = wide_kernel_phases(dev)
     done("kernel phases")
     launches = main_path(mnist)
@@ -3803,6 +3953,9 @@ def main() -> int:
     resumed_launches = train_resume_path(dev, n_train)
     torch.cuda.empty_cache()
     done("training")
+    sp_launches, _ = train_sp_path(dev)
+    torch.cuda.empty_cache()
+    done("SP-mode training")
 
     for p in bright + z + scan + scan_bwd:
         one_kernel_a_call(p, "bright_glm_kernel" if p in bright
@@ -3905,11 +4058,12 @@ def main() -> int:
          "replaces": "src/repro/kernels/fused_ce/kernel.py:88",
          "launches": train_launches["fused_ce"],
          "launches_resumed": resumed_launches["fused_ce"],
-         "max_abs_err": max(p["max_abs_err"] for p in ce),
+         **{f"launches_train_{a}": v for a, v in sp_launches.items()},
+         "max_abs_err": max(p["max_abs_err"] for p in ce + sp_ce),
          "ms": ce[0]["ms"], "call_ms": ce[0]["call_ms"],
          "plain_ms": ce[0]["plain_ms"], "bound_ms": ce[0]["bound_ms"],
          "bound_by": ce[0]["bound_by"], "library_ms": ce[0]["library_ms"],
-         "phases": ce + ce_grads},
+         "phases": ce + ce_grads + sp_ce + sp_ce_grads},
     ]}
     log(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps(table), flush=True)

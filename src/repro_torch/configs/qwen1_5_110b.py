@@ -20,7 +20,7 @@ CONFIG = ModelConfig(
     parallel_mode="sp",
     subquadratic=False,
     # bf16 AdamW moments beside f32 master weights: the reference's choice
-    # for its sharded training run (the port's dense training: ROADMAP
-    # queue 1 item 9g).
+    # for its sharded training run, which the port's AdamW keeps
+    # (optim/adamw.py: the update in float32, the stored moments rounded).
     opt_dtype="bfloat16",
 )

@@ -177,12 +177,15 @@ def adamw_state(opt_np, model: LM) -> AdamWState:
     """The reference's ``AdamWState`` (numpy leaves: ``step``, and ``m`` and
     ``v`` trees shaped like the parameters) as the port's state for
     ``model``: moments keyed by ``model.named_parameters()`` names, on the
-    model's device, float32."""
+    model's device, in the config's ``opt_dtype`` as the reference keeps
+    them (bfloat16 moments are exact in the float32 twin they pass
+    through)."""
     dev = model.final_norm.scale.device
+    dtype = getattr(torch, model.cfg.opt_dtype)
 
     def moments(tree):
         twin = lm_params(tree, model.cfg, dev, torch.float32)
-        return {n: p.detach() for n, p in twin.named_parameters()}
+        return {n: p.detach().to(dtype) for n, p in twin.named_parameters()}
 
     m, v = moments(opt_np.m), moments(opt_np.v)
     if set(m) != {n for n, _ in model.named_parameters()}:

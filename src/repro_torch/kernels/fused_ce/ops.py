@@ -1,8 +1,9 @@
 """Wrapper for the fused cross-entropy kernel: checks, launch, launch count,
 and the ``FusedCE`` autograd Function.
 
-Entry point of :func:`repro_torch.models.layers.ce_loss_tp`, one call per
-training step over the flattened (B·S, d) hidden. A CUDA tensor goes to
+Entry point of :func:`repro_torch.models.layers.ce_loss_tp` and
+:func:`~repro_torch.models.layers.ce_loss_sp`, one call per training step
+over the flattened (B·S, d) hidden. A CUDA tensor goes to
 ``csrc/fused_ce.cu`` (or the wrapper raises): bfloat16 inputs to its
 TMA-fed ``wgmma`` kernel, float32 inputs to its CUDA-core kernel; a CPU
 tensor goes to the plain version in :mod:`.ref`. ``round_logits`` (bfloat16
@@ -11,11 +12,13 @@ reference's bf16 ``ce_loss_tp`` does; without it the logits are the float32
 products that the TPU kernel forms.
 
 The reference defines no VJP for its kernel: the training step's gradient is
-the autodiff of ``ce_loss_tp``'s checkpointed 256-token chunk. ``FusedCE``'s
-backward is that VJP written out, per token chunk of 256: recompute the
-chunk's logits in the compute dtype, softmax over the whole vocabulary in
-float32, ``dlogits = ḡ·(softmax − onehot)`` cast back to the compute dtype,
-then ``dx = dlogits·wᵀ`` and ``dw += xᵀ·dlogits``. Those are plain matrix
+the autodiff of the loss's checkpointed token chunk. ``FusedCE``'s backward
+is that VJP written out, per chunk of ``chunk`` consecutive rows (256 by
+default, the TP loss's chunk; the SP loss lays its (B, c) chunks out as
+consecutive rows and passes B·c): recompute the chunk's logits in the
+compute dtype, softmax over the whole vocabulary in float32,
+``dlogits = ḡ·(softmax − onehot)`` cast back to the compute dtype, then
+``dx = dlogits·wᵀ`` and ``dw += xᵀ·dlogits``. Those are plain matrix
 products, as the reference leaves them to XLA; the (T, V) logits are never
 whole in memory.
 """
@@ -100,16 +103,17 @@ def lse_and_target(x, w, labels, round_logits: bool = False):
     raise ValueError(f"fused_ce: unsupported device {x.device}")
 
 
-def ce_backward(x, w, labels, g, need_x=True, need_w=True):
-    """(dx, dw) of Σ_t g_t·nll_t, chunk by chunk over the tokens (see the
-    module docstring). dx comes back in x's dtype; dw is summed over the
-    chunks in float32 and returned in w's dtype."""
+def ce_backward(x, w, labels, g, need_x=True, need_w=True,
+                chunk: int = BWD_CHUNK):
+    """(dx, dw) of Σ_t g_t·nll_t, ``chunk`` rows at a time (see the module
+    docstring). dx comes back in x's dtype; dw is summed over the chunks,
+    in order, in float32 and returned in w's dtype."""
     dtype = x.dtype
     dx = torch.empty_like(x) if need_x else None
     dw = (torch.zeros(w.shape, dtype=torch.float32, device=w.device)
           if need_w else None)
-    for t0 in range(0, x.shape[0], BWD_CHUNK):
-        t1 = t0 + BWD_CHUNK
+    for t0 in range(0, x.shape[0], chunk):
+        t1 = t0 + chunk
         xc = x[t0:t1]
         p = torch.softmax((xc @ w).float(), dim=-1)
         rows = torch.arange(xc.shape[0], device=x.device)
@@ -131,22 +135,25 @@ class FusedCE(torch.autograd.Function):
     chunked VJP as its backward. Differentiable in x and w."""
 
     @staticmethod
-    def forward(ctx, x, w, labels, round_logits):
+    def forward(ctx, x, w, labels, round_logits, chunk):
         lse, tgt = lse_and_target(x, w, labels, round_logits)
         ctx.save_for_backward(x, w, labels)
+        ctx.chunk = chunk
         return lse - tgt
 
     @staticmethod
     def backward(ctx, g):
         x, w, labels = ctx.saved_tensors
         need_x, need_w = ctx.needs_input_grad[:2]
-        dx, dw = ce_backward(x, w, labels, g, need_x, need_w)
-        return dx, dw, None, None
+        dx, dw = ce_backward(x, w, labels, g, need_x, need_w, ctx.chunk)
+        return dx, dw, None, None, None
 
 
-def fused_ce(x, w, labels, round_logits: bool = False):
+def fused_ce(x, w, labels, round_logits: bool = False,
+             chunk: int = BWD_CHUNK):
     """Per-token NLL (T,) float32 = logsumexp(x·w) − (x·w)[label], the
     reference's ``ops.fused_ce``; differentiable in x and w. With
     ``round_logits`` (bfloat16) the forward takes the bf16 logits whose
-    gradient the backward returns."""
-    return FusedCE.apply(x, w, labels, round_logits)
+    gradient the backward returns. ``chunk``: rows a backward chunk (the
+    forward is one launch whatever it is)."""
+    return FusedCE.apply(x, w, labels, round_logits, chunk)

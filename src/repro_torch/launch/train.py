@@ -4,9 +4,14 @@ The port's counterpart of :mod:`repro.launch.train` (its CPU-scale mode):
 draw a model from a seed, then run :func:`repro_torch.models.transformer.
 make_train_step` on batches of a Markov-ish synthetic stream. ``full=True``
 runs the published configuration (``n_layers`` cuts its depth); otherwise
-its reduced twin. Float32 master weights and AdamW state; the forward and
-backward compute in ``dtype``. Runs on the card unless the caller passes
-``device="cpu"``.
+its reduced twin. Every family trains: the TP-mode recurrences and the
+SP-mode dense, MoE, encoder-decoder and VLM stacks (the last two on stub
+frames or patches drawn with the batch). Float32 master weights; AdamW
+moments in the config's ``opt_dtype`` (bfloat16 for qwen1.5-110b and
+arctic-480b); the forward and backward compute in ``dtype``. ``remat``
+checkpoints each layer group's activations, as the reference's mesh-mode
+step does (:func:`repro_torch.models.transformer.forward_hidden`). Runs on
+the card unless the caller passes ``device="cpu"``.
 
 With ``ckpt_dir`` the training state — the named parameters, the AdamW
 state and the batch generator's state — is saved every ``ckpt_every``
@@ -16,12 +21,20 @@ the checkpoint, so a resumed run draws the batches the contiguous run
 draws: losses, parameters and optimizer state are bitwise the contiguous
 run's.
 
-Usage (on a machine with an NVIDIA GPU; 3 layers of recurrentgemma-9b at
-full width peak at ~58 GB with their f32 weights, gradients, AdamW state and
-activations at batch 2 × 2048, and 38 layers do not fit one 80 GB card):
+Usage (on a machine with an NVIDIA GPU, at batch 2 × 2048). The training
+state is 16 bytes a parameter (f32 weights, gradients, m and v; 12 with
+bf16 moments) before activations: 3 layers of recurrentgemma-9b peak at
+~58 GB, and 38 layers do not fit one 80 GB card; llama3.2-3b whole is
+57.7 GB of state and fits only with ``--remat`` (each of its 28 layers
+keeps ~2 GB of attention and MLP activations without it); 2 layers of
+mixtral-8x7b are 50.6 GB, 1 layer of qwen1.5-110b 46.2 GB (bf16 moments),
+12 layers of llava-next-mistral-7b 46.1 GB; whisper-tiny is small;
+one arctic-480b layer is 163 GB and waits for expert parallelism:
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch recurrentgemma-9b --full --n-layers 3 --batch 2 --seq 2049
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch llama3.2-3b --full --remat --batch 2 --seq 2049 --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --dtype float32                      # the reduced twin, seconds
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -52,14 +65,23 @@ def synthetic_batch(gen: torch.Generator, cfg, batch: int, seq: int):
     """``seq`` tokens per row, each either uniform or (with probability ½)
     a copy of the token 7 places back (a roll, as the reference's), drawn
     from ``gen`` on its device; returns {"tokens", "labels"}, each (batch,
-    seq − 1) int64, the labels shifted by one."""
+    seq − 1) int64, the labels shifted by one. The encoder-decoder family
+    also gets "frames" (batch, encoder_seq, d), the VLM "patches" (batch,
+    patch_positions, d), each 0.1·N(0, 1) float32 from ``gen`` after the
+    tokens, as the reference draws its stub frontends' inputs."""
     dev = gen.device
     base = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
                          device=dev)
     shifted = torch.roll(base, 7, dims=1)
     use_copy = torch.rand((batch, seq), generator=gen, device=dev) < 0.5
     tokens = torch.where(use_copy, shifted, base)
-    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    out = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    rows = {"encdec": ("frames", cfg.encoder_seq),
+            "vlm": ("patches", cfg.patch_positions)}.get(cfg.family)
+    if rows is not None:
+        out[rows[0]] = 0.1 * torch.randn(batch, rows[1], cfg.d_model,
+                                         generator=gen, device=dev)
+    return out
 
 
 def _clock(dev: torch.device) -> float:
@@ -73,12 +95,13 @@ def train_reduced(arch: str, steps: int = 100, batch: int = 8, seq: int = 129,
                   warmup_steps: int = 20, seed: int = 0, full: bool = False,
                   n_layers: int | None = None, dtype=torch.bfloat16,
                   device="cuda", ckpt_dir: str | None = None,
-                  ckpt_every: int = 50):
+                  ckpt_every: int = 50, remat: bool = False):
     """Train ``arch`` (its reduced twin, or the published width with
     ``full``; ``n_layers`` cuts the depth) for ``steps`` steps of ``batch``
     × (``seq`` − 1) tokens. Returns (model, history): one dict per step run
-    here with loss, nll, grad_norm, lr and the step's seconds (host clock
-    around ``torch.cuda.synchronize()``). Raises ``FloatingPointError`` if
+    here with loss, nll, lb_loss, drop_frac, grad_norm, lr and the step's
+    seconds (host clock around ``torch.cuda.synchronize()``). ``remat``:
+    activation checkpointing (the same numbers, less memory). Raises ``FloatingPointError`` if
     the loss stops being finite. ``ckpt_dir``: resume from its newest
     intact step (raises when every saved step is corrupt), and save there
     after every ``ckpt_every``-th step (asynchronously; joined before
@@ -92,7 +115,7 @@ def train_reduced(arch: str, steps: int = 100, batch: int = 8, seq: int = 129,
     model.requires_grad_(True)
     opt = T.init_opt(model)
     step_fn = T.make_train_step(cfg, dtype=dtype, peak_lr=peak_lr,
-                                warmup_steps=warmup_steps)
+                                warmup_steps=warmup_steps, remat=remat)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     ck = Checkpointer(ckpt_dir) if ckpt_dir is not None else None
     start = 0
@@ -156,13 +179,15 @@ def main():
                     help="checkpoint directory: resume from its newest "
                          "intact step, save every --ckpt-every steps")
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--remat", action="store_true",
+                    help="checkpoint each layer group's activations")
     args = ap.parse_args()
     _, history = train_reduced(
         args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
         peak_lr=args.lr, warmup_steps=args.warmup_steps, seed=args.seed,
         full=args.full, n_layers=args.n_layers, dtype=_DTYPES[args.dtype],
         device=args.device, ckpt_dir=args.ckpt_dir,
-        ckpt_every=args.ckpt_every)
+        ckpt_every=args.ckpt_every, remat=args.remat)
     print(f"final loss {history[-1]['loss']:.4f} "
           f"(started {history[0]['loss']:.4f})")
 

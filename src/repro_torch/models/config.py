@@ -122,13 +122,8 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 
 # What the port lacks, by the ROADMAP item (queue 1) that adds it.
 _MISSING = {
-    "remat": "remat through torch.utils.checkpoint (ROADMAP queue 1 item 9c)",
     "rwkv_train": "rwkv6 training on the card: a WKV6 backward (ROADMAP "
                   "queue 1 item 9b)",
-    "dense_train": "dense, MoE, encdec and VLM (SP-mode) training: "
-                   "ce_loss_sp, the swiglu, QKV-bias, MoE (with its lb_loss "
-                   "term) and cross-attention backward, bf16 AdamW moments "
-                   "(ROADMAP queue 1 item 9g)",
 }
 
 
@@ -154,15 +149,13 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def check_trainable(cfg: ModelConfig, device) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for a config
-    the port cannot train on ``device`` (a ``torch.device`` or its name):
-    the SP-mode families (dense, MoE, encdec, VLM), and any config with an
-    MoE (the loss lacks its balance term), on neither device; on
-    the card every block kind needs a kernel with a backward, which
-    ``attn`` and ``rglru`` have and ``rwkv`` has not yet; on the CPU every
-    TP-mode kind differentiates through its plain version."""
+    the port cannot train on ``device`` (a ``torch.device`` or its name).
+    Every family trains on both devices (the SP-mode dense, MoE, encdec and
+    VLM stacks and the TP-mode recurrences) except that on the card every
+    block kind needs a kernel with a backward, which ``attn`` and ``rglru``
+    have and ``rwkv`` has not yet; on the CPU every kind differentiates
+    through its plain version."""
     check_supported(cfg)
-    if cfg.parallel_mode == "sp" or cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: {_MISSING['dense_train']}")
     kind = getattr(device, "type", str(device).split(":")[0])
     if kind == "cuda" and "rwkv" in cfg.block_pattern:
         raise NotImplementedError(f"{cfg.name}: {_MISSING['rwkv_train']}")

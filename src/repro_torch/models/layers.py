@@ -21,8 +21,9 @@ for the same recurrence. The RWKV6 WKV goes through
 :mod:`repro_torch.kernels.rwkv6_scan`, a CUDA kernel on the card; the
 reference's model path runs the same chunked closed form (``_wkv_chunk``)
 under ``lax.scan``. The cross-entropy's logsumexp and target logit go
-through :mod:`repro_torch.kernels.fused_ce`, a CUDA kernel on the card; the
-reference's model path computes them in jnp over 256-token chunks.
+through :mod:`repro_torch.kernels.fused_ce`, a CUDA kernel on the card, in
+both modes (``ce_loss_tp``, ``ce_loss_sp``); the reference's model path
+computes them in jnp over token chunks.
 """
 
 from __future__ import annotations
@@ -598,8 +599,11 @@ def embed_tokens(ids, w: Params, dtype):
     """ids: (B, S) → (B, S, d). Rows are gathered, then cast (the reference
     casts the table first; the values are the same). One lookup for both
     modes: on one device the reference's vocab-parallel psum (TP) and
-    reduce-scatter into sequence parallelism (SP) are identities."""
-    return w.table[ids].to(dtype)
+    reduce-scatter into sequence parallelism (SP) are identities.
+    ``F.embedding``, not ``table[ids]``: the indexing's backward accumulates
+    a repeated id's rows in an order that changes from run to run on the
+    CPU, the embedding's backward in a fixed one."""
+    return F.embedding(ids, w.table).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -619,4 +623,36 @@ def ce_loss_tp(x, labels, w: Params, cfg: ModelConfig):
     head = w.head.to(x.dtype)
     nll = ce_ops.fused_ce(x.reshape(b * s, d), head, labels.reshape(b * s),
                           round_logits=x.dtype == torch.bfloat16)
+    return nll.sum(), b * s
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy — SP mode
+# ---------------------------------------------------------------------------
+
+
+def ce_loss_sp(x, labels, w: Params, cfg: ModelConfig):
+    """SP-mode cross-entropy on one device (the reference's ``ce_loss_sp``
+    with its model axis of 1): x (B, S, d) final-norm hidden, labels
+    (B, S). Returns (Σ per-token NLL (float32 scalar), token count).
+
+    The reference scans over sequence chunks of c = min(S, 256) tokens
+    (its default chunk, ``fused_ce``'s ``BWD_CHUNK``), halved until c
+    divides S, each chunk's (B, c) rows one
+    checkpointed step. Here the hidden is laid out as (S/c, B, c, d), so
+    that chunk j's rows are consecutive, and goes through one
+    :func:`~repro_torch.kernels.fused_ce.ops.fused_ce` call whose backward
+    takes B·c rows a chunk: the reference's chunks, in its order. In
+    bfloat16 the logits are rounded to bfloat16 before the softmax, as in
+    :func:`ce_loss_tp`."""
+    b, s, d = x.shape
+    c = min(s, ce_ops.BWD_CHUNK)
+    while s % c:
+        c //= 2
+    n = s // c
+    rows = x.reshape(b, n, c, d).transpose(0, 1).reshape(n * b * c, d)
+    lab = labels.reshape(b, n, c).transpose(0, 1).reshape(n * b * c)
+    nll = ce_ops.fused_ce(rows, w.head.to(x.dtype), lab,
+                          round_logits=x.dtype == torch.bfloat16,
+                          chunk=b * c)
     return nll.sum(), b * s

@@ -19,14 +19,15 @@ maps the reference's tree onto it).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import (
-    _MISSING,
     ModelConfig,
     check_supported,
     check_trainable,
@@ -123,7 +124,8 @@ def _block_fwd(x, blk: Block, cfg: ModelConfig, capture: bool = False,
     """One block. x: (B, S, d); ``enc`` the encoder's output that a
     cross-attention block attends. Returns (x, cache): the layer's
     contribution to the serving cache when ``capture`` (prefill), else {}.
-    An MoE block appends its {lb_loss, drop_frac} to ``aux``."""
+    An MoE block appends its {lb_loss, drop_frac} to ``aux``, a list the
+    caller makes afresh for each run (see :func:`_group_fwd`)."""
     if blk.kind == "rwkv":
         # Time-chunked whole block; the state and shifts carry across chunks.
         return L.rwkv_block_chunked(x, blk, cfg, capture=capture)
@@ -171,41 +173,123 @@ def _encoder_block_fwd(x, blk: Block, cfg: ModelConfig):
     return x + L.mlp_sp(h, blk.ffn, cfg)
 
 
-def encode(model: LM, frames, dtype=torch.bfloat16):
-    """The encoder over stub frame embeddings (B, S_enc, d): its blocks,
-    then ``enc_norm``."""
+def _checkpoint(fn, *args):
+    """``fn(*args)`` under activation checkpointing (the reference's
+    ``jax.checkpoint``): the forward keeps only ``args``, and the backward
+    runs ``fn`` again. Non-reentrant, so checkpoints nest and the backward
+    graph is the one the first run recorded: the same values and the same
+    gradients, accumulated in the same order."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def encode(model: LM, frames, dtype=torch.bfloat16, remat: bool = False):
+    """The encoder over stub frame embeddings (B, S_enc, d): its blocks
+    (with ``remat``, each under its own checkpoint), then ``enc_norm``."""
     cfg = model.cfg
     enc = frames.to(dtype)
     for blk in model.enc_blocks:
-        enc = _encoder_block_fwd(enc, blk, cfg)
+        if remat:
+            enc = _checkpoint(_encoder_block_fwd, enc, blk, cfg)
+        else:
+            enc = _encoder_block_fwd(enc, blk, cfg)
     return L.apply_norm(enc, model.enc_norm, dtype, cfg.norm)
+
+
+def _group_fwd(x, blocks, cfg: ModelConfig, enc, capture: bool = False):
+    """One layer group (``len(cfg.block_pattern)`` blocks). Returns (x, the
+    group's MoE {lb_loss, drop_frac}, each the mean over its MoE blocks, or
+    None; the blocks' cache contributions). The aux is returned, not
+    appended to a caller's list: under a checkpoint the backward runs this
+    again, and an append would count the group twice."""
+    auxes, caches = [], []
+    for blk in blocks:
+        x, cache = _block_fwd(x, blk, cfg, capture=capture, enc=enc,
+                              aux=auxes)
+        caches.append(cache)
+    aux = ({n: torch.stack([a[n] for a in auxes]).mean() for n in auxes[0]}
+           if auxes else None)
+    return x, aux, caches
+
+
+def _groups_fwd(x, groups, cfg: ModelConfig, enc, remat: bool,
+                capture: bool = False):
+    """``groups`` in order, each under its own checkpoint with ``remat``.
+    Returns (x, the groups' aux in order, the blocks' cache
+    contributions in layer order)."""
+    auxes, caches = [], []
+    for blocks in groups:
+        if remat:
+            x, aux, cache = _checkpoint(_group_fwd, x, blocks, cfg, enc)
+        else:
+            x, aux, cache = _group_fwd(x, blocks, cfg, enc, capture)
+        auxes.append(aux)
+        caches += cache
+    return x, auxes, caches
+
+
+def _inner_groups(n_groups: int) -> int:
+    """Groups an outer checkpoint holds in the reference's two-level (√L)
+    remat: the largest divisor of ``n_groups`` in [2, √n_groups] from 8
+    groups up, else 1 (one level)."""
+    if n_groups < 8:
+        return 1
+    return max((f for f in range(2, math.isqrt(n_groups) + 1)
+                if n_groups % f == 0), default=1)
 
 
 def forward_hidden(model: LM, tokens, dtype=torch.bfloat16,
                    capture: bool = False, frames=None, patches=None,
-                   aux: bool = False):
+                   aux: bool = False, remat: bool = False):
     """Token ids (B, S) (+ the stub frontends' inputs) → final-norm hidden
     states (B, S, d); with ``capture`` also the per-layer cache
     contributions, in layer order; with ``aux`` then also the MoE's
-    {lb_loss, drop_frac}, each the mean over layers (zeros without MoE).
+    {lb_loss, drop_frac}: as the reference, each group's mean over its
+    blocks, then the mean over groups (zeros without MoE; the remainder
+    layers' are not counted).
 
     VLM (llava): ``patches`` (B, P, d) overwrite the token embeddings at
     positions [0, P) (``cfg.patch_positions``). Encoder-decoder (whisper):
     ``frames`` (B, S_enc, d) run through the encoder, and every decoder
-    block cross-attends to its output."""
+    block cross-attends to its output.
+
+    ``remat`` (training only): the reference's activation checkpointing.
+    Each group of ``len(cfg.block_pattern)`` blocks runs under a
+    checkpoint, the remainder layers (``extra*``) outside any; from 8
+    groups up the groups are nested in outer checkpoints of
+    :func:`_inner_groups` groups each (llama3.2-3b's 28: 7 × 4), so that
+    only the outer boundaries' inputs stay live through the forward; each
+    encoder block has its own. The values and gradients are those without
+    it."""
     cfg = model.cfg
+    if remat and capture:
+        raise ValueError("remat is for training; a prefill captures its "
+                         "cache without it")
     x = L.embed_tokens(tokens, model.embed, dtype)
     if cfg.family == "vlm":
         n = min(cfg.patch_positions, x.shape[1])
         x = torch.cat([patches[:, :n].to(dtype), x[:, n:]], 1)
-    enc = encode(model, frames, dtype) if cfg.family == "encdec" else None
-    captured, auxes = [], []
-    for blk in model.blocks:
-        x, cap = _block_fwd(x, blk, cfg, capture=capture, enc=enc, aux=auxes)
+    enc = (encode(model, frames, dtype, remat)
+           if cfg.family == "encdec" else None)
+    p = len(cfg.block_pattern)
+    n_groups = cfg.n_layers // p
+    blocks = list(model.blocks)
+    groups = [blocks[g * p:(g + 1) * p] for g in range(n_groups)]
+    inner = _inner_groups(n_groups) if remat else 1
+    if inner > 1:
+        auxes, captured = [], []
+        for o in range(0, n_groups, inner):
+            x, outs, _ = _checkpoint(_groups_fwd, x, groups[o:o + inner],
+                                     cfg, enc, True)
+            auxes += outs
+    else:
+        x, auxes, captured = _groups_fwd(x, groups, cfg, enc, remat, capture)
+    for blk in blocks[n_groups * p:]:
+        x, cap = _block_fwd(x, blk, cfg, capture=capture, enc=enc)
         captured.append(cap)
     x = L.apply_norm(x, model.final_norm, dtype, cfg.norm)
     out = (x, captured) if capture else (x,)
     if aux:
+        auxes = [a for a in auxes if a is not None]
         zero = torch.zeros((), device=x.device)
         out += ({n: torch.stack([a[n] for a in auxes]).mean() if auxes
                  else zero for n in ("lb_loss", "drop_frac")},)
@@ -217,14 +301,28 @@ def forward_hidden(model: LM, tokens, dtype=torch.bfloat16,
 # ---------------------------------------------------------------------------
 
 
-def loss_fn(model: LM, batch, dtype=torch.bfloat16):
-    """Mean next-token NLL over ``batch`` ({"tokens", "labels"}, each (B, S)
-    int) and its metrics {"loss", "nll"}: the reference's ``loss_fn`` on one
-    device with ``remat=False`` (untied head, no MoE balance term)."""
-    h = forward_hidden(model, batch["tokens"], dtype)
-    nll_sum, count = L.ce_loss_tp(h, batch["labels"], model.embed, model.cfg)
-    loss = nll_sum / count
-    return loss, {"loss": loss, "nll": loss}
+LB_COEF = 0.01  # the MoE balance term's weight: the reference's default
+
+
+def loss_fn(model: LM, batch, dtype=torch.bfloat16, remat: bool = False):
+    """The reference's ``loss_fn`` on one device: the mean next-token NLL
+    over ``batch`` ({"tokens", "labels"}, each (B, S) int, and whisper's
+    "frames" (B, S_enc, d) or llava's "patches" (B, P, d)), through
+    :func:`~repro_torch.models.layers.ce_loss_sp` in SP mode and
+    :func:`~repro_torch.models.layers.ce_loss_tp` in TP mode, plus
+    ``LB_COEF``·lb_loss where the config has an MoE. Returns (loss,
+    metrics {"loss", "nll", "lb_loss", "drop_frac"}); ``remat`` as in
+    :func:`forward_hidden`. The head is untied."""
+    cfg = model.cfg
+    h, aux = forward_hidden(model, batch["tokens"], dtype,
+                            frames=batch.get("frames"),
+                            patches=batch.get("patches"), aux=True,
+                            remat=remat)
+    ce = L.ce_loss_sp if cfg.parallel_mode == "sp" else L.ce_loss_tp
+    nll_sum, count = ce(h, batch["labels"], model.embed, cfg)
+    nll = nll_sum / count
+    loss = nll + LB_COEF * aux["lb_loss"] if cfg.moe is not None else nll
+    return loss, {"loss": loss, "nll": nll, **aux}
 
 
 def global_grad_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -236,8 +334,10 @@ def global_grad_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def init_opt(model: LM) -> AdamWState:
-    """Zero float32 AdamW moments for every parameter of ``model``."""
-    return adamw_init(dict(model.named_parameters()))
+    """Zero AdamW moments in the config's ``opt_dtype`` for every parameter
+    of ``model``."""
+    return adamw_init(dict(model.named_parameters()),
+                      getattr(torch, model.cfg.opt_dtype))
 
 
 def make_train_step(cfg: ModelConfig, dtype=torch.bfloat16,
@@ -248,11 +348,11 @@ def make_train_step(cfg: ModelConfig, dtype=torch.bfloat16,
     stay in the model's dtype), the global norm clipped to ``clip_norm``
     (fused into AdamW as a gradient scale), the learning rate from
     :func:`~repro_torch.optim.warmup_cosine` at the optimizer's step, then
-    AdamW in place on the model and ``opt``. Metrics: loss, nll, grad_norm
-    and lr, as tensors. The model's parameters must require gradients
-    (``model.requires_grad_(True)``)."""
-    if remat:
-        raise NotImplementedError(f"{cfg.name}: {_MISSING['remat']}")
+    AdamW in place on the model and ``opt``. ``remat``: activation
+    checkpointing as in :func:`forward_hidden` (the reference's default;
+    the same numbers, less memory, one more forward). Metrics: loss, nll,
+    lb_loss, drop_frac, grad_norm and lr, as tensors. The model's
+    parameters must require gradients (``model.requires_grad_(True)``)."""
     check_supported(cfg)
 
     def train_step(model: LM, opt: AdamWState, batch) -> dict:
@@ -261,7 +361,7 @@ def make_train_step(cfg: ModelConfig, dtype=torch.bfloat16,
         for p in params.values():
             p.grad = None
         with torch.enable_grad():
-            loss, metrics = loss_fn(model, batch, dtype)
+            loss, metrics = loss_fn(model, batch, dtype, remat)
             loss.backward()
         grads = {}
         for name, p in params.items():

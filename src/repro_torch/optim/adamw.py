@@ -1,17 +1,23 @@
 """AdamW over a model's parameters — the port of :mod:`repro.optim.adamw`.
 
-The reference's update, term for term: m and v in float32 whatever the
-parameter dtype, the clip's ``grad_scale`` fused into the gradient read,
-bias correction as ``(m/c1) / (sqrt(v/c2) + eps)``, then decoupled weight
-decay inside the learning-rate product, ``p − lr·(step + wd·p)``. Not
+The reference's update, term for term: m and v read as float32 whatever
+their stored dtype, the clip's ``grad_scale`` fused into the gradient read,
+the new moments ``m2``, ``v2`` in float32, bias correction as
+``(m2/c1) / (sqrt(v2/c2) + eps)`` on those unrounded moments, then decoupled
+weight decay inside the learning-rate product, ``p − lr·(step + wd·p)``;
+only the stored moments are rounded to their dtype. Not
 ``torch.optim.AdamW``, which orders the bias correction and the decay
 differently and so gives other numbers.
 
 JAX returns new arrays; here the parameters and both moments are updated in
 place (under ``torch.no_grad()``), so the step holds no second copy of the
-model or of its optimizer state. ``m`` and ``v`` are float32 dicts keyed by
-the parameter names of ``model.named_parameters()`` (every config's
-``opt_dtype`` is float32).
+model or of its optimizer state. ``m`` and ``v`` are dicts keyed by the
+parameter names of ``model.named_parameters()``, in the config's
+``opt_dtype``: float32, or bfloat16 (qwen1.5-110b, arctic-480b: 12 bytes a
+parameter of weights, gradient and moments instead of 16). Each tensor is
+updated in flat slices of at most :data:`SLICE` elements: the update is
+elementwise, so the slices give the same bits as one pass, and a slice's
+float32 temporaries stay small beside a vocabulary-sized table.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+SLICE = 1 << 26  # elements a slice: 256 MB of float32 temporaries each
 
 
 @dataclasses.dataclass
@@ -28,14 +36,33 @@ class AdamWState:
     v: dict[str, torch.Tensor]  # second moments
 
 
-def adamw_init(params: dict[str, torch.Tensor]) -> AdamWState:
-    """Zero float32 moments shaped like ``params`` (name → tensor)."""
+def adamw_init(params: dict[str, torch.Tensor],
+               dtype=torch.float32) -> AdamWState:
+    """Zero moments in ``dtype`` (the config's ``opt_dtype``) shaped like
+    ``params`` (name → tensor)."""
     dev = next(iter(params.values())).device
-    zeros = lambda: {n: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+    zeros = lambda: {n: torch.zeros(p.shape, dtype=dtype, device=p.device)
                      for n, p in params.items()}
     return AdamWState(torch.zeros((), dtype=torch.int32, device=dev),
                       zeros(), zeros())
+
+
+def _update(p, g, m, v, c1, c2, lr, b1, b2, eps, weight_decay, grad_scale):
+    """One slice, in place: the reference's ``upd``."""
+    g = g.to(torch.float32)
+    if grad_scale is not None:
+        g = g * grad_scale  # fused clip: no scaled copy of the whole tree
+    m2, v2 = m.to(torch.float32), v.to(torch.float32)  # m, v when float32
+    m2.mul_(b1).add_(g * (1.0 - b1))
+    v2.mul_(b2).add_((g * (1.0 - b2)).mul_(g))
+    step = (m2 / c1).div_((v2 / c2).sqrt_().add_(eps))
+    if m2 is not m:  # stored rounded; the step took the float32 values
+        m.copy_(m2)
+        v.copy_(v2)
+    pf = p.to(torch.float32)  # the parameter itself when it is float32
+    pf.sub_(step.add_(pf * weight_decay).mul_(lr))
+    if pf is not p:
+        p.copy_(pf)
 
 
 @torch.no_grad()
@@ -58,16 +85,10 @@ def adamw_update(
     c1 = 1.0 - b1**tf
     c2 = 1.0 - b2**tf
     for name, p in params.items():
-        g = grads[name].to(torch.float32)
-        if grad_scale is not None:
-            g = g * grad_scale  # fused clip: no scaled copy of the whole tree
-        m, v = state.m[name], state.v[name]
-        m.mul_(b1).add_(g * (1.0 - b1))
-        v.mul_(b2).add_((g * (1.0 - b2)).mul_(g))
-        step = (m / c1).div_((v / c2).sqrt_().add_(eps))
-        pf = p.to(torch.float32)  # the parameter itself when it is float32
-        pf.sub_(step.add_(pf * weight_decay).mul_(lr))
-        if pf is not p:
-            p.copy_(pf)
+        flat = [p.view(-1), grads[name].reshape(-1),
+                state.m[name].view(-1), state.v[name].view(-1)]
+        for i in range(0, p.numel(), SLICE):
+            _update(*(a[i:i + SLICE] for a in flat), c1, c2, lr, b1, b2, eps,
+                    weight_decay, grad_scale)
     state.step = t
     return state

@@ -2,7 +2,9 @@
 exactness contracts of a short chain run on the device, one slice and one
 HMC step on the card against the CPU, the full-width
 recurrentgemma serving path, the rwkv6 serving path, the training path
-(the ``FusedCE`` and ``RGLRUScan`` gradients, the reduced trainer), and
+(the ``FusedCE`` and ``RGLRUScan`` gradients, the reduced trainer), the
+SP-mode families' training (dense, MoE, encdec, VLM twins against the CPU,
+``remat``, ``fused_ce`` at their heads, bf16 AdamW moments), and
 checkpoints of card tensors and of a service on the card.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without one;
@@ -1475,3 +1477,161 @@ def test_serve_family_reduced_on_card(dev, arch):
                    dtype=torch.float32, device=dev)
     assert aops.launch_count - a0 == (1 + cross) * 2 * 3
     assert ids.shape == (2, 4) and bool(((ids >= 0) & (ids < 512)).all())
+
+
+# ---------------------------------------------------------------------------
+# SP-mode training: the dense, MoE, encdec and VLM families
+# ---------------------------------------------------------------------------
+
+SP_TRAIN = ("llama3.2-3b", "mixtral-8x7b", "whisper-tiny",
+            "llava-next-mistral-7b")
+
+
+def _sp_steps(arch, dev, remat=False, steps=3):
+    """``steps`` float32 train steps of ``arch``'s twin on ``dev`` from the
+    seed-0 weights drawn on the CPU, on batches drawn on the CPU. Returns
+    (the step's metrics, the model, the AdamW state)."""
+    from repro_torch.launch.train import synthetic_batch
+
+    cfg = get_reduced(arch)
+    model = T.init_model(cfg, 0, "cpu", torch.float32).to(dev)
+    model.requires_grad_(True)
+    opt = T.init_opt(model)
+    step = T.make_train_step(cfg, dtype=torch.float32, peak_lr=1e-3,
+                             warmup_steps=0, remat=remat)
+    gen = torch.Generator().manual_seed(7)
+    mets = []
+    for _ in range(steps):
+        b = synthetic_batch(gen, cfg, 2, 65)
+        mets.append(step(model, opt, {k: v.to(dev) for k, v in b.items()}))
+    return mets, model, opt
+
+
+@pytest.mark.parametrize("arch", SP_TRAIN)
+def test_sp_twin_trains_on_card_as_on_cpu(dev, arch):
+    """Three float32 steps of each SP family's twin on the card: one
+    ``fused_ce`` launch a step, and each step's loss within 1e-3 of the same
+    run on the CPU (products summed in another order)."""
+    c0 = cops.launch_count
+    card, _, _ = _sp_steps(arch, dev)
+    torch.cuda.synchronize()
+    assert cops.launch_count - c0 == 3
+    cpu, _, _ = _sp_steps(arch, torch.device("cpu"))
+    for a, b in zip(card, cpu):
+        assert np.isfinite(float(a["loss"]))
+        assert abs(float(a["loss"]) - float(b["loss"])) <= 1e-3, (a, b)
+
+
+def test_remat_is_bitwise_on_card_for_mixtral(dev):
+    """``remat=True`` gives ``remat=False``'s bits on the card for the
+    mixtral twin: two steps' metrics, then every parameter and moment (its
+    top-2 dispatch's ``index_select`` backward adds two values a token,
+    which no order changes)."""
+    off = _sp_steps("mixtral-8x7b", dev, remat=False, steps=2)
+    on = _sp_steps("mixtral-8x7b", dev, remat=True, steps=2)
+    for a, b in zip(on[0], off[0]):
+        assert all(torch.equal(a[k], b[k]) for k in a), (a, b)
+    for (n, p), (_, q) in zip(on[1].named_parameters(),
+                              off[1].named_parameters()):
+        assert torch.equal(p, q), n
+        assert torch.equal(on[2].m[n], off[2].m[n])
+        assert torch.equal(on[2].v[n], off[2].v[n])
+
+
+@pytest.mark.parametrize("d,v", [(384, 51968), (8192, 152064)])
+def test_fused_ce_sp_heads_match_plain(dev, d, v):
+    """``fused_ce`` at whisper-tiny's and qwen1.5-110b's heads (T = 500, a
+    ragged token tile; enough tokens that the 1% allowance is more than one
+    token): bf16 in the path's rounding mode (within 1e-4 on 99% of the
+    tokens and one more bf16 ulp on every one) and float32 (1e-4), one
+    launch a call; then ``FusedCE``'s backward in chunks of 32 rows against
+    autograd through the plain version, float32, dx and dw within 1e-4 of
+    their largest value, as the smoke's backward phase holds them (dx sums
+    152,064 classes' products in float32 in another order)."""
+    g = torch.Generator().manual_seed(d + v)
+    t = 500
+    x = torch.randn(t, d, generator=g).to(dev)
+    w = (torch.randn(d, v, generator=g) / d**0.5).to(dev)
+    lab = torch.randint(0, v, (t,), generator=g)
+    lab[:4] = torch.tensor([0, v - 1, 1023, 1024])
+    lab = lab.to(dev)
+    xb, wb = x.bfloat16(), w.bfloat16()
+    before = cops.launch_count
+    lse, tgt = cops.lse_and_target(xb, wb, lab, round_logits=True)
+    lse32, tgt32 = cops.lse_and_target(x, w, lab)
+    torch.cuda.synchronize()
+    assert cops.launch_count == before + 2
+    lse_ref, tgt_ref = fused_ce_ref(xb, wb, lab, round_logits=True)
+    top = float((xb.float() @ wb.float()).abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    for a, ref in ((lse, lse_ref), (tgt, tgt_ref)):
+        err = (a - ref).abs()
+        assert float((err > 1e-4).float().mean()) <= 0.01
+        assert float(err.max()) <= 1e-4 + ulp
+    lse_ref, tgt_ref = fused_ce_ref(x, w, lab)
+    torch.testing.assert_close(lse32, lse_ref, rtol=0, atol=1e-4)
+    torch.testing.assert_close(tgt32, tgt_ref, rtol=0, atol=1e-4)
+    c = torch.rand(t, generator=g).to(dev)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (cops.fused_ce(xg, wg, lab, chunk=32) * c).sum().backward()
+    x2, w2 = x.clone().requires_grad_(), w.clone().requires_grad_()
+    lse, tgt = fused_ce_ref(x2, w2, lab)
+    ((lse - tgt) * c).sum().backward()
+    for a, ref in ((xg.grad, x2.grad), (wg.grad, w2.grad)):
+        torch.testing.assert_close(a, ref, rtol=0,
+                                   atol=1e-4 * float(ref.abs().max()))
+
+
+def _reference_tree(model, leaf):
+    """The reference's parameter tree for a one-slot-pattern ``model``
+    (``blocks/slot0`` stacked over the layers, the attention named
+    ``attn``), each leaf ``leaf(parameter)`` as numpy: what
+    ``convert.lm_params`` reads, built without JAX."""
+    def tree(mod):
+        out = {n: tree(c) for n, c in mod.named_children()}
+        out.update({n: leaf(getattr(mod, n)) for n in mod.defs})
+        return out
+
+    layers = [{("attn" if n == "mix" else n): tree(c)
+               for n, c in blk.named_children()} for blk in model.blocks]
+
+    def stack(*leaves):
+        if isinstance(leaves[0], dict):
+            return {k: stack(*(x[k] for x in leaves)) for k in leaves[0]}
+        return np.stack(leaves)
+
+    return {"embed": tree(model.embed), "final_norm": tree(model.final_norm),
+            "blocks": {"slot0": stack(*layers)}}
+
+
+def test_adamw_state_keeps_bf16_moments_on_card(dev):
+    """``convert.adamw_state`` carries the qwen1.5-110b twin's bfloat16
+    moments onto the card in bfloat16, bit for bit, and a train step there
+    keeps them bfloat16."""
+    from types import SimpleNamespace
+
+    from repro_torch import convert
+    from repro_torch.launch.train import synthetic_batch
+
+    cfg = get_reduced("qwen1.5-110b")
+    model = T.init_model(cfg, 0, dev, torch.float32).requires_grad_(True)
+    g = torch.Generator().manual_seed(9)
+    draw = lambda p: (torch.randn(p.shape, generator=g) * 1e-3).bfloat16(
+        ).float().numpy()
+    m = _reference_tree(model, draw)
+    v = _reference_tree(model, lambda p: np.abs(draw(p)) * 1e-3)
+    opt = convert.adamw_state(SimpleNamespace(step=np.int32(2), m=m, v=v),
+                              model)
+    assert int(opt.step) == 2
+    moments = dict(opt.m)
+    for n, t in list(opt.m.items()) + list(opt.v.items()):
+        assert t.dtype == torch.bfloat16 and t.device.type == dev.type, n
+    m_back = convert.lm_params(m, cfg, "cpu")
+    for n, p in m_back.named_parameters():
+        assert torch.equal(moments[n].cpu().float(), p.detach()), n
+    step = T.make_train_step(cfg, dtype=torch.bfloat16, warmup_steps=0)
+    b = synthetic_batch(torch.Generator(device=dev).manual_seed(1), cfg, 2,
+                        33)
+    met = step(model, opt, b)
+    assert np.isfinite(float(met["loss"])) and int(opt.step) == 3
+    assert all(t.dtype == torch.bfloat16 for t in opt.m.values())

@@ -216,9 +216,18 @@ def test_serve_cuts_depth():
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_dense_training_raises_naming_its_roadmap_item(device):
-    """Training is not this family's path yet: ce_loss_sp, the swiglu and
-    QKV-bias backward and bf16 moments wait for ROADMAP queue 1 item 9g, on
-    both devices."""
+    """This family trains now (ce_loss_sp, the swiglu and QKV-bias
+    backward, bf16 moments: ``tests/test_torch_train_sp.py``):
+    ``check_trainable`` accepts each twin and published config on both
+    devices, and the only thing it still refuses is an ``rwkv`` block on
+    the card, naming ROADMAP queue 1 item 9b."""
     for arch in DENSE:
-        with pytest.raises(NotImplementedError, match="item 9g"):
-            check_trainable(get_reduced(arch), device)
+        check_trainable(get_reduced(arch), device)
+        check_trainable(get_config(arch), device)
+    rwkv = dataclasses.replace(get_reduced(DENSE[0]), name="rwkv-like",
+                               block_pattern=("rwkv",))
+    if device == "cuda":
+        with pytest.raises(NotImplementedError, match="item 9b"):
+            check_trainable(rwkv, device)
+    else:
+        check_trainable(rwkv, device)
