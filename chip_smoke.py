@@ -239,7 +239,26 @@ a register and a wide softmax kernel):
    with the kernel phases, ``fused_ce`` and ``FusedCE``'s backward (chunks
    of B·c = 512 rows, the SP loss's) are held against their plain versions
    at each new head: T = 4,096 and (D, V) = (3,072, 128,256),
-   (4,096, 32,000), (8,192, 152,064) and (384, 51,968).
+   (4,096, 32,000), (8,192, 152,064) and (384, 51,968);
+18. trains rwkv6-7b through ``train_reduced`` (``train_rwkv_path``) at its
+   published width cut to 12 of 32 layers (3.158 B params, 50.52 GB of
+   f32 weights, gradients and AdamW moments), remat, bf16 compute, batch
+   2 × 2048 tokens, 4 steps: finite losses and gradient norms, one
+   ``fused_ce`` launch a step, 48 ``rwkv6_scan_bwd_kernel`` launches a step
+   (12 layers × 4 time chunks) and 128 forward launches (each layer's 4
+   time chunks run 32/12 times: 12 groups in 4 outer checkpoints of 3, see
+   :func:`train_rwkv_path`), no ``decode_attention`` or ``rglru_scan``
+   launch; prints step ms, tokens/s, peak memory beside the state, and the
+   step split by CUDA events. Before it, with the kernel phases, the WKV
+   backward (``rwkv_bwd_phases``: the forward that saves each chunk's
+   state bitwise the serving kernel, then ``RWKV6Scan``'s backward, one
+   ``rwkv6_scan_bwd_kernel`` launch and one device kernel a call, against
+   ``rwkv6_bwd_ref`` and autograd through the plain chunked WKV at B=2,
+   H=64, S=512, D=64 with a random state0 and both cotangents, the edge
+   decay log w ≡ -1, S=32 and S=1; every gradient within 1e-4 relative plus
+   1e-4 of its largest value; two calls bitwise equal; the kernel's device
+   ms, all the backward's device work, the call's and the plain
+   backward's ms beside the bound).
 
 Any failure raises (nonzero exit, no result line). The build's ptxas
 registers, shared memory and spills are printed per kernel. The last two
@@ -400,6 +419,10 @@ SP_TRAIN = (("llama3.2-3b", None, True), ("mixtral-8x7b", 2, False),
             ("qwen1.5-110b", 1, False), ("whisper-tiny", None, True),
             ("llava-next-mistral-7b", 12, True))
 SP_STEPS, SP_BATCH, SP_SEQ = 4, 2, 2049
+# rwkv6-7b training at its published width cut to 12 of 32 layers (3.158 B
+# params, 50.52 GB of f32 weights, gradients and AdamW moments; 32 layers
+# need 120 GB), remat, bf16 compute, batch 2 × 2048 tokens, 4 steps.
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_STEPS = 12, 4
 # The new LM heads of fused_ce on the SP path (d_model, padded vocab come
 # from these configs; llava's is mixtral's): T = SP_BATCH × (SP_SEQ − 1).
 SP_HEADS = ("llama3.2-3b", "mixtral-8x7b", "qwen1.5-110b", "whisper-tiny")
@@ -2821,6 +2844,126 @@ def rwkv_kernel_phases(dev):
     return phases
 
 
+def rwkv_grad_phase(name, b, h, s, d, logw, dev, gen):
+    """``RWKV6Scan`` at (B, H, S, D) with a random state0 and cotangents on
+    y and the final state: the state-saving forward's y and final state
+    bitwise the serving kernel's; the backward (one launch of
+    ``rwkv6_scan_bwd_kernel``, one device kernel a call, two calls bitwise
+    equal) against ``rwkv6_bwd_ref`` on the kernel's saved states and
+    against autograd through ``rwkv6_chunked_ref``, each gradient within
+    1e-4 relative plus 1e-4 of its largest value. ``bwd_ms`` is the
+    kernel's device time a call, ``bwd_device_ms`` the device time of all
+    the backward's work through autograd, ``bwd_call_ms`` that backward's
+    time between CUDA events, ``bwd_plain_ms`` ``rwkv6_bwd_ref``'s."""
+    from repro_torch.kernels.rwkv6_scan import ops
+    from repro_torch.kernels.rwkv6_scan.ref import (rwkv6_bwd_ref,
+                                                     rwkv6_chunked_ref)
+
+    r, k, v, dy = (torch.randn(b, h, s, d, generator=gen).to(dev)
+                   for _ in range(4))
+    lw = (-(1e-6 + (1.0 - 1e-6) * torch.rand(b, h, s, d, generator=gen))
+          if logw is None else torch.full((b, h, s, d), logw)).to(dev)
+    u = torch.randn(h, d, generator=gen).to(dev)
+    s0, ds = (torch.randn(b, h, d, d, generator=gen).to(dev)
+              for _ in range(2))
+    c = min(64, s)
+    y0, st0 = ops.rwkv6_scan(r, k, v, lw, u, s0)
+    y, st, states = ops._launch(r, k, v, lw, u, s0, c, save_states=True)
+    if not (torch.equal(y, y0) and torch.equal(st, st0)):
+        raise AssertionError(f"rwkv6_scan[{name}]: the state-saving forward "
+                             "differs from the serving kernel")
+    ins = [a.clone().requires_grad_() for a in (r, k, v, lw, u, s0)]
+    before = (ops.launch_count, ops.bwd_launch_count)
+    yg, stg = ops.rwkv6_scan(*ins)
+    got = torch.autograd.grad((yg, stg), ins, (dy, ds), retain_graph=True)
+    torch.cuda.synchronize()
+    if (ops.launch_count - before[0], ops.bwd_launch_count - before[1]) != (
+            2, 1):
+        raise AssertionError(f"rwkv6_scan[{name}] forward + backward "
+                             f"launched {ops.launch_count - before[0]} "
+                             "times, want 2 (1 backward)")
+    again = torch.autograd.grad((yg, stg), ins, (dy, ds), retain_graph=True)
+    if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+        raise AssertionError(f"rwkv6_scan backward[{name}]: two calls "
+                             "differ")
+    plain = rwkv6_bwd_ref(r, k, v, lw, u, states, dy, ds, c)
+    ref_ins = [a.clone().requires_grad_() for a in (r, k, v, lw, u, s0)]
+    yr, sr = rwkv6_chunked_ref(*ref_ins, chunk=c)
+    auto = torch.autograd.grad((yr, sr), ref_ins, (dy, ds))
+    torch.cuda.synchronize()
+    err, err_abs, err_auto = {}, 0.0, 0.0
+    for gname, a, p_, w in zip(("dr", "dk", "dv", "dlogw", "du", "dstate0"),
+                               got, plain, auto):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"rwkv6_scan backward[{name}]: {gname} "
+                                 "not finite")
+        for ref in (p_, w):
+            torch.testing.assert_close(a, ref, rtol=1e-4,
+                                       atol=1e-4 * float(ref.abs().max()))
+        err[gname] = float((a - p_).abs().max() / p_.abs().max())
+        err_abs = max(err_abs, float((a - p_).abs().max()))
+        err_auto = max(err_auto, float((a - w).abs().max()))
+    del yr, sr, auto, ref_ins, plain, again
+    only = lambda: torch.autograd.grad((yg, stg), ins, (dy, ds),
+                                       retain_graph=True)
+    call_ms = median_ms(only, reps=10, warm=2)
+    kernel_ms = device_ms(only, ("rwkv6_scan_bwd_kernel",), fallback=False)
+    all_ms = device_ms(only, ("",))
+    direct = lambda: ops.rwkv6_scan_backward(r, k, v, lw, u, states, dy, ds)
+    plain_ms = median_ms(
+        lambda: rwkv6_bwd_ref(r, k, v, lw, u, states, dy, ds, c), reps=5,
+        warm=1)
+    n = s // c
+    # bytes: r, k, v, logw, dy, the saved states, d_state and u read once;
+    # dr, dk, dv, dlogw, du and dstate0 written once. Operations: per chunk
+    # the nine products, the five with a strictly triangular factor (A,
+    # dA, Aᵀ·dy, dA·kk, dAᵀ·rq) at c(c-1)/2·D FMAs and the four with the
+    # state (k2·dS, dy·S₀ᵀ, v·dSᵀ, rqᵀ·dy) at c·D², two flops an FMA
+    b_ms, b_by = bound(
+        4 * (9 * b * h * s * d + b * h * n * d * d + 2 * b * h * d * d
+             + 2 * h * d),
+        2.0 * b * h * n * (5 * c * (c - 1) / 2 * d + 4 * c * d * d))
+    kernel = ("no rwkv6_scan_bwd_kernel ran" if kernel_ms is None
+              else f"backward kernel {kernel_ms:.6f} ms")
+    log(f"rwkv6_scan backward[{name}: B={b} H={h} S={s} D={d} c={c} "
+        f"logw={'U[-1,-1e-6]' if logw is None else logw}] max|Δ|/max vs "
+        f"rwkv6_bwd_ref {', '.join(f'{k_} {v_:.3g}' for k_, v_ in err.items())}"
+        f"; max|Δ| vs autograd {err_auto:.3g}; {kernel}, all the backward's "
+        f"device work {all_ms:.6f} ms, backward call {call_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    phase = {"phase": name, "B": b, "H": h, "S": s, "D": d, "c": c,
+             "logw": logw, "max_rel_err": err, "max_abs_err": err_abs,
+             "max_abs_err_autograd": err_auto,
+             "bwd_ms": kernel_ms, "bwd_device_ms": all_ms,
+             "bwd_call_ms": call_ms, "bwd_plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": b_by,
+             "device_kernels": device_kernels(direct)}
+    del yg, stg, ins, got, states
+    torch.cuda.empty_cache()
+    return phase
+
+
+def rwkv_bwd_phases(dev):
+    """The WKV backward at the shapes the rwkv6-7b training path gives it:
+    the published heads over one 512-step time chunk of the batch-2
+    training step (:func:`train_rwkv_path`); the edge decay; S=32 and
+    S=1."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import RWKV_TIME_CHUNK
+
+    cfg = get_config(RWKV_ARCH)
+    h, d = cfg.n_heads, cfg.resolved_head_dim
+    gen = torch.Generator().manual_seed(26)
+    b = TRAIN_BATCH
+    return [
+        rwkv_grad_phase("train", b, h, RWKV_TIME_CHUNK, d, None, dev, gen),
+        rwkv_grad_phase("edge-decay", b, h, RWKV_TIME_CHUNK, d, -1.0, dev,
+                        gen),
+        rwkv_grad_phase("short", b, h, 32, d, None, dev, gen),
+        rwkv_grad_phase("single", b, h, 1, d, None, dev, gen),
+    ]
+
+
 def _randomize_rwkv_zero_inits(model, seed: int) -> None:
     """Overwrite the init's zero token-shift mixes ``mu`` (uniform in [0,
     1]), decay LoRA ``wb`` and bonus ``u`` with seeded values, so a wrong
@@ -3510,6 +3653,86 @@ def train_sp_path(dev):
     return launches, numbers
 
 
+def train_rwkv_path(dev):
+    """rwkv6-7b through ``train_reduced`` at its published width cut to
+    RWKV_TRAIN_LAYERS layers, remat, bf16 compute, f32 master weights and
+    AdamW moments, batch TRAIN_BATCH × (TRAIN_SEQ − 1), RWKV_TRAIN_STEPS
+    steps. A step makes one ``fused_ce`` launch, one WKV backward launch a
+    layer and 512-token time chunk, and the forward launches of the group
+    forwards that remat runs: 12 one-layer groups nest in 4 outer
+    checkpoints of 3 (:func:`~repro_torch.models.transformer._inner_groups`),
+    so each group's forward runs once in the forward, once in its outer
+    checkpoint's recompute and, but for an outer checkpoint's last group,
+    once more in its own (``tests/test_torch_train_sp_steps.py::
+    test_remat_runs_each_group_forward_again``): 2·12 + 8 = 32 group
+    forwards, 128 WKV forwards over 4 time chunks. Prints step ms (median
+    after the first), tokens/s, peak memory beside the training state and
+    the step split by :func:`step_breakdown`. Returns (launches, numbers)."""
+    from repro_torch.kernels.decode_attention import ops as aops
+    from repro_torch.kernels.fused_ce import ops as cops
+    from repro_torch.kernels.rglru_scan import ops as rops
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.train import train_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import RWKV_TIME_CHUNK
+
+    steps, n_layers = RWKV_TRAIN_STEPS, RWKV_TRAIN_LAYERS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cops.launch_count = rops.launch_count = rops.bwd_launch_count = 0
+    aops.launch_count = wops.launch_count = wops.bwd_launch_count = 0
+    model, hist = train_reduced(RWKV_ARCH, steps=steps, batch=TRAIN_BATCH,
+                                seq=TRAIN_SEQ, log_every=steps, seed=0,
+                                full=True, n_layers=n_layers,
+                                dtype=torch.bfloat16, device=dev, remat=True)
+    chunks = (TRAIN_SEQ - 1) // RWKV_TIME_CHUNK
+    n_groups = n_layers // len(model.cfg.block_pattern)
+    inner = T._inner_groups(n_groups)
+    group_fwds = 2 * n_groups + (n_groups - n_groups // inner
+                                 if inner > 1 else 0)
+    bwd = wops.bwd_launch_count
+    launches = {"fused_ce": cops.launch_count,
+                "rwkv6_scan": wops.launch_count - bwd, "rwkv6_scan_bwd": bwd,
+                "decode_attention": aops.launch_count,
+                "rglru_scan": rops.launch_count}
+    want = {"fused_ce": steps, "rwkv6_scan": group_fwds * chunks * steps,
+            "rwkv6_scan_bwd": n_layers * chunks * steps,
+            "decode_attention": 0, "rglru_scan": 0}
+    if launches != want:
+        raise AssertionError(f"rwkv6 training launches {launches}, want "
+                             f"{want}")
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               for h in hist):
+        raise AssertionError(f"rwkv6 training not finite: {hist}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    state = n_params * 16
+    step_ms = statistics.median(h["seconds"] for h in hist[1:]) * 1e3
+    tokens = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    log(f"train rwkv [{RWKV_ARCH} full width, {n_layers} of "
+        f"{train_mod.get_config(RWKV_ARCH).n_layers} layers, "
+        f"{n_params / 1e9:.3f} B params, remat, bf16 compute, f32 master + "
+        f"AdamW, batch {TRAIN_BATCH} x {TRAIN_SEQ - 1} tokens, {steps} "
+        f"steps; {card_line()}]: step ms "
+        f"{[round(h['seconds'] * 1e3, 3) for h in hist]}, median after the "
+        f"first {step_ms:.3f} ms, {tokens / step_ms * 1e3:.1f} tokens/s, "
+        f"peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB; training "
+        f"state {state / 1e9:.2f} GB); loss "
+        f"{[round(h['loss'], 4) for h in hist]}, grad norm "
+        f"{[round(h['grad_norm'], 4) for h in hist]}; launches a step: "
+        f"fused_ce {launches['fused_ce'] / steps:g}, rwkv6_scan forward "
+        f"{launches['rwkv6_scan'] / steps:g} ({group_fwds} group forwards x "
+        f"{chunks} time chunks), backward "
+        f"{launches['rwkv6_scan_bwd'] / steps:g}")
+    numbers = {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+               "peak_gb": peak / 1e9, "state_gb": state / 1e9,
+               "breakdown": step_breakdown(model, dev, remat=True)}
+    del model, hist
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
 # ---------------------------------------------------------------------------
 # 16. The LM head (FlyMC over models/lastlayer.py) and the dense decoders
 # ---------------------------------------------------------------------------
@@ -3890,6 +4113,7 @@ def main() -> int:
     attn = lm_kernel_phases(dev)
     scan, scan_bwd = rglru_kernel_phases(dev)
     wkv = rwkv_kernel_phases(dev)
+    wkv_bwd = rwkv_bwd_phases(dev)
     ce, ce_grads = train_kernel_phases(dev)
     sp_ce, sp_ce_grads = sp_ce_phases(dev)
     wide = wide_kernel_phases(dev)
@@ -3956,12 +4180,16 @@ def main() -> int:
     sp_launches, _ = train_sp_path(dev)
     torch.cuda.empty_cache()
     done("SP-mode training")
+    rwkv_train_launches, _ = train_rwkv_path(dev)
+    torch.cuda.empty_cache()
+    done("rwkv6 training")
 
-    for p in bright + z + scan + scan_bwd:
+    for p in bright + z + scan + scan_bwd + wkv_bwd:
         one_kernel_a_call(p, "bright_glm_kernel" if p in bright
                           else "z_candidates_kernel" if p in z
                           else "rglru_scan_kernel" if p in scan
-                          else "rglru_scan_bwd_kernel")
+                          else "rglru_scan_bwd_kernel" if p in scan_bwd
+                          else "rwkv6_scan_bwd_kernel")
         del p["device_kernels"]  # checked; too long for the kernels line
     main_b = next(p for p in bright if p["phase"] == "logistic")
     main_z = next(p for p in z if p["phase"] == "mnist")
@@ -4049,15 +4277,23 @@ def main() -> int:
          "source": "src/repro_torch/csrc/rwkv6_scan.cu",
          "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:91",
          "launches": rwkv_launches["rwkv6_scan"],
-         "max_abs_err": max(p["max_abs_err"] for p in wkv),
+         "launches_train": rwkv_train_launches["rwkv6_scan"],
+         "launches_bwd_train": rwkv_train_launches["rwkv6_scan_bwd"],
+         "max_abs_err": max(p["max_abs_err"] for p in wkv + wkv_bwd),
          "ms": wkv[0]["ms"], "call_ms": wkv[0]["call_ms"],
          "plain_ms": wkv[0]["plain_ms"], "bound_ms": wkv[0]["bound_ms"],
-         "bound_by": wkv[0]["bound_by"], "library_ms": None, "phases": wkv},
+         "bound_by": wkv[0]["bound_by"], "library_ms": None,
+         "bwd_ms": wkv_bwd[0]["bwd_ms"],
+         "bwd_call_ms": wkv_bwd[0]["bwd_call_ms"],
+         "bwd_bound_ms": wkv_bwd[0]["bound_ms"],
+         "bwd_plain_ms": wkv_bwd[0]["bwd_plain_ms"],
+         "phases": wkv + wkv_bwd},
         {"name": "fused_ce", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_ce.cu",
          "replaces": "src/repro/kernels/fused_ce/kernel.py:88",
          "launches": train_launches["fused_ce"],
          "launches_resumed": resumed_launches["fused_ce"],
+         "launches_train_rwkv6-7b": rwkv_train_launches["fused_ce"],
          **{f"launches_train_{a}": v for a, v in sp_launches.items()},
          "max_abs_err": max(p["max_abs_err"] for p in ce + sp_ce),
          "ms": ce[0]["ms"], "call_ms": ce[0]["call_ms"],

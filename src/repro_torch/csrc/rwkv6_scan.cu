@@ -190,6 +190,9 @@ __device__ __forceinline__ void load_chunk(float* stage, const float* r,
   }
 }
 
+// kStates: also write the state entering each chunk to states (B, H, S/c,
+// D, D), for the backward; y and the final state are the same bits.
+template <bool kStates>
 __global__ void __launch_bounds__(kThreads, 2)
     rwkv6_scan_kernel(const float* __restrict__ r,  // (B, H, S, D)
                       const float* __restrict__ k,
@@ -199,6 +202,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                       const float* __restrict__ state0,  // (B, H, D, D) or null
                       float* __restrict__ y,  // (B, H, S, D)
                       float* __restrict__ state_out,  // (B, H, D, D)
+                      float* __restrict__ states,  // (B, H, S/c, D, D)
                       int H, int S, int D, int c, int vec) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -236,6 +240,11 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   for (int n = 0; n < n_chunks; ++n) {
     __syncthreads();  // chunk n - 1 is done with the stage, S and A
+    if (kStates) {  // S is written by step 3 only, two barriers on
+      float* out = states + ((size_t)bh * n_chunks + n) * D * D;
+      for (int i = tid; i < D * D; i += kThreads)
+        out[i] = st[(i / D) * kLdB + i % D];
+    }
     load_chunk(smem, r, k, v, logw, seq_base + (size_t)n * c * D, c, D, cp,
                dp, vec);
     cp_async_commit();
@@ -447,22 +456,418 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// rwkv6_scan_bwd_kernel — the backward of the chunked WKV6 above.
+//
+// Replaces no Pallas kernel: the JAX package has no backward for
+// rwkv6_pallas and trains rwkv6 by differentiating its jnp chunk,
+// repro/models/layers.py::_wkv_chunk, so this kernel takes the place of the
+// VJP that JAX derives from it. It computes kernels/rwkv6_scan/ref.py::
+// rwkv6_bwd_ref: for batch row b and head h it walks the chunks in reverse
+// with dS (the cotangent of the state leaving the chunk, from d_state or 0)
+// in shared memory, and per chunk, from the state S₀ entering it (written
+// by the forward's rwkv6_scan_kernel<true>, so nothing is recomputed by a
+// forward sweep here), forms the decay scan as the forward does (rq, kk,
+// k2, p_end; logp rounded as the forward rounds it), then
+//   A = tril_strict(rq·kkᵀ), dA = tril_strict(dy·vᵀ),
+//   dv = Aᵀ·dy + diag·dy + k2·dS,  drq = dA·kk + dy·S₀ᵀ,  dkk = dAᵀ·rq,
+//   dk2 = v·dSᵀ,  dS₀ = rqᵀ·dy + diag(p_end)·dS (the next chunk's dS),
+// dr and dk through the exp factors and the bonus, and dlogw as the reverse
+// cumulative sum of G = drq·rq − dkk·kk − dk2·k2 (plus Σ_j dk2·k2 and
+// dp_end·p_end at the chunk's last row) minus drq·rq, four threads a column
+// as the forward's scan. du = Σ_{b,t} (Σ_e dy·v)·r·k needs no recurrence:
+// the first H CTAs of the grid each sum one head's over its batch rows and
+// steps, in order, so du comes out of the same launch with no atomics and
+// no cross-CTA dependency; dstate0 is dS after chunk 0.
+//
+// What bounds it on an H100, at the training path's B=2, H=64, S=512,
+// D=64, c=64: bytes in (r, k, v, logw, dy; the saved states, 16.8 MB) and
+// out (dr, dk, dv, dlogw; dstate0), ~172 MB: 0.051 ms at 3.35 TB/s; and
+// float32 operations on the CUDA cores, counted as the function needs them
+// (the five triangular products as triangles), 3.47 GFLOP: 0.052 ms at 67
+// TFLOP/s. Nearly balanced. The design here is the simple one, right
+// first: each 64 × 64 tile of a chunk sits in shared memory with rows
+// padded to 65 floats, so every product reads its operands from shared
+// memory without bank conflicts in any of the four transposition cases;
+// each of the 256 threads keeps a 4 × 4 block of the output (rows ty + 16m,
+// columns tx + 16n) in registers, one FMA chain a value, over the full 64
+// of the reduced dimension (padding is zero; the triangles are not
+// skipped). Thirteen such tiles take 218 KB, so one CTA of 8 warps runs a
+// SM and the path's 128 (b, h) CTAs plus the 64 du CTAs take two partial
+// waves. It does ~1.4× the needed FMAs (full squares), loading two shared
+// operands for every four FMAs a thread, so shared-memory issue, not bytes
+// or the FMA pipe, should set its pace: it measured 0.461 ms, 8.9× the
+// bound (PERF.md). Skipping the triangles, the tensor cores (the
+// forward's 3xTF32 mma.sync) and staging the next chunk during this one
+// are the steps after it.
+// Padding as the forward: rows past c and columns past D are zero, so a
+// padded row's logw (0) adds nothing to the cumsum and every padded entry
+// of rq, kk, k2, A, dA, G is 0. Every sum runs in a fixed order: two calls
+// give the same bits.
+
+constexpr int kBwdThreads = 256;
+constexpr int kLdT = 65;  // row stride of every staged 64 × 64 tile
+constexpr int kTileF = 64 * kLdT;
+constexpr int kBwdTiles = 13;
+// tiles, then u, diag, ddiag, p_end, logp_c, dp_end (64 each) and the
+// (16 × 64) column partials
+constexpr int kBwdSmemFloats = kBwdTiles * kTileF + 6 * 64 + 16 * 64;
+constexpr int kBwdSmemBytes = 4 * kBwdSmemFloats;
+
+// acc[m][n] += Σ_{q<64} X(ty + 16m, q)·Y(q, tx + 16n), where X(i, q) is
+// X[q][i] if TX else X[i][q], and Y(q, j) is Y[j][q] if TY else Y[q][j].
+template <bool TX, bool TY>
+__device__ __forceinline__ void tile_mm(float (&acc)[4][4],
+                                        const float* __restrict__ X,
+                                        const float* __restrict__ Y, int tx,
+                                        int ty) {
+#pragma unroll 4
+  for (int q = 0; q < 64; ++q) {
+    float xa[4], yb[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int i = ty + 16 * m;
+      xa[m] = TX ? X[q * kLdT + i] : X[i * kLdT + q];
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int j = tx + 16 * n;
+      yb[n] = TY ? Y[j * kLdT + q] : Y[q * kLdT + j];
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(xa[m], yb[n], acc[m][n]);
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[4][4]) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) acc[m][n] = 0.f;
+}
+
+// du for head h: Σ over batch rows and steps, in order, of ddiag·r·k, 64
+// rows (b, t) at a time.
+__device__ void du_head(const float* __restrict__ r,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dy, float* __restrict__ du,
+                        float* smem, int h, int B, int H, int S, int D) {
+  float* R = smem;
+  float* K = R + kTileF;
+  float* V = K + kTileF;
+  float* DY = V + kTileF;
+  float* dd = DY + kTileF;
+  const int tid = threadIdx.x;
+  const long long rows = (long long)B * S;
+  float acc = 0.f;
+  for (long long base = 0; base < rows; base += 64) {
+    __syncthreads();
+    for (int i = tid; i < 64 * 64; i += kBwdThreads) {
+      const int row = i / 64, col = i % 64;
+      const long long gr = base + row;
+      const bool in = gr < rows && col < D;
+      const size_t gi =
+          in ? (((size_t)(gr / S) * H + h) * S + gr % S) * D + col : 0;
+      R[row * kLdT + col] = in ? r[gi] : 0.f;
+      K[row * kLdT + col] = in ? k[gi] : 0.f;
+      V[row * kLdT + col] = in ? v[gi] : 0.f;
+      DY[row * kLdT + col] = in ? dy[gi] : 0.f;
+    }
+    __syncthreads();
+    if (tid < 64) {
+      float s = 0.f;
+      for (int e = 0; e < 64; ++e) s += DY[tid * kLdT + e] * V[tid * kLdT + e];
+      dd[tid] = s;
+    }
+    __syncthreads();
+    if (tid < 64)
+      for (int row = 0; row < 64; ++row)
+        acc += dd[row] * R[row * kLdT + tid] * K[row * kLdT + tid];
+  }
+  if (tid < D) du[(size_t)h * D + tid] = acc;
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    rwkv6_scan_bwd_kernel(const float* __restrict__ r,  // (B, H, S, D)
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ logw,
+                          const float* __restrict__ u,  // (H, D)
+                          const float* __restrict__ states,  // (B, H, n, D, D)
+                          const float* __restrict__ dy,  // (B, H, S, D)
+                          const float* __restrict__ d_state,  // or null
+                          float* __restrict__ dr, float* __restrict__ dk,
+                          float* __restrict__ dv, float* __restrict__ dlogw,
+                          float* __restrict__ du,  // (H, D)
+                          float* __restrict__ dstate0,  // or null
+                          int B, int H, int S, int D, int c) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  if (blockIdx.x < H) {  // the first H CTAs: du, one head each
+    du_head(r, k, v, dy, du, smem, blockIdx.x, B, H, S, D);
+    return;
+  }
+  float* R = smem;
+  float* K = R + kTileF;
+  float* V = K + kTileF;
+  float* DY = V + kTileF;
+  float* EX = DY + kTileF;  // logw, then exp(logp - logw)
+  float* LP = EX + kTileF;  // logp
+  float* RQ = LP + kTileF;
+  float* KK = RQ + kTileF;
+  float* K2 = KK + kTileF;
+  float* S0 = K2 + kTileF;
+  float* DS = S0 + kTileF;
+  float* A = DS + kTileF;  // A, then G
+  float* DA = A + kTileF;  // dA, then drq·rq
+  float* us = DA + kTileF;
+  float* diag = us + 64;
+  float* ddiag = diag + 64;
+  float* pend = ddiag + 64;
+  float* lpc = pend + 64;
+  float* dpend = lpc + 64;
+  float* colp = dpend + 64;  // (16, 64): scan totals, then Σ dk2·k2 partials
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int sd = tid & 63, sq = tid >> 6;  // scan column and 16-row quarter
+  const int bh = blockIdx.x - H, h = bh % H;
+  const size_t seq_base = (size_t)bh * S * D;
+  const size_t st_base = (size_t)bh * D * D;
+  const int n_chunks = S / c;
+
+  if (tid < 64) us[tid] = tid < D ? u[(size_t)h * D + tid] : 0.f;
+  for (int i = tid; i < 64 * 64; i += kBwdThreads) {
+    const int d = i / 64, e = i % 64;
+    DS[d * kLdT + e] = (d_state && d < D && e < D)
+                           ? d_state[st_base + (size_t)d * D + e]
+                           : 0.f;
+  }
+
+  for (int n = n_chunks - 1; n >= 0; --n) {
+    __syncthreads();  // chunk n + 1 is done with every tile
+    const size_t off = seq_base + (size_t)n * c * D;
+    const float* s0g = states + ((size_t)bh * n_chunks + n) * D * D;
+    for (int i = tid; i < 64 * 64; i += kBwdThreads) {
+      const int row = i / 64, col = i % 64, at = row * kLdT + col;
+      const bool in = row < c && col < D;
+      const size_t gi = off + (size_t)row * D + col;
+      R[at] = in ? r[gi] : 0.f;
+      K[at] = in ? k[gi] : 0.f;
+      V[at] = in ? v[gi] : 0.f;
+      DY[at] = in ? dy[gi] : 0.f;
+      EX[at] = in ? logw[gi] : 0.f;
+      S0[at] = (row < D && col < D) ? s0g[(size_t)row * D + col] : 0.f;
+    }
+    __syncthreads();
+
+    // 1. the decay scan, rounded as the forward's: column sd, rows
+    //    16·sq .. 16·sq + 15, then the quarters' offsets in order
+    {
+      float lw[16], lp[16], run = 0.f;
+#pragma unroll
+      for (int m = 0; m < 16; ++m) {
+        lw[m] = EX[(16 * sq + m) * kLdT + sd];
+        run += lw[m];
+        lp[m] = run;
+      }
+      colp[sq * 64 + sd] = run;
+      __syncthreads();
+      float o = 0.f, offq = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (q == sq) offq = o;
+        o = q == 0 ? colp[sd] : o + colp[q * 64 + sd];
+      }
+      const float total = o;  // the last real row's logp
+      if (sq == 0) {
+        pend[sd] = expf(total);
+        lpc[sd] = total;
+      }
+#pragma unroll
+      for (int m = 0; m < 16; ++m) {
+        const int at = (16 * sq + m) * kLdT + sd;
+        const float l = offq + lp[m];
+        const float ex = expf(l - lw[m]);
+        const float kv = K[at];
+        LP[at] = l;
+        EX[at] = ex;
+        RQ[at] = R[at] * ex;
+        KK[at] = kv * expf(-l);
+        K2[at] = kv * expf(total - l);
+      }
+    }
+    __syncthreads();
+
+    // 2. A and dA, strictly lower triangular; the bonus diag, ddiag, dp_end
+    {
+      float acc[4][4];
+      zero(acc);
+      tile_mm<false, true>(acc, RQ, KK, tx, ty);
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int nn = 0; nn < 4; ++nn) {
+          const int i = ty + 16 * m, j = tx + 16 * nn;
+          A[i * kLdT + j] = j < i ? acc[m][nn] : 0.f;
+        }
+      zero(acc);
+      tile_mm<false, true>(acc, DY, V, tx, ty);
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int nn = 0; nn < 4; ++nn) {
+          const int i = ty + 16 * m, j = tx + 16 * nn;
+          DA[i * kLdT + j] = j < i ? acc[m][nn] : 0.f;
+        }
+      const int row = tid & 63;
+      float s = 0.f;
+      if (tid < 64) {
+        for (int d = 0; d < 64; ++d)
+          s += R[row * kLdT + d] * us[d] * K[row * kLdT + d];
+        diag[row] = s;
+      } else if (tid < 128) {
+        for (int e = 0; e < 64; ++e)
+          s += DY[row * kLdT + e] * V[row * kLdT + e];
+        ddiag[row] = s;
+      } else if (tid < 192) {
+        for (int e = 0; e < 64; ++e)
+          s += S0[row * kLdT + e] * DS[row * kLdT + e];
+        dpend[row] = s;
+      }
+    }
+    __syncthreads();
+
+    // 3. dv out; drq, dkk, dk2 → dr, dk out, G and drq·rq; dS₀
+    float g[4][4], x[4][4], ds0[4][4];
+    {
+      float a1[4][4], a2[4][4];
+      zero(a1);
+      zero(a2);
+      tile_mm<true, false>(a1, A, DY, tx, ty);  // Aᵀ·dy
+      tile_mm<false, false>(a2, K2, DS, tx, ty);  // k2·dS
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int nn = 0; nn < 4; ++nn) {
+          const int j = ty + 16 * m, e = tx + 16 * nn;
+          if (j < c && e < D)
+            dv[off + (size_t)j * D + e] =
+                a1[m][nn] + diag[j] * DY[j * kLdT + e] + a2[m][nn];
+        }
+    }
+    {
+      float drq[4][4], dkk[4][4], dk2[4][4];
+      zero(drq);
+      tile_mm<false, false>(drq, DA, KK, tx, ty);  // dA·kk
+      float t2[4][4];
+      zero(t2);
+      tile_mm<false, true>(t2, DY, S0, tx, ty);  // dy·S₀ᵀ
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int nn = 0; nn < 4; ++nn) drq[m][nn] += t2[m][nn];
+      zero(dkk);
+      tile_mm<true, false>(dkk, DA, RQ, tx, ty);  // dAᵀ·rq
+      zero(dk2);
+      tile_mm<false, true>(dk2, V, DS, tx, ty);  // v·dSᵀ
+      zero(ds0);
+      tile_mm<true, false>(ds0, RQ, DY, tx, ty);  // rqᵀ·dy
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) {
+        const int d = tx + 16 * nn;
+        float cs = 0.f;
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int i = ty + 16 * m, at = i * kLdT + d;
+          const float rq = RQ[at], kk = KK[at], k2 = K2[at], l = LP[at];
+          const float bonus = ddiag[i] * us[d];
+          if (i < c && d < D) {
+            const size_t gi = off + (size_t)i * D + d;
+            dr[gi] = drq[m][nn] * EX[at] + bonus * K[at];
+            dk[gi] = dkk[m][nn] * expf(-l) + dk2[m][nn] * expf(lpc[d] - l) +
+                     bonus * R[at];
+          }
+          x[m][nn] = drq[m][nn] * rq;
+          g[m][nn] = x[m][nn] - dkk[m][nn] * kk - dk2[m][nn] * k2;
+          cs += dk2[m][nn] * k2;
+          const int dd = ty + 16 * m;  // dS₀ row
+          ds0[m][nn] += pend[dd] * DS[dd * kLdT + d];
+        }
+        colp[ty * 64 + d] = cs;
+      }
+    }
+    __syncthreads();  // every read of A, dA and dS is done
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) {
+        const int at = (ty + 16 * m) * kLdT + tx + 16 * nn;
+        A[at] = g[m][nn];
+        DA[at] = x[m][nn];
+        DS[at] = ds0[m][nn];
+      }
+    __syncthreads();
+
+    // 4. dlogw = revcumsum(G) − drq·rq: column sd, rows 16·sq + 15 down to
+    //    16·sq, then the later quarters' totals in order
+    {
+      float extra = 0.f;
+      for (int t = 0; t < 16; ++t) extra += colp[t * 64 + sd];
+      extra += dpend[sd] * pend[sd];
+      float gs[16], run = 0.f;
+#pragma unroll
+      for (int m = 15; m >= 0; --m) {
+        const int i = 16 * sq + m;
+        float gv = A[i * kLdT + sd];
+        if (i == c - 1) gv += extra;
+        run += gv;
+        gs[m] = run;
+      }
+      __syncthreads();  // the totals reuse colp
+      colp[sq * 64 + sd] = run;
+      __syncthreads();
+      float o = 0.f, offq = 0.f;
+#pragma unroll
+      for (int q = 3; q >= 0; --q) {
+        if (q == sq) offq = o;
+        o = q == 3 ? colp[3 * 64 + sd] : o + colp[q * 64 + sd];
+      }
+#pragma unroll
+      for (int m = 0; m < 16; ++m) {
+        const int i = 16 * sq + m;
+        if (i < c && sd < D)
+          dlogw[off + (size_t)i * D + sd] =
+              (offq + gs[m]) - DA[i * kLdT + sd];
+      }
+    }
+  }
+  __syncthreads();
+  if (dstate0)
+    for (int i = tid; i < D * D; i += kBwdThreads)
+      dstate0[st_base + i] = DS[(i / D) * kLdT + i % D];
+}
+
 }  // namespace
 
 extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
                                  const void* logw, const void* u,
                                  const void* state0, void* y, void* state_out,
-                                 int B, int H, int S, int D, int c,
-                                 void* stream) {
+                                 void* states, int B, int H, int S, int D,
+                                 int c, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || D <= 0 || D > kMaxD || c <= 0 ||
       c > kMaxC || S % c != 0 || (long long)B * H > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;  // opt in to > 48 KB of shared memory once
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        rwkv6_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    for (const void* f : {reinterpret_cast<const void*>(rwkv6_scan_kernel<false>),
+                          reinterpret_cast<const void*>(rwkv6_scan_kernel<true>)}) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          f, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
     configured = true;
   }
   const auto aligned = [](const void* p) {
@@ -470,11 +875,42 @@ extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
   };
   const int vec = D % 4 == 0 && aligned(r) && aligned(k) && aligned(v) &&
                   aligned(logw);
-  rwkv6_scan_kernel<<<B * H, kThreads, kSmemBytes,
-                      static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = states ? rwkv6_scan_kernel<true>
+                             : rwkv6_scan_kernel<false>;
+  kernel<<<B * H, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(r), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(logw),
       static_cast<const float*>(u), static_cast<const float*>(state0),
-      static_cast<float*>(y), static_cast<float*>(state_out), H, S, D, c, vec);
+      static_cast<float*>(y), static_cast<float*>(state_out),
+      static_cast<float*>(states), H, S, D, c, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+extern "C" int rwkv6_scan_bwd_launch(
+    const void* r, const void* k, const void* v, const void* logw,
+    const void* u, const void* states, const void* dy, const void* d_state,
+    void* dr, void* dk, void* dv, void* dlogw, void* du, void* dstate0, int B,
+    int H, int S, int D, int c, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || D <= 0 || D > kMaxD || c <= 0 ||
+      c > kMaxC || S % c != 0 || (long long)B * H + H > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rwkv6_scan_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kBwdSmemBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  rwkv6_scan_bwd_kernel<<<H + B * H, kBwdThreads, kBwdSmemBytes,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(r), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(logw),
+      static_cast<const float*>(u), static_cast<const float*>(states),
+      static_cast<const float*>(dy), static_cast<const float*>(d_state),
+      static_cast<float*>(dr), static_cast<float*>(dk),
+      static_cast<float*>(dv), static_cast<float*>(dlogw),
+      static_cast<float*>(du), static_cast<float*>(dstate0), B, H, S, D, c);
   return static_cast<int>(cudaGetLastError());
 }

@@ -135,10 +135,16 @@ def _declare(lib) -> None:
     lib.rglru_scan_bwd_launch.restype = i
     lib.rwkv6_scan_launch.argtypes = [
         p, p, p, p, p, p,  # r k v logw u state0 (or null)
-        p, p,  # y state
+        p, p, p,  # y state states (or null)
         i, i, i, i, i, p,  # B H S D c stream
     ]
     lib.rwkv6_scan_launch.restype = i
+    lib.rwkv6_scan_bwd_launch.argtypes = [
+        p, p, p, p, p, p, p, p,  # r k v logw u states dy d_state (or null)
+        p, p, p, p, p, p,  # dr dk dv dlogw du dstate0 (or null)
+        i, i, i, i, i, p,  # B H S D c stream
+    ]
+    lib.rwkv6_scan_bwd_launch.restype = i
     lib.fused_ce_launch.argtypes = [
         p, p, p, p, p, p,  # x w labels part lse tgt
         i, i, i, i, i, p,  # T D V is_bf16 round_logits stream

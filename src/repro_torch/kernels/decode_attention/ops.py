@@ -106,8 +106,9 @@ def decode_attention(q, k, v, pos, t: int, window: int | None = None):
     if q.is_cuda:
         if torch.is_grad_enabled() and any(a.requires_grad for a in (q, k, v)):
             raise NotImplementedError(
-                "decode_attention: the CUDA kernel has no backward (ROADMAP "
-                "queue 1 item 15, step 4d: decode_attention under autograd)")
+                "decode_attention: the CUDA kernel has no backward, and none "
+                "is planned: the reference defines no VJP for this kernel "
+                "(decode_attention is a serving kernel)")
         return _launch(q, k, v, pos, t, window)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, pos, t, window)

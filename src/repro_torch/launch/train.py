@@ -28,13 +28,17 @@ bf16 moments) before activations: 3 layers of recurrentgemma-9b peak at
 57.7 GB of state and fits only with ``--remat`` (each of its 28 layers
 keeps ~2 GB of attention and MLP activations without it); 2 layers of
 mixtral-8x7b are 50.6 GB, 1 layer of qwen1.5-110b 46.2 GB (bf16 moments),
-12 layers of llava-next-mistral-7b 46.1 GB; whisper-tiny is small;
-one arctic-480b layer is 163 GB and waits for expert parallelism:
+12 layers of llava-next-mistral-7b 46.1 GB; 12 of rwkv6-7b's 32 layers
+50.52 GB (3.158 B parameters; 32 are 7.526 B, 120 GB); whisper-tiny is
+small; one arctic-480b layer is 163 GB and waits for expert parallelism:
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch recurrentgemma-9b --full --n-layers 3 --batch 2 --seq 2049
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch llama3.2-3b --full --remat --batch 2 --seq 2049 --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch rwkv6-7b --full --n-layers 12 --remat --batch 2 --seq 2049 \\
+        --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --dtype float32                      # the reduced twin, seconds
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\

@@ -4,7 +4,7 @@ A copy of :mod:`repro.models.config` (``MoEConfig``, ``ModelConfig``,
 ``_expand_pattern``, ``layer_kinds``, ``reduced``): the port imports nothing
 of the JAX package, not even its pure-Python dataclasses. One frozen dataclass
 describes every architecture the reference supports, and the port builds
-each of them; :func:`check_trainable` says which it can train so far.
+each of them and trains each on both devices (:func:`check_trainable`).
 
 Parallelism modes (kept for parity with the reference's configs):
   * ``sp`` — sequence-parallel residual stream (attention-dominant archs:
@@ -120,13 +120,6 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     return dataclasses.replace(cfg, **small)
 
 
-# What the port lacks, by the ROADMAP item (queue 1) that adds it.
-_MISSING = {
-    "rwkv_train": "rwkv6 training on the card: a WKV6 backward (ROADMAP "
-                  "queue 1 item 9b)",
-}
-
-
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for any block kind, norm, MLP or
     parallel mode the port cannot run; the port never runs a config as
@@ -148,14 +141,11 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig, device) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for a config
-    the port cannot train on ``device`` (a ``torch.device`` or its name).
-    Every family trains on both devices (the SP-mode dense, MoE, encdec and
-    VLM stacks and the TP-mode recurrences) except that on the card every
-    block kind needs a kernel with a backward, which ``attn`` and ``rglru``
-    have and ``rwkv`` has not yet; on the CPU every kind differentiates
-    through its plain version."""
+    """Raise ``NotImplementedError`` for a config the port cannot train on
+    ``device`` (a ``torch.device`` or its name). Every family the port runs
+    trains on both devices: the SP-mode dense, MoE, encdec and VLM stacks
+    and the TP-mode recurrences, whose kernels (``fused_ce``,
+    ``rglru_scan``, ``rwkv6_scan``) each have a backward on the card and
+    differentiate through their plain versions on the CPU. What
+    :func:`check_supported` refuses stays refused."""
     check_supported(cfg)
-    kind = getattr(device, "type", str(device).split(":")[0])
-    if kind == "cuda" and "rwkv" in cfg.block_pattern:
-        raise NotImplementedError(f"{cfg.name}: {_MISSING['rwkv_train']}")

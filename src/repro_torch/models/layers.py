@@ -510,13 +510,15 @@ def rwkv_group_norm(y, ln_x, h: int, hd: int):
 
 
 def rwkv_mix(x, w: Params, cfg: ModelConfig, state0, shift0):
-    """RWKV6 time mix over one time chunk (prefill). x: (B, s, d) normed
+    """RWKV6 time mix over one time chunk (prefill or training). x: (B, s, d) normed
     input; ``state0`` (B, H, D, D) and ``shift0`` (B, d) float32 continue
     the recurrence from the previous time chunk. Returns (out (B, s, d),
     final WKV state, last input (B, d) float32 for the next shift).
 
     The mixes are formed in the compute dtype; r, k, v and the log decay
-    go to the WKV kernel in float32 with WKV chunks of min(64, s)."""
+    go to the WKV kernel in float32 with WKV chunks of min(64, s). Under
+    autograd the final state is differentiable: its cotangent, from the
+    next time chunk, enters the WKV backward (``RWKV6Scan``) with y's."""
     dtype = x.dtype
     b, s, d = x.shape
     h, hd = cfg.n_heads, cfg.resolved_head_dim
@@ -560,7 +562,16 @@ def rwkv_block_chunked(x, blk, cfg: ModelConfig, capture: bool = False):
     WKV state and both token shifts carried from chunk to chunk (the
     reference's rule, which bounds the live activations to one chunk).
     Returns (x, cache): with ``capture`` the decode cache {state, shift_tm,
-    shift_cm}, else {}."""
+    shift_cm}, else {}.
+
+    Under autograd the state and shifts carry gradients back from each time
+    chunk to the one before. The reference also checkpoints each time
+    chunk's body (``jax.checkpoint`` in its scan); the port does not: under
+    ``remat`` the layer group's checkpoint already keeps only the block's
+    input through the forward, and its recompute holds one layer's time
+    chunks' activations, where a checkpoint a time chunk would run each
+    WKV forward a third time. The values and gradients are the same either
+    way."""
     dtype = x.dtype
     b, s, d = x.shape
     h, hd = cfg.n_heads, cfg.resolved_head_dim

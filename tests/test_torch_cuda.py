@@ -2,7 +2,8 @@
 exactness contracts of a short chain run on the device, one slice and one
 HMC step on the card against the CPU, the full-width
 recurrentgemma serving path, the rwkv6 serving path, the training path
-(the ``FusedCE`` and ``RGLRUScan`` gradients, the reduced trainer), the
+(the ``FusedCE``, ``RGLRUScan`` and ``RWKV6Scan`` gradients, the reduced
+trainers of recurrentgemma and rwkv6), the
 SP-mode families' training (dense, MoE, encdec, VLM twins against the CPU,
 ``remat``, ``fused_ce`` at their heads, bf16 AdamW moments), and
 checkpoints of card tensors and of a service on the card.
@@ -32,7 +33,7 @@ from repro_torch.kernels.fused_ce.ref import fused_ce_ref
 from repro_torch.kernels.rglru_scan import ops as rops
 from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref, rglru_ref
 from repro_torch.kernels.rwkv6_scan import ops as wops
-from repro_torch.kernels.rwkv6_scan.ref import rwkv6_chunked_ref
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_bwd_ref, rwkv6_chunked_ref
 from repro_torch.kernels.z_update import ops as zops
 from repro_torch.kernels.z_update.ref import z_candidates_ref
 from repro_torch.launch.serve import serve
@@ -838,6 +839,142 @@ def test_serve_rwkv_reduced_on_card(dev):
                        ids[:, 0])
 
 
+def _rwkv6_grad_inputs(b, h, s, d, logw, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn(b, h, s, d, generator=g) for _ in range(3))
+    lw = (torch.full((b, h, s, d), logw) if logw is not None
+          else -(1e-6 + (1 - 1e-6) * torch.rand(b, h, s, d, generator=g)))
+    u = torch.randn(h, d, generator=g)
+    s0 = torch.randn(b, h, d, d, generator=g)
+    dy = torch.randn(b, h, s, d, generator=g)
+    ds = torch.randn(b, h, d, d, generator=g)
+    return [a.to(dev) for a in (r, k, v, lw, u, s0, dy, ds)]
+
+
+def _close_to_largest(got, want, tol=1e-4):
+    """Within ``tol`` relative plus ``tol`` of the largest value: float32
+    sums in another order, scaled by e^{±cumsum logw}; dlogw's reverse
+    cumulative sum cancels terms."""
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=tol,
+                               atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("b,h,s,d,chunk,logw,with_s0,with_ds", [
+    (2, 64, 512, 64, 64, None, True, True),  # the training path's shape
+    (2, 64, 512, 64, 64, -1.0, True, True),  # edge decay: e^{±64}
+    (2, 64, 32, 64, 64, None, True, True),  # S = 32: c = 32
+    (2, 64, 1, 64, 64, None, True, True),  # a single step
+    (2, 4, 1024, 32, 64, None, False, False),  # the twin's heads, no d_state
+    (1, 2, 33, 48, 64, None, True, False),  # c = 33, D not a power of two
+    (2, 3, 40, 5, 8, None, True, True),  # D % 4 != 0, c = 8
+])
+def test_rwkv6_scan_bwd_kernel_matches_plain(dev, b, h, s, d, chunk, logw,
+                                             with_s0, with_ds):
+    """The forward kernel's saved chunk states and the backward kernel
+    against ``rwkv6_bwd_ref`` (same states) and against autograd through
+    ``rwkv6_chunked_ref`` on the card; y and the final state of the
+    state-saving forward bitwise the serving kernel's; the backward one
+    launch and bitwise on a second call."""
+    r, k, v, lw, u, s0, dy, ds = _rwkv6_grad_inputs(b, h, s, d, logw, dev,
+                                                    seed=s * d + h)
+    s0 = s0 if with_s0 else None
+    ds = ds if with_ds else None
+    c = min(chunk, s)
+    y, st, states = wops._launch(r, k, v, lw, u, s0, c, save_states=True)
+    y0, st0 = wops.rwkv6_scan(r, k, v, lw, u, s0, chunk=chunk)
+    assert torch.equal(y, y0) and torch.equal(st, st0)
+    _, _, ref_states = rwkv6_chunked_ref(r, k, v, lw, u, s0, c,
+                                         return_states=True)
+    _close_to_largest(states, ref_states, 1e-5)
+    before = (wops.launch_count, wops.bwd_launch_count)
+    got = wops.rwkv6_scan_backward(r, k, v, lw, u, states, dy, ds, chunk,
+                                   want_dstate0=with_s0)
+    again = wops.rwkv6_scan_backward(r, k, v, lw, u, states, dy, ds, chunk,
+                                     want_dstate0=with_s0)
+    torch.cuda.synchronize()
+    assert (wops.launch_count, wops.bwd_launch_count) == (before[0] + 2,
+                                                          before[1] + 2)
+    assert (got[5] is None) == (not with_s0)
+    for a, a2 in zip(got, again):
+        assert a is None or torch.equal(a, a2)
+    want = rwkv6_bwd_ref(r, k, v, lw, u, states, dy, ds, c)
+    for a, w in zip(got, want):
+        if a is not None:
+            _close_to_largest(a, w)
+    ins = [a.clone().requires_grad_() for a in (r, k, v, lw, u)] + (
+        [s0.clone().requires_grad_()] if with_s0 else [])
+    y2, st2 = rwkv6_chunked_ref(*ins[:5], ins[5] if with_s0 else None, c)
+    out = (y2 * dy).sum() + ((st2 * ds).sum() if with_ds else 0.0)
+    for a, w in zip(got, torch.autograd.grad(out, ins)):
+        _close_to_largest(a, w)
+
+
+def test_rwkv6_scan_gradient_on_card(dev):
+    """``rwkv6_scan`` under autograd on the card: one forward and one
+    backward launch, an unused final state's cotangent taken as zeros, the
+    gradients of every input those of the plain version."""
+    r, k, v, lw, u, s0, dy, _ = _rwkv6_grad_inputs(2, 4, 128, 32, None, dev,
+                                                   seed=11)
+    ins = [a.clone().requires_grad_() for a in (r, k, v, lw, u, s0)]
+    before = (wops.launch_count, wops.bwd_launch_count)
+    y, _ = wops.rwkv6_scan(*ins)
+    (y * dy).sum().backward()
+    torch.cuda.synchronize()
+    assert (wops.launch_count, wops.bwd_launch_count) == (before[0] + 2,
+                                                          before[1] + 1)
+    ref = [a.clone().requires_grad_() for a in (r, k, v, lw, u, s0)]
+    (rwkv6_chunked_ref(*ref)[0] * dy).sum().backward()
+    for a, w in zip(ins, ref):
+        _close_to_largest(a.grad, w.grad)
+
+
+def _rwkv6_bwd_kernels_a_call():
+    """The device kernels of each of 10 traced backward calls at the
+    training path's shape (see :func:`_device_kernels`), the calls made and
+    the launches counted."""
+    r, k, v, lw, u, s0, dy, ds = _rwkv6_grad_inputs(
+        2, 64, 512, 64, None, torch.device("cuda"), seed=3)
+    _, _, states = wops._launch(r, k, v, lw, u, s0, 64, save_states=True)
+    fn = lambda: wops.rwkv6_scan_backward(r, k, v, lw, u, states, dy, ds)
+    before = wops.bwd_launch_count
+    calls, made = _device_kernels(fn, reps=10)
+    return calls, made, wops.bwd_launch_count - before
+
+
+def test_rwkv6_scan_bwd_one_kernel_per_call(dev):
+    """A backward call runs exactly one device kernel,
+    ``rwkv6_scan_bwd_kernel``: du's sum over batch rows is in it, and
+    outputs are allocated, not cleared (traced in a process of its own, as
+    :func:`test_rglru_scan_one_kernel_per_call`)."""
+    calls, made, launched = _in_own_process("_rwkv6_bwd_kernels_a_call()")
+    assert launched == made
+    assert all(len(c) == 1 and "rwkv6_scan_bwd_kernel" in c[0]
+               for c in calls), calls
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_rwkv_reduced_on_card(dev, remat):
+    """The reduced rwkv6 twin (2 layers, 4 heads × 32) through
+    ``train_reduced`` on the card, 2 × 1024 tokens: a step makes one
+    ``fused_ce`` launch, 2 layers × 2 time chunks WKV backward launches and
+    as many forwards (twice as many under ``remat``: each one-layer group's
+    forward runs again in the backward); the losses are finite."""
+    c0, w0, b0 = cops.launch_count, wops.launch_count, wops.bwd_launch_count
+    a0, r0 = aops.launch_count, rops.launch_count
+    steps = 2
+    _, hist = train_reduced("rwkv6-7b", steps=steps, batch=2, seq=1025,
+                            warmup_steps=1, dtype=torch.bfloat16, device=dev,
+                            remat=remat)
+    bwd = wops.bwd_launch_count - b0
+    assert cops.launch_count - c0 == steps
+    assert bwd == steps * 2 * 2
+    assert wops.launch_count - w0 - bwd == (2 if remat else 1) * bwd
+    assert aops.launch_count == a0 and rops.launch_count == r0
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               for h in hist)
+
+
 @pytest.mark.parametrize("t,d,v,dtype", [
     (64, 128, 512, torch.float32),  # the reduced model's (B·S, d) × vocab
     (37, 64, 1000, torch.bfloat16),  # ragged token tile and vocab tile
@@ -975,17 +1112,26 @@ def test_rglru_scan_gradient_on_card(dev, log_a, with_h0):
 
 
 def test_kernels_without_backward_raise_under_autograd(dev):
+    """``rwkv6_scan`` has its backward kernel now: under autograd it
+    launches the forward and, for the gradient, the backward, and without
+    a graph only the forward. ``decode_attention`` still raises under
+    autograd: the reference defines no VJP for its kernel either."""
     r, k, v, lw = (torch.randn(1, 2, 8, 16, device=dev) for _ in range(4))
     lw = -lw.abs().clamp(1e-6, 1.0)
     u = torch.randn(2, 16, device=dev)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        wops.rwkv6_scan(r.requires_grad_(), k, v, lw, u)
+    before = (wops.launch_count, wops.bwd_launch_count)
+    y, _ = wops.rwkv6_scan(r.requires_grad_(), k, v, lw, u)
+    y.sum().backward()
+    assert r.grad is not None and torch.isfinite(r.grad).all()
+    assert (wops.launch_count, wops.bwd_launch_count) == (before[0] + 2,
+                                                          before[1] + 1)
     with torch.no_grad():
-        wops.rwkv6_scan(r, k, v, lw, u)  # no graph: the kernel runs
+        wops.rwkv6_scan(r, k, v, lw, u)  # no graph: the forward alone
+    assert wops.bwd_launch_count == before[1] + 1
     q = torch.randn(1, 4, 64, device=dev, requires_grad=True)
     kv = torch.randn(1, 16, 1, 64, device=dev)
     pos = torch.arange(16, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="step 4d"):
+    with pytest.raises(NotImplementedError, match="defines no VJP"):
         aops.decode_attention(q, kv, kv, pos, 15)
 
 

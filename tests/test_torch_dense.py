@@ -216,18 +216,18 @@ def test_serve_cuts_depth():
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_dense_training_raises_naming_its_roadmap_item(device):
-    """This family trains now (ce_loss_sp, the swiglu and QKV-bias
-    backward, bf16 moments: ``tests/test_torch_train_sp.py``):
-    ``check_trainable`` accepts each twin and published config on both
-    devices, and the only thing it still refuses is an ``rwkv`` block on
-    the card, naming ROADMAP queue 1 item 9b."""
+    """This family trains (ce_loss_sp, the swiglu and QKV-bias backward,
+    bf16 moments: ``tests/test_torch_train_sp.py``): ``check_trainable``
+    accepts each twin and published config on both devices, and an
+    ``rwkv`` block too now (the WKV kernel has a backward). It still
+    refuses what the port cannot run: an unknown parallel mode."""
     for arch in DENSE:
         check_trainable(get_reduced(arch), device)
         check_trainable(get_config(arch), device)
     rwkv = dataclasses.replace(get_reduced(DENSE[0]), name="rwkv-like",
                                block_pattern=("rwkv",))
-    if device == "cuda":
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            check_trainable(rwkv, device)
-    else:
-        check_trainable(rwkv, device)
+    check_trainable(rwkv, device)
+    pp = dataclasses.replace(get_reduced(DENSE[0]), name="pp-like",
+                             parallel_mode="pp")
+    with pytest.raises(NotImplementedError, match="parallel mode"):
+        check_trainable(pp, device)

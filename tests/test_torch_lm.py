@@ -222,24 +222,21 @@ def test_bf16_decode_stays_close_to_f32():
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_unsupported_config_cannot_build_a_model(device):
     """Every arch builds, serves and trains now: ``check_trainable``
-    accepts the MoE, encdec and VLM families (SP mode) and a TP-mode config
-    given an MoE on both devices; only rwkv6 on the card is refused, naming
-    ROADMAP queue 1 item 9b; ``_MISSING`` names neither SP-mode training
-    (9g) nor remat (9c) any more."""
-    from repro_torch.models.config import _MISSING
-
+    accepts the MoE, encdec and VLM families (SP mode), a TP-mode config
+    given an MoE, and rwkv6 (its WKV kernel has a backward) on both
+    devices. What the port cannot run, an unknown block kind, still cannot
+    build a model and is refused for training on either device."""
     moe_like = dataclasses.replace(get_reduced(ARCH), name="moe-like",
                                    moe=MoEConfig(n_experts=4, top_k=2))
     assert isinstance(moe_like, ModelConfig)
     T.LM(moe_like, "cpu")
     for cfg in [get_config(arch) for arch in (
             "mixtral-8x7b", "arctic-480b", "whisper-tiny",
-            "llava-next-mistral-7b")] + [moe_like]:
+            "llava-next-mistral-7b", "rwkv6-7b")] + [moe_like]:
         check_trainable(cfg, device)
-    if device == "cuda":
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            check_trainable(get_config("rwkv6-7b"), device)
-    else:
-        check_trainable(get_config("rwkv6-7b"), device)
-    missing = " ".join(_MISSING.values())
-    assert "item 9g" not in missing and "item 9c" not in missing
+    unknown = dataclasses.replace(get_reduced(ARCH), name="unknown-kind",
+                                  block_pattern=("rglru", "mamba"))
+    with pytest.raises(NotImplementedError, match="mamba"):
+        T.LM(unknown, "cpu")
+    with pytest.raises(NotImplementedError, match="mamba"):
+        check_trainable(unknown, device)

@@ -15,6 +15,7 @@ apart between the two packages) into a step of up to lr·O(1), 7e-5 here at
 lr 1e-3; a wrong update would be off by up to 2·lr.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -200,15 +201,21 @@ def test_synthetic_batch_copies_seven_back():
 
 
 def test_unsupported_training_raises():
-    """rwkv6 cannot train on the card (its WKV kernel has no backward): it
-    raises NotImplementedError naming its ROADMAP item. The card's guard is
-    checked without a card. ``remat=True`` builds a step now (remat's
-    parity: ``tests/test_torch_train_sp_steps.py``). (Checkpointing the
-    training state is ported: ``tests/test_torch_checkpoint.py``.)"""
+    """Every family trains on both devices now, rwkv6 too (its WKV kernel
+    has a backward: ``tests/test_torch_rwkv6_bwd.py``,
+    ``tests/test_torch_train_rwkv.py``); the card's guard is checked
+    without a card. What the port cannot run at all, an unknown parallel
+    mode or block kind, is still refused by ``check_trainable``.
+    ``remat=True`` builds a step (remat's parity:
+    ``tests/test_torch_train_sp_steps.py``). (Checkpointing the training
+    state is ported: ``tests/test_torch_checkpoint.py``.)"""
     rwkv = get_reduced("rwkv6-7b")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        check_trainable(rwkv, torch.device("cuda"))
-    check_trainable(rwkv, "cpu")  # the plain WKV differentiates
-    check_trainable(get_reduced(ARCH), "cuda")
-    step = T.make_train_step(get_reduced(ARCH), remat=True)
-    assert callable(step)
+    for device in (torch.device("cuda"), "cpu"):
+        check_trainable(rwkv, device)
+        check_trainable(get_reduced(ARCH), device)
+        for bad in (dataclasses.replace(rwkv, parallel_mode="pp"),
+                    dataclasses.replace(rwkv, block_pattern=("mamba",))):
+            with pytest.raises(NotImplementedError, match=bad.name):
+                check_trainable(bad, device)
+    for cfg in (rwkv, get_reduced(ARCH)):
+        assert callable(T.make_train_step(cfg, remat=True))

@@ -18,8 +18,10 @@ reduced twins (set-up in ``_torch_sp_twins.py``), in float32.
 - ``remat=True`` bitwise ``remat=False`` within the port on the CPU: the
   loss, every gradient and every parameter after two steps, for mixtral
   (the MoE's aux returned, not appended, under recompute), whisper (the
-  encoder blocks' checkpoints) and an 8-layer llama3.2-3b twin (the
-  two-level nesting); and how often each group's forward runs.
+  encoder blocks' checkpoints), an 8-layer llama3.2-3b twin (the
+  two-level nesting) and rwkv6 at 1,024 tokens (the WKV backward carried
+  across time chunks); and how often each group's forward runs (rwkv6 also
+  at its card cut of 12 layers).
 - The entry point: ``train_reduced`` and ``synthetic_batch`` for the new
   families, and a resume from the reference's bfloat16 ``AdamWState``.
 
@@ -64,7 +66,11 @@ def _jax_step(tw):
 
 
 def _seq(tw):
-    return 128 if tw.cfg.moe is not None else 64
+    """Tokens a batch row: 128 for the MoE twins, 1,024 for rwkv6 (two
+    512-token time chunks: the WKV state and shifts cross them), else 64."""
+    if tw.cfg.moe is not None:
+        return 128
+    return 1024 if "rwkv" in tw.cfg.block_pattern else 64
 
 
 def _moments_close(got, want, name):
@@ -135,7 +141,8 @@ def _two_steps(tw, seed, remat):
 
 
 @pytest.mark.parametrize("arch,n_layers", [
-    ("mixtral-8x7b", None), ("whisper-tiny", None), ("llama3.2-3b", 8)])
+    ("mixtral-8x7b", None), ("whisper-tiny", None), ("llama3.2-3b", 8),
+    ("rwkv6-7b", None)])
 def test_remat_is_bitwise_without_it_on_cpu(arch, n_layers):
     tw = twin(arch, n_layers)
     seed = SEEDS.get(arch, 10)
@@ -157,6 +164,9 @@ def test_remat_is_bitwise_without_it_on_cpu(arch, n_layers):
     ("mixtral-8x7b", None),  # 2 one-block groups: one level
     ("recurrentgemma-9b", None),  # 2 three-block groups: one level
     ("llama3.2-3b", 8),  # 8 groups: 4 outer checkpoints of 2
+    ("rwkv6-7b", None),  # 2 one-block groups: one level
+    ("rwkv6-7b", 12),  # 12 groups: 4 outer checkpoints of 3 (rwkv6-7b's
+                       # 12-layer training cut on the card)
 ])
 def test_remat_runs_each_group_forward_again(monkeypatch, arch, n_layers):
     """Without ``remat`` each group's forward runs once; with it, once more
