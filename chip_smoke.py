@@ -244,21 +244,25 @@ a register and a wide softmax kernel):
    published width cut to 12 of 32 layers (3.158 B params, 50.52 GB of
    f32 weights, gradients and AdamW moments), remat, bf16 compute, batch
    2 × 2048 tokens, 4 steps: finite losses and gradient norms, one
-   ``fused_ce`` launch a step, 48 ``rwkv6_scan_bwd_kernel`` launches a step
-   (12 layers × 4 time chunks) and 128 forward launches (each layer's 4
-   time chunks run 32/12 times: 12 groups in 4 outer checkpoints of 3, see
-   :func:`train_rwkv_path`), no ``decode_attention`` or ``rglru_scan``
-   launch; prints step ms, tokens/s, peak memory beside the state, and the
-   step split by CUDA events. Before it, with the kernel phases, the WKV
+   ``fused_ce`` launch a step, 96 backward launches a step (12 layers × 4
+   time chunks × the two kernels, ``rwkv6_scan_bwd_ds_kernel`` and
+   ``rwkv6_scan_bwd_chunk_kernel``, 48 each) and 128 forward launches
+   (each layer's 4 time chunks run 32/12 times: 12 groups in 4 outer
+   checkpoints of 3, see :func:`train_rwkv_path`), no
+   ``decode_attention`` or ``rglru_scan`` launch; prints step ms,
+   tokens/s, peak memory beside the state, and the step split by CUDA
+   events. Before it, with the kernel phases, the WKV
    backward (``rwkv_bwd_phases``: the forward that saves each chunk's
-   state bitwise the serving kernel, then ``RWKV6Scan``'s backward, one
-   ``rwkv6_scan_bwd_kernel`` launch and one device kernel a call, against
-   ``rwkv6_bwd_ref`` and autograd through the plain chunked WKV at B=2,
-   H=64, S=512, D=64 with a random state0 and both cotangents, the edge
-   decay log w ≡ -1, S=32 and S=1; every gradient within 1e-4 relative plus
-   1e-4 of its largest value; two calls bitwise equal; the kernel's device
-   ms, all the backward's device work, the call's and the plain
-   backward's ms beside the bound).
+   state bitwise the serving kernel, then ``RWKV6Scan``'s backward, two
+   launches and those two device kernels a call, the dS pass then the
+   chunk pass, against ``rwkv6_bwd_ref`` and autograd through the plain
+   chunked WKV at B=2, H=64, S=512, D=64 with a random state0 and both
+   cotangents, the edge decay log w ≡ -1, S=32 and S=1; every gradient
+   within 1e-4 relative plus 1e-4 of its largest value; each kernel
+   against its own plain piece (``rwkv6_bwd_ds_ref``, and
+   ``rwkv6_bwd_chunks_ref`` fed the kernel's dS); two calls bitwise equal;
+   each kernel's device ms and their sum, all the backward's device work,
+   the call's and the plain backward's ms beside the bound).
 
 Any failure raises (nonzero exit, no result line). The build's ptxas
 registers, shared memory and spills are printed per kernel. The last two
@@ -497,6 +501,30 @@ def device_ms(fn, names, reps: int = 20, fallback: bool = True):
     return a.elapsed_time(b) / reps
 
 
+def launch_ms(fn, names, reps: int = 20) -> dict:
+    """Device time a launch of the kernels whose names contain each of
+    ``names`` (torch.profiler, CUDA activity): their traced time over the
+    launches the trace holds, so a trace that lost some records still gives
+    the mean of those it kept; None for a name the trace does not hold."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(names, 0.0)
+    count = dict.fromkeys(names, 0)
+    for ev in prof.key_averages():
+        for n in names:
+            if n in ev.key:
+                us[n] += getattr(ev, "self_device_time_total",
+                                 getattr(ev, "self_cuda_time_total", 0.0))
+                count[n] += ev.count
+    return {n: us[n] / count[n] / 1e3 if count[n] else None for n in names}
+
+
 def bound(bytes_moved: float, flops: float,
           flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -535,11 +563,12 @@ def queued_ms(fn, reps: int = 100, spin_cycles: int = 40_000_000) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_kernels(fn, reps: int = 10, tries: int = 5):
+def device_kernels(fn, reps: int = 10, tries: int = 5, expect: int = 1):
     """The device activities (kernels, copies, memsets) of each of ``reps``
     warm calls of ``fn``, from one profiler trace a call: a list of names a
-    call. The profiler now and then records nothing for a call; such a call
-    is traced again, up to ``tries`` times."""
+    call. The profiler now and then records nothing for a call, or fewer
+    than the ``expect`` kernels its wrapper launched; such a call is traced
+    again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -553,24 +582,27 @@ def device_kernels(fn, reps: int = 10, tries: int = 5):
                 torch.cuda.synchronize()
             names = [e.name for e in prof.events()
                      if e.device_type == DeviceType.CUDA]
-            if names:
+            if len(names) >= expect:
                 break
             empty += 1
         calls.append(names)
     if empty:
-        log(f"  profiler: {empty} traces of one call recorded nothing")
+        log(f"  profiler: {empty} traces of one call recorded fewer than "
+            f"{expect} kernels")
     return calls
 
 
-def one_kernel_a_call(phase: dict, kernel: str) -> None:
+def one_kernel_a_call(phase: dict, kernel: str | tuple) -> None:
     """Raises unless every traced call of the phase ran exactly one device
-    kernel, the one named ``kernel``."""
+    kernel, the one named ``kernel``, or, given a tuple of names, exactly
+    those kernels in that order."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
     bad = [c for c in phase["device_kernels"]
-           if len(c) != 1 or kernel not in c[0]]
+           if len(c) != len(names) or any(n not in k for n, k in zip(names, c))]
     if bad:
         raise AssertionError(f"{phase['phase']}: {len(bad)} of "
                              f"{len(phase['device_kernels'])} calls ran "
-                             f"{bad[0]}, not one {kernel}")
+                             f"{bad[0]}, not {' then '.join(names)}")
 
 
 def sm_clocks_per_s() -> float:
@@ -2844,19 +2876,30 @@ def rwkv_kernel_phases(dev):
     return phases
 
 
+BWD_KERNELS = ("rwkv6_scan_bwd_ds_kernel", "rwkv6_scan_bwd_chunk_kernel")
+
+
 def rwkv_grad_phase(name, b, h, s, d, logw, dev, gen):
     """``RWKV6Scan`` at (B, H, S, D) with a random state0 and cotangents on
     y and the final state: the state-saving forward's y and final state
-    bitwise the serving kernel's; the backward (one launch of
-    ``rwkv6_scan_bwd_kernel``, one device kernel a call, two calls bitwise
-    equal) against ``rwkv6_bwd_ref`` on the kernel's saved states and
-    against autograd through ``rwkv6_chunked_ref``, each gradient within
-    1e-4 relative plus 1e-4 of its largest value. ``bwd_ms`` is the
-    kernel's device time a call, ``bwd_device_ms`` the device time of all
-    the backward's work through autograd, ``bwd_call_ms`` that backward's
-    time between CUDA events, ``bwd_plain_ms`` ``rwkv6_bwd_ref``'s."""
+    bitwise the serving kernel's; the backward (two launches,
+    ``rwkv6_scan_bwd_ds_kernel`` then ``rwkv6_scan_bwd_chunk_kernel``, and
+    those two device kernels a call; two calls bitwise equal) against
+    ``rwkv6_bwd_ref`` on the kernel's saved states and against autograd
+    through ``rwkv6_chunked_ref``, each gradient within 1e-4 relative plus
+    1e-4 of its largest value; each kernel against its own plain piece (the
+    dS scratch and dstate0 against ``rwkv6_bwd_ds_ref``, the chunk pass fed
+    that scratch against ``rwkv6_bwd_chunks_ref``). ``bwd_ms`` is the two
+    kernels' device time a call (``ds_ms`` and ``chunk_ms`` each's, a
+    launch's mean over one trace, :func:`launch_ms`),
+    ``bwd_device_ms`` the device time of all the backward's work through
+    autograd, ``bwd_call_ms`` that backward's time between CUDA events,
+    ``bwd_plain_ms`` ``rwkv6_bwd_ref``'s (``ds_plain_ms``,
+    ``chunk_plain_ms``: each piece's)."""
     from repro_torch.kernels.rwkv6_scan import ops
-    from repro_torch.kernels.rwkv6_scan.ref import (rwkv6_bwd_ref,
+    from repro_torch.kernels.rwkv6_scan.ref import (rwkv6_bwd_chunks_ref,
+                                                     rwkv6_bwd_ds_ref,
+                                                     rwkv6_bwd_ref,
                                                      rwkv6_chunked_ref)
 
     r, k, v, dy = (torch.randn(b, h, s, d, generator=gen).to(dev)
@@ -2878,10 +2921,10 @@ def rwkv_grad_phase(name, b, h, s, d, logw, dev, gen):
     got = torch.autograd.grad((yg, stg), ins, (dy, ds), retain_graph=True)
     torch.cuda.synchronize()
     if (ops.launch_count - before[0], ops.bwd_launch_count - before[1]) != (
-            2, 1):
+            3, 2):
         raise AssertionError(f"rwkv6_scan[{name}] forward + backward "
                              f"launched {ops.launch_count - before[0]} "
-                             "times, want 2 (1 backward)")
+                             "times, want 3 (2 backward)")
     again = torch.autograd.grad((yg, stg), ins, (dy, ds), retain_graph=True)
     if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
         raise AssertionError(f"rwkv6_scan backward[{name}]: two calls "
@@ -2904,15 +2947,38 @@ def rwkv_grad_phase(name, b, h, s, d, logw, dev, gen):
         err_abs = max(err_abs, float((a - p_).abs().max()))
         err_auto = max(err_auto, float((a - w).abs().max()))
     del yr, sr, auto, ref_ins, plain, again
+    # each kernel against its own plain piece, the chunk pass fed the dS
+    # pass's scratch
+    grads, ds_all, _ = ops._launch_bwd(r, k, v, lw, u, states, dy, ds, c,
+                                       True, return_scratch=True)
+    want_ds, want_ds0 = rwkv6_bwd_ds_ref(r, lw, dy, ds, c)
+    want_chunk = rwkv6_bwd_chunks_ref(r, k, v, lw, u, states, ds_all, dy, c)
+    torch.cuda.synchronize()
+    err_pass = {}
+    for pname, pairs in (("ds", ((ds_all, want_ds), (grads[5], want_ds0))),
+                         ("chunk", tuple(zip(grads[:4], want_chunk)))):
+        for a, ref in pairs:
+            torch.testing.assert_close(a, ref, rtol=1e-4,
+                                       atol=1e-4 * float(ref.abs().max()))
+        err_pass[pname] = max(float((a - ref).abs().max()) for a, ref in pairs)
+    del grads, want_ds, want_ds0, want_chunk
     only = lambda: torch.autograd.grad((yg, stg), ins, (dy, ds),
                                        retain_graph=True)
     call_ms = median_ms(only, reps=10, warm=2)
-    kernel_ms = device_ms(only, ("rwkv6_scan_bwd_kernel",), fallback=False)
+    ds_ms, chunk_ms = launch_ms(only, BWD_KERNELS).values()
+    kernel_ms = (None if ds_ms is None or chunk_ms is None
+                 else ds_ms + chunk_ms)
     all_ms = device_ms(only, ("",))
     direct = lambda: ops.rwkv6_scan_backward(r, k, v, lw, u, states, dy, ds)
     plain_ms = median_ms(
         lambda: rwkv6_bwd_ref(r, k, v, lw, u, states, dy, ds, c), reps=5,
         warm=1)
+    ds_plain_ms = median_ms(lambda: rwkv6_bwd_ds_ref(r, lw, dy, ds, c),
+                            reps=5, warm=1)
+    chunk_plain_ms = median_ms(
+        lambda: rwkv6_bwd_chunks_ref(r, k, v, lw, u, states, ds_all, dy, c),
+        reps=5, warm=1)
+    del ds_all
     n = s // c
     # bytes: r, k, v, logw, dy, the saved states, d_state and u read once;
     # dr, dk, dv, dlogw, du and dstate0 written once. Operations: per chunk
@@ -2923,21 +2989,44 @@ def rwkv_grad_phase(name, b, h, s, d, logw, dev, gen):
         4 * (9 * b * h * s * d + b * h * n * d * d + 2 * b * h * d * d
              + 2 * h * d),
         2.0 * b * h * n * (5 * c * (c - 1) / 2 * d + 4 * c * d * d))
-    kernel = ("no rwkv6_scan_bwd_kernel ran" if kernel_ms is None
-              else f"backward kernel {kernel_ms:.6f} ms")
+    # each kernel's own work. The dS pass: r, logw, dy, k, v and d_state in;
+    # the dS leaving each chunk, dstate0 and du's row partials out; rqᵀ·dy
+    # a chunk. The chunk pass: r, k, v, logw, dy, u, states, that dS and the
+    # partials in; dr, dk, dv, dlogw and du out; the other eight products.
+    ds_bound = bound(4 * (5 * b * h * s * d + b * h * d * d
+                          + b * h * n * d * d + b * h * d * d + b * h * d),
+                     2.0 * b * h * n * c * d * d)
+    chunk_bound = bound(4 * (9 * b * h * s * d + 2 * b * h * n * d * d
+                             + h * d + b * h * d + h * d),
+                        2.0 * b * h * n * (5 * c * (c - 1) / 2 * d
+                                           + 3 * c * d * d))
+    kernel = ("no rwkv6_scan_bwd_* kernel ran" if kernel_ms is None
+              else f"backward kernels {kernel_ms:.6f} ms (dS pass {ds_ms:.6f}"
+                   f", chunk pass {chunk_ms:.6f})")
     log(f"rwkv6_scan backward[{name}: B={b} H={h} S={s} D={d} c={c} "
         f"logw={'U[-1,-1e-6]' if logw is None else logw}] max|Δ|/max vs "
         f"rwkv6_bwd_ref {', '.join(f'{k_} {v_:.3g}' for k_, v_ in err.items())}"
-        f"; max|Δ| vs autograd {err_auto:.3g}; {kernel}, all the backward's "
-        f"device work {all_ms:.6f} ms, backward call {call_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        f"; max|Δ| vs autograd {err_auto:.3g}; max|Δ| vs its plain piece: dS "
+        f"pass {err_pass['ds']:.3g}, chunk pass {err_pass['chunk']:.3g}; "
+        f"{kernel}, all the backward's device work {all_ms:.6f} ms, backward "
+        f"call {call_ms:.4f} ms, plain {plain_ms:.4f} ms (pieces: dS "
+        f"{ds_plain_ms:.4f}, chunks {chunk_plain_ms:.4f}), bound "
+        f"{b_ms:.6f} ms ({b_by}; dS pass {ds_bound[0]:.6f} {ds_bound[1]}, "
+        f"chunk pass {chunk_bound[0]:.6f} {chunk_bound[1]})")
     phase = {"phase": name, "B": b, "H": h, "S": s, "D": d, "c": c,
              "logw": logw, "max_rel_err": err, "max_abs_err": err_abs,
              "max_abs_err_autograd": err_auto,
-             "bwd_ms": kernel_ms, "bwd_device_ms": all_ms,
+             "max_abs_err_ds": err_pass["ds"],
+             "max_abs_err_chunk": err_pass["chunk"],
+             "bwd_ms": kernel_ms, "ds_ms": ds_ms, "chunk_ms": chunk_ms,
+             "bwd_device_ms": all_ms,
              "bwd_call_ms": call_ms, "bwd_plain_ms": plain_ms,
+             "ds_plain_ms": ds_plain_ms, "chunk_plain_ms": chunk_plain_ms,
              "bound_ms": b_ms, "bound_by": b_by,
-             "device_kernels": device_kernels(direct)}
+             "ds_bound_ms": ds_bound[0], "ds_bound_by": ds_bound[1],
+             "chunk_bound_ms": chunk_bound[0],
+             "chunk_bound_by": chunk_bound[1],
+             "device_kernels": device_kernels(direct, expect=2)}
     del yg, stg, ins, got, states
     torch.cuda.empty_cache()
     return phase
@@ -3657,8 +3746,9 @@ def train_rwkv_path(dev):
     """rwkv6-7b through ``train_reduced`` at its published width cut to
     RWKV_TRAIN_LAYERS layers, remat, bf16 compute, f32 master weights and
     AdamW moments, batch TRAIN_BATCH × (TRAIN_SEQ − 1), RWKV_TRAIN_STEPS
-    steps. A step makes one ``fused_ce`` launch, one WKV backward launch a
-    layer and 512-token time chunk, and the forward launches of the group
+    steps. A step makes one ``fused_ce`` launch, one WKV backward a layer
+    and 512-token time chunk (two launches: the dS pass and the chunk
+    pass), and the forward launches of the group
     forwards that remat runs: 12 one-layer groups nest in 4 outer
     checkpoints of 3 (:func:`~repro_torch.models.transformer._inner_groups`),
     so each group's forward runs once in the forward, once in its outer
@@ -3682,6 +3772,7 @@ def train_rwkv_path(dev):
     torch.cuda.reset_peak_memory_stats(dev)
     cops.launch_count = rops.launch_count = rops.bwd_launch_count = 0
     aops.launch_count = wops.launch_count = wops.bwd_launch_count = 0
+    wops.bwd_ds_launch_count = wops.bwd_chunk_launch_count = 0
     model, hist = train_reduced(RWKV_ARCH, steps=steps, batch=TRAIN_BATCH,
                                 seq=TRAIN_SEQ, log_every=steps, seed=0,
                                 full=True, n_layers=n_layers,
@@ -3694,10 +3785,14 @@ def train_rwkv_path(dev):
     bwd = wops.bwd_launch_count
     launches = {"fused_ce": cops.launch_count,
                 "rwkv6_scan": wops.launch_count - bwd, "rwkv6_scan_bwd": bwd,
+                "rwkv6_scan_bwd_ds": wops.bwd_ds_launch_count,
+                "rwkv6_scan_bwd_chunk": wops.bwd_chunk_launch_count,
                 "decode_attention": aops.launch_count,
                 "rglru_scan": rops.launch_count}
     want = {"fused_ce": steps, "rwkv6_scan": group_fwds * chunks * steps,
-            "rwkv6_scan_bwd": n_layers * chunks * steps,
+            "rwkv6_scan_bwd": 2 * n_layers * chunks * steps,
+            "rwkv6_scan_bwd_ds": n_layers * chunks * steps,
+            "rwkv6_scan_bwd_chunk": n_layers * chunks * steps,
             "decode_attention": 0, "rglru_scan": 0}
     if launches != want:
         raise AssertionError(f"rwkv6 training launches {launches}, want "
@@ -3724,7 +3819,9 @@ def train_rwkv_path(dev):
         f"fused_ce {launches['fused_ce'] / steps:g}, rwkv6_scan forward "
         f"{launches['rwkv6_scan'] / steps:g} ({group_fwds} group forwards x "
         f"{chunks} time chunks), backward "
-        f"{launches['rwkv6_scan_bwd'] / steps:g}")
+        f"{launches['rwkv6_scan_bwd'] / steps:g} (dS pass "
+        f"{launches['rwkv6_scan_bwd_ds'] / steps:g}, chunk pass "
+        f"{launches['rwkv6_scan_bwd_chunk'] / steps:g})")
     numbers = {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
                "peak_gb": peak / 1e9, "state_gb": state / 1e9,
                "breakdown": step_breakdown(model, dev, remat=True)}
@@ -4189,7 +4286,7 @@ def main() -> int:
                           else "z_candidates_kernel" if p in z
                           else "rglru_scan_kernel" if p in scan
                           else "rglru_scan_bwd_kernel" if p in scan_bwd
-                          else "rwkv6_scan_bwd_kernel")
+                          else BWD_KERNELS)
         del p["device_kernels"]  # checked; too long for the kernels line
     main_b = next(p for p in bright if p["phase"] == "logistic")
     main_z = next(p for p in z if p["phase"] == "mnist")
@@ -4288,6 +4385,21 @@ def main() -> int:
          "bwd_bound_ms": wkv_bwd[0]["bound_ms"],
          "bwd_plain_ms": wkv_bwd[0]["bwd_plain_ms"],
          "phases": wkv + wkv_bwd},
+        *({"name": f"rwkv6_scan_bwd_{part}", "route": "cuda",
+           "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+           "replaces": "src/repro/models/layers.py:499 (the VJP JAX derives "
+                       "from _wkv_chunk; the backward of "
+                       "src/repro/kernels/rwkv6_scan/kernel.py:91)",
+           "launches": rwkv_train_launches[f"rwkv6_scan_bwd_{part}"],
+           "max_abs_err": max(p[f"max_abs_err_{part}"] for p in wkv_bwd),
+           "ms": wkv_bwd[0][f"{part}_ms"],
+           "plain_ms": wkv_bwd[0][f"{part}_plain_ms"],
+           "bound_ms": wkv_bwd[0][f"{part}_bound_ms"],
+           "bound_by": wkv_bwd[0][f"{part}_bound_by"], "library_ms": None,
+           "phases": [{k_: p[k_] for k_ in ("phase", "S", f"{part}_ms",
+                                            f"max_abs_err_{part}")}
+                      for p in wkv_bwd]}
+          for part in ("ds", "chunk")),
         {"name": "fused_ce", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_ce.cu",
          "replaces": "src/repro/kernels/fused_ce/kernel.py:88",

@@ -142,6 +142,7 @@ def _declare(lib) -> None:
     lib.rwkv6_scan_bwd_launch.argtypes = [
         p, p, p, p, p, p, p, p,  # r k v logw u states dy d_state (or null)
         p, p, p, p, p, p,  # dr dk dv dlogw du dstate0 (or null)
+        p, p, p,  # ds du_part rows (scratch)
         i, i, i, i, i, p,  # B H S D c stream
     ]
     lib.rwkv6_scan_bwd_launch.restype = i

@@ -9,9 +9,12 @@ Without a graph (serving) a call is one launch of ``rwkv6_scan_kernel``.
 Under autograd it goes through :class:`RWKV6Scan`: its forward is one
 launch of the same kernel that also writes the state entering each WKV
 chunk (y and the final state are the same bits), and its backward,
-:func:`rwkv6_scan_backward`, one launch of ``rwkv6_scan_bwd_kernel``,
-which walks the chunks in reverse from those states and writes dr, dk, dv,
-dlogw, du and dstate0 itself. On the CPU the same Function runs
+:func:`rwkv6_scan_backward`, two launches: ``rwkv6_scan_bwd_ds_kernel``
+walks each sequence's chunks in reverse and writes the cotangent dS of the
+state leaving each chunk to a scratch, dstate0, du's partial of each
+batch row and each step's row sums; ``rwkv6_scan_bwd_chunk_kernel``, one
+CTA a chunk, takes each chunk's state from the forward and its dS and row
+sums from the scratch and writes dr, dk, dv, dlogw and du. On the CPU the same Function runs
 :func:`.ref.rwkv6_chunked_ref` and :func:`.ref.rwkv6_bwd_ref`.
 """
 
@@ -22,8 +25,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_bwd_ref, rwkv6_chunked_ref
 
-launch_count = 0  # kernel launches: one per forward, one per backward
-bwd_launch_count = 0  # of which backward kernel launches
+launch_count = 0  # kernel launches: one per forward, two per backward
+bwd_launch_count = 0  # of which backward kernel launches (both kernels)
+bwd_ds_launch_count = 0  # rwkv6_scan_bwd_ds_kernel launches
+bwd_chunk_launch_count = 0  # rwkv6_scan_bwd_chunk_kernel launches
 MAX_D = 64  # head dim and chunk length the kernel's shared memory holds
 MAX_CHUNK = 64
 
@@ -83,8 +88,14 @@ def _launch(r, k, v, logw, u, state0, c, save_states: bool = False):
     return (y, state, states) if save_states else (y, state)
 
 
-def _launch_bwd(r, k, v, logw, u, states, dy, d_state, c, want_dstate0):
+def _launch_bwd(r, k, v, logw, u, states, dy, d_state, c, want_dstate0,
+                return_scratch: bool = False):
+    """The two backward kernels; with ``return_scratch`` also returns the
+    dS pass's scratch for the chunk pass: dS leaving each chunk (B, H, S/c,
+    D, D) and du's partial of each batch row (B, H, D). (Its third, each
+    step's row sums Σ_e dy·v and Σ_d r·u·k, is not returned.)"""
     global launch_count, bwd_launch_count
+    global bwd_ds_launch_count, bwd_chunk_launch_count
     b, h, s, d = r.shape
     dev = r.device
     _require(states.shape == (b, h, s // c, d, d) and states.is_contiguous(),
@@ -100,16 +111,23 @@ def _launch_bwd(r, k, v, logw, u, states, dy, d_state, c, want_dstate0):
     du = torch.empty(h, d, dtype=torch.float32, device=dev)
     dstate0 = (torch.empty(b, h, d, d, dtype=torch.float32, device=dev)
                if want_dstate0 else None)
+    ds = torch.empty(b, h, s // c, d, d, dtype=torch.float32, device=dev)
+    du_part = torch.empty(b, h, d, dtype=torch.float32, device=dev)
+    rows = torch.empty(b, h, s, 2, dtype=torch.float32, device=dev)
     code = lib.rwkv6_scan_bwd_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), states.data_ptr(), dy.data_ptr(), _ptr(d_state),
         dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(),
-        du.data_ptr(), _ptr(dstate0), b, h, s, d, c, _build.stream_ptr(dev),
+        du.data_ptr(), _ptr(dstate0), ds.data_ptr(), du_part.data_ptr(),
+        rows.data_ptr(), b, h, s, d, c, _build.stream_ptr(dev),
     )
-    launch_count += 1
-    bwd_launch_count += 1
+    launch_count += 2
+    bwd_launch_count += 2
+    bwd_ds_launch_count += 1
+    bwd_chunk_launch_count += 1
     _build.check(code, "rwkv6_scan_bwd")
-    return dr, dk, dv, dlogw, du, dstate0
+    grads = (dr, dk, dv, dlogw, du, dstate0)
+    return (grads, ds, du_part) if return_scratch else grads
 
 
 def rwkv6_scan_backward(r, k, v, logw, u, states, dy, d_state=None,

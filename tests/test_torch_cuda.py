@@ -33,7 +33,12 @@ from repro_torch.kernels.fused_ce.ref import fused_ce_ref
 from repro_torch.kernels.rglru_scan import ops as rops
 from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref, rglru_ref
 from repro_torch.kernels.rwkv6_scan import ops as wops
-from repro_torch.kernels.rwkv6_scan.ref import rwkv6_bwd_ref, rwkv6_chunked_ref
+from repro_torch.kernels.rwkv6_scan.ref import (rwkv6_bwd_chunks_ref,
+                                                 rwkv6_bwd_ds_ref,
+                                                 rwkv6_bwd_du_ref,
+                                                 rwkv6_bwd_ref,
+                                                 rwkv6_bwd_split_ref,
+                                                 rwkv6_chunked_ref)
 from repro_torch.kernels.z_update import ops as zops
 from repro_torch.kernels.z_update.ref import z_candidates_ref
 from repro_torch.launch.serve import serve
@@ -118,12 +123,14 @@ def test_z_candidates_kernel_matches_plain_bitwise(dev, n, frac, q_db, cap):
     assert torch.equal(cand, c_ref) and torch.equal(count, n_ref)
 
 
-def _device_kernels(fn, reps=10, tries=5):
+def _device_kernels(fn, reps=10, tries=5, expect=1):
     """Names of the device activities (kernels, copies, memsets) that each
     of ``reps`` warm calls of ``fn`` puts on the card, from one profiler
-    trace a call. The profiler now and then records nothing for a call; such
-    a call is traced again, up to ``tries`` times. Returns the names a call
-    and the number of calls made, the warm one and the retraced included."""
+    trace a call. The profiler now and then records nothing for a call, or
+    fewer than the ``expect`` kernels its wrapper launched (counted apart
+    by the wrapper); such a call is traced again, up to ``tries`` times.
+    Returns the names a call and the number of calls made, the warm one and
+    the retraced included."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -138,7 +145,7 @@ def _device_kernels(fn, reps=10, tries=5):
             made += 1
             names = [e.name for e in prof.events()
                      if e.device_type == DeviceType.CUDA]
-            if names:
+            if len(names) >= expect:
                 break
         calls.append(names)
     return calls, made
@@ -868,14 +875,18 @@ def _close_to_largest(got, want, tol=1e-4):
     (2, 4, 1024, 32, 64, None, False, False),  # the twin's heads, no d_state
     (1, 2, 33, 48, 64, None, True, False),  # c = 33, D not a power of two
     (2, 3, 40, 5, 8, None, True, True),  # D % 4 != 0, c = 8
+    (1, 2, 64, 40, 64, None, True, True),  # one chunk, D = 40
+    (2, 3, 192, 40, 64, None, False, True),  # three chunks, D = 40, no state0
+    (1, 2, 96, 16, 32, None, True, False),  # c = 32 < 64, three chunks
+    (2, 2, 48, 40, 16, None, False, False),  # c = 16, D = 40, neither
 ])
 def test_rwkv6_scan_bwd_kernel_matches_plain(dev, b, h, s, d, chunk, logw,
                                              with_s0, with_ds):
-    """The forward kernel's saved chunk states and the backward kernel
+    """The forward kernel's saved chunk states and the backward kernels
     against ``rwkv6_bwd_ref`` (same states) and against autograd through
     ``rwkv6_chunked_ref`` on the card; y and the final state of the
-    state-saving forward bitwise the serving kernel's; the backward one
-    launch and bitwise on a second call."""
+    state-saving forward bitwise the serving kernel's; the backward two
+    launches and bitwise on a second call."""
     r, k, v, lw, u, s0, dy, ds = _rwkv6_grad_inputs(b, h, s, d, logw, dev,
                                                     seed=s * d + h)
     s0 = s0 if with_s0 else None
@@ -893,8 +904,8 @@ def test_rwkv6_scan_bwd_kernel_matches_plain(dev, b, h, s, d, chunk, logw,
     again = wops.rwkv6_scan_backward(r, k, v, lw, u, states, dy, ds, chunk,
                                      want_dstate0=with_s0)
     torch.cuda.synchronize()
-    assert (wops.launch_count, wops.bwd_launch_count) == (before[0] + 2,
-                                                          before[1] + 2)
+    assert (wops.launch_count, wops.bwd_launch_count) == (before[0] + 4,
+                                                          before[1] + 4)
     assert (got[5] is None) == (not with_s0)
     for a, a2 in zip(got, again):
         assert a is None or torch.equal(a, a2)
@@ -911,9 +922,9 @@ def test_rwkv6_scan_bwd_kernel_matches_plain(dev, b, h, s, d, chunk, logw,
 
 
 def test_rwkv6_scan_gradient_on_card(dev):
-    """``rwkv6_scan`` under autograd on the card: one forward and one
-    backward launch, an unused final state's cotangent taken as zeros, the
-    gradients of every input those of the plain version."""
+    """``rwkv6_scan`` under autograd on the card: one forward and two
+    backward launches, an unused final state's cotangent taken as zeros,
+    the gradients of every input those of the plain version."""
     r, k, v, lw, u, s0, dy, _ = _rwkv6_grad_inputs(2, 4, 128, 32, None, dev,
                                                    seed=11)
     ins = [a.clone().requires_grad_() for a in (r, k, v, lw, u, s0)]
@@ -921,8 +932,8 @@ def test_rwkv6_scan_gradient_on_card(dev):
     y, _ = wops.rwkv6_scan(*ins)
     (y * dy).sum().backward()
     torch.cuda.synchronize()
-    assert (wops.launch_count, wops.bwd_launch_count) == (before[0] + 2,
-                                                          before[1] + 1)
+    assert (wops.launch_count, wops.bwd_launch_count) == (before[0] + 3,
+                                                          before[1] + 2)
     ref = [a.clone().requires_grad_() for a in (r, k, v, lw, u, s0)]
     (rwkv6_chunked_ref(*ref)[0] * dy).sum().backward()
     for a, w in zip(ins, ref):
@@ -932,34 +943,94 @@ def test_rwkv6_scan_gradient_on_card(dev):
 def _rwkv6_bwd_kernels_a_call():
     """The device kernels of each of 10 traced backward calls at the
     training path's shape (see :func:`_device_kernels`), the calls made and
-    the launches counted."""
+    the backward launches counted (two a call)."""
     r, k, v, lw, u, s0, dy, ds = _rwkv6_grad_inputs(
         2, 64, 512, 64, None, torch.device("cuda"), seed=3)
     _, _, states = wops._launch(r, k, v, lw, u, s0, 64, save_states=True)
     fn = lambda: wops.rwkv6_scan_backward(r, k, v, lw, u, states, dy, ds)
     before = wops.bwd_launch_count
-    calls, made = _device_kernels(fn, reps=10)
+    calls, made = _device_kernels(fn, reps=10, expect=2)
     return calls, made, wops.bwd_launch_count - before
 
 
 def test_rwkv6_scan_bwd_one_kernel_per_call(dev):
-    """A backward call runs exactly one device kernel,
-    ``rwkv6_scan_bwd_kernel``: du's sum over batch rows is in it, and
-    outputs are allocated, not cleared (traced in a process of its own, as
+    """A backward call runs exactly two device kernels, in order,
+    ``rwkv6_scan_bwd_ds_kernel`` and ``rwkv6_scan_bwd_chunk_kernel``: du's
+    sum over batch rows is in them, and outputs and the dS scratch are
+    allocated, not cleared (traced in a process of its own, as
     :func:`test_rglru_scan_one_kernel_per_call`)."""
     calls, made, launched = _in_own_process("_rwkv6_bwd_kernels_a_call()")
-    assert launched == made
-    assert all(len(c) == 1 and "rwkv6_scan_bwd_kernel" in c[0]
+    assert launched == 2 * made
+    assert all(len(c) == 2 and "rwkv6_scan_bwd_ds_kernel" in c[0]
+               and "rwkv6_scan_bwd_chunk_kernel" in c[1]
                for c in calls), calls
+
+
+@pytest.mark.parametrize("b,h,s,d,chunk,logw,with_ds", [
+    (2, 64, 512, 64, 64, None, True),  # the training path's shape
+    (2, 64, 512, 64, 64, -1.0, True),  # edge decay: e^{±64}
+    (2, 64, 1, 64, 64, None, True),  # a single step
+    (1, 2, 64, 40, 64, None, False),  # one chunk, D = 40, no d_state
+    (2, 3, 192, 40, 64, None, True),  # three chunks, D = 40
+    (1, 2, 96, 16, 32, None, True),  # c = 32 < 64
+    (2, 3, 40, 5, 8, None, False),  # D % 4 != 0, c = 8
+])
+def test_rwkv6_scan_bwd_passes_match_their_plain_pieces(dev, b, h, s, d,
+                                                        chunk, logw,
+                                                        with_ds):
+    """Each backward kernel against its own plain piece: the dS pass's
+    scratch (dS leaving each chunk) and dstate0 against
+    ``rwkv6_bwd_ds_ref``, its per-row du partials summed against
+    ``rwkv6_bwd_du_ref``; the chunk pass, fed the kernel's own dS, against
+    ``rwkv6_bwd_chunks_ref``; the composition ``rwkv6_bwd_split_ref``
+    against ``rwkv6_bwd_ref``. 1e-4 relative plus 1e-4 of the largest
+    value."""
+    r, k, v, lw, u, s0, dy, ds = _rwkv6_grad_inputs(b, h, s, d, logw, dev,
+                                                    seed=s * d + h + 1)
+    ds = ds if with_ds else None
+    c = min(chunk, s)
+    _, _, states = wops._launch(r, k, v, lw, u, s0, c, save_states=True)
+    grads, ds_all, du_part = wops._launch_bwd(r, k, v, lw, u, states, dy, ds,
+                                              c, True, return_scratch=True)
+    torch.cuda.synchronize()
+    want_ds, want_ds0 = rwkv6_bwd_ds_ref(r, lw, dy, ds, c)
+    _close_to_largest(ds_all, want_ds)
+    _close_to_largest(grads[5], want_ds0)
+    du = rwkv6_bwd_du_ref(r, k, v, dy)
+    _close_to_largest(du_part.sum(0), du)
+    _close_to_largest(grads[4], du)
+    want = rwkv6_bwd_chunks_ref(r, k, v, lw, u, states, ds_all, dy, c)
+    for a, w in zip(grads[:4], want):
+        _close_to_largest(a, w)
+    for a, w in zip(rwkv6_bwd_split_ref(r, k, v, lw, u, states, dy, ds, c),
+                    rwkv6_bwd_ref(r, k, v, lw, u, states, dy, ds, c)):
+        _close_to_largest(a, w)
+
+
+def test_rwkv6_scan_bwd_is_bitwise_on_repeat(dev):
+    """Two backward calls at the training path's shape give the same bits:
+    every gradient, the dS scratch and du's partials (no atomics; every sum
+    in a fixed order)."""
+    r, k, v, lw, u, s0, dy, ds = _rwkv6_grad_inputs(2, 64, 512, 64, None,
+                                                    dev, seed=27)
+    _, _, states = wops._launch(r, k, v, lw, u, s0, 64, save_states=True)
+    one = wops._launch_bwd(r, k, v, lw, u, states, dy, ds, 64, True,
+                           return_scratch=True)
+    two = wops._launch_bwd(r, k, v, lw, u, states, dy, ds, 64, True,
+                           return_scratch=True)
+    torch.cuda.synchronize()
+    for a, a2 in zip((*one[0], *one[1:]), (*two[0], *two[1:])):
+        assert torch.equal(a, a2)
 
 
 @pytest.mark.parametrize("remat", [False, True])
 def test_train_rwkv_reduced_on_card(dev, remat):
     """The reduced rwkv6 twin (2 layers, 4 heads × 32) through
     ``train_reduced`` on the card, 2 × 1024 tokens: a step makes one
-    ``fused_ce`` launch, 2 layers × 2 time chunks WKV backward launches and
-    as many forwards (twice as many under ``remat``: each one-layer group's
-    forward runs again in the backward); the losses are finite."""
+    ``fused_ce`` launch, 2 layers × 2 time chunks WKV backward calls (two
+    kernel launches each) and as many forwards (twice as many under
+    ``remat``: each one-layer group's forward runs again in the backward);
+    the losses are finite."""
     c0, w0, b0 = cops.launch_count, wops.launch_count, wops.bwd_launch_count
     a0, r0 = aops.launch_count, rops.launch_count
     steps = 2
@@ -968,8 +1039,8 @@ def test_train_rwkv_reduced_on_card(dev, remat):
                             remat=remat)
     bwd = wops.bwd_launch_count - b0
     assert cops.launch_count - c0 == steps
-    assert bwd == steps * 2 * 2
-    assert wops.launch_count - w0 - bwd == (2 if remat else 1) * bwd
+    assert bwd == 2 * steps * 2 * 2
+    assert wops.launch_count - w0 - bwd == (2 if remat else 1) * bwd // 2
     assert aops.launch_count == a0 and rops.launch_count == r0
     assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
                for h in hist)
@@ -1123,11 +1194,11 @@ def test_kernels_without_backward_raise_under_autograd(dev):
     y, _ = wops.rwkv6_scan(r.requires_grad_(), k, v, lw, u)
     y.sum().backward()
     assert r.grad is not None and torch.isfinite(r.grad).all()
-    assert (wops.launch_count, wops.bwd_launch_count) == (before[0] + 2,
-                                                          before[1] + 1)
+    assert (wops.launch_count, wops.bwd_launch_count) == (before[0] + 3,
+                                                          before[1] + 2)
     with torch.no_grad():
         wops.rwkv6_scan(r, k, v, lw, u)  # no graph: the forward alone
-    assert wops.bwd_launch_count == before[1] + 1
+    assert wops.bwd_launch_count == before[1] + 2
     q = torch.randn(1, 4, 64, device=dev, requires_grad=True)
     kv = torch.randn(1, 16, 1, 64, device=dev)
     pos = torch.arange(16, dtype=torch.int32, device=dev)

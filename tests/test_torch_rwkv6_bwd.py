@@ -3,8 +3,10 @@ repro_torch.kernels.rwkv6_scan against the VJP that JAX derives from the
 reference model's own chunk, ``repro.models.layers._wkv_chunk`` chained over
 the chunks from ``state0`` (the function the reference trains rwkv6
 through: its Pallas kernel has no backward), and against autograd through
-the port's plain chunked WKV; and the CPU path of ``RWKV6Scan``. The CUDA
-backward kernel is held against ``rwkv6_bwd_ref`` on the card
+the port's plain chunked WKV; the same backward split as the card splits
+it (``rwkv6_bwd_split_ref``: the dS pass, the chunk pass fed its dS, du)
+against both; and the CPU path of ``RWKV6Scan``. The CUDA backward kernels
+are held against ``rwkv6_bwd_ref`` and their own plain pieces on the card
 (``test_torch_cuda.py``).
 
 Tolerance: every gradient within 1e-4 relative plus 1e-4 of its largest
@@ -20,7 +22,9 @@ import torch
 
 from repro.models.layers import _wkv_chunk as jax_wkv_chunk
 from repro_torch.kernels.rwkv6_scan import ops
-from repro_torch.kernels.rwkv6_scan.ref import rwkv6_bwd_ref, rwkv6_chunked_ref
+from repro_torch.kernels.rwkv6_scan.ref import (rwkv6_bwd_ref,
+                                                 rwkv6_bwd_split_ref,
+                                                 rwkv6_chunked_ref)
 
 NAMES = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
 
@@ -52,11 +56,12 @@ def _jax_chain(r, k, v, lw, u, s0, c):
     return jnp.concatenate(ys, axis=2), state
 
 
-def _plain_grads(r, k, v, lw, u, s0, dy, ds, c, with_s0=True, with_ds=True):
+def _plain_grads(r, k, v, lw, u, s0, dy, ds, c, with_s0=True, with_ds=True,
+                 bwd=rwkv6_bwd_ref):
     t = [torch.from_numpy(a) for a in (r, k, v, lw, u, s0, dy, ds)]
     _, _, states = rwkv6_chunked_ref(*t[:5], t[5] if with_s0 else None, c,
                                      return_states=True)
-    return rwkv6_bwd_ref(*t[:5], states, t[6], t[7] if with_ds else None, c)
+    return bwd(*t[:5], states, t[6], t[7] if with_ds else None, c)
 
 
 def _close(got, want, name):
@@ -107,6 +112,47 @@ def test_bwd_ref_matches_autograd_of_chunked_ref(b, h, s, d, chunk, with_s0,
     got = _plain_grads(r, k, v, lw, u, s0, dy, ds, c, with_s0, with_ds)
     for g, w, name in zip(got, want, NAMES):
         _close(g, w.numpy(), name)
+
+
+SPLIT_CASES = [
+    (1, 2, 64, 40, 64, True, True),  # one chunk, D = 40 (not a multiple of 16)
+    (2, 3, 192, 40, 64, False, True),  # three chunks, no state0
+    (1, 2, 96, 16, 32, True, False),  # c = 32 < 64, no d_state
+    (2, 2, 48, 40, 16, False, False),  # c = 16, D = 40, neither
+    (1, 2, 33, 5, 64, True, True),  # c = 33, D = 5
+    (2, 2, 5, 4, 1, True, True),  # c = 1
+]
+
+
+@pytest.mark.parametrize("b,h,s,d,chunk,with_s0,with_ds", SPLIT_CASES)
+def test_bwd_split_ref_matches_bwd_ref(b, h, s, d, chunk, with_s0, with_ds):
+    """The backward as the kernels split it (the dS pass alone, then every
+    chunk at once from its dS, du) against the reverse walk."""
+    args = _inputs(b, h, s, d, seed=100 + s + d)
+    c = min(chunk, s)
+    got = _plain_grads(*args, c, with_s0, with_ds, bwd=rwkv6_bwd_split_ref)
+    want = _plain_grads(*args, c, with_s0, with_ds)
+    for g, w, name in zip(got, want, NAMES):
+        _close(g, w.numpy(), name)
+
+
+@pytest.mark.parametrize("b,h,s,d,chunk,with_s0,with_ds", SPLIT_CASES)
+def test_bwd_split_ref_matches_jax_vjp_of_wkv_chunk(b, h, s, d, chunk,
+                                                    with_s0, with_ds):
+    """The split backward against ``jax.vjp`` of the reference's
+    ``_wkv_chunk`` chain; a missing state0 or d_state is zeros on both
+    sides (dstate0 is then the gradient at a zero state)."""
+    r, k, v, lw, u, s0, dy, ds = _inputs(b, h, s, d, seed=200 + s + d)
+    s0 = s0 if with_s0 else np.zeros_like(s0)
+    ds = ds if with_ds else np.zeros_like(ds)
+    c = min(chunk, s)
+    _, vjp = jax.vjp(lambda *a: _jax_chain(*a, c),
+                     *(jnp.asarray(a) for a in (r, k, v, lw, u, s0)))
+    want = vjp((jnp.asarray(dy), jnp.asarray(ds)))
+    got = _plain_grads(r, k, v, lw, u, s0, dy, ds, c, with_s0, with_ds,
+                       bwd=rwkv6_bwd_split_ref)
+    for g, w, name in zip(got, want, NAMES):
+        _close(g, w, name)
 
 
 @pytest.mark.parametrize("use_final_state", [False, True])
