@@ -10,7 +10,8 @@ dense decoder (llama3.2-3b, qwen2-7b, stablelm-1.6b, qwen1.5-110b), MoE
 (mixtral-8x7b, arctic-480b), encoder-decoder (whisper-tiny) and VLM
 (llava-next-mistral-7b) LM serving paths, FlyMC over llama3.2-3b's LM
 head, and the
-recurrentgemma-9b training step — each with its kernels (six sources;
+recurrentgemma-9b, SP-mode, rwkv6-7b and sharded training steps — each
+with its kernels (six sources;
 ``rglru_scan.cu`` holds a forward and a backward kernel, ``bright_glm.cu``
 a register and a wide softmax kernel):
 
@@ -118,7 +119,7 @@ a register and a wide softmax kernel):
 6b. runs data-sharded FlyMC on the one card (``dist_path``): 4 ranks
    (processes, gloo over CUDA tensors) run the reference example's problem
    (``examples/distributed_flymc.py``: logistic, N = 32,768, D = 11, RWMH,
-   capacity 256 a shard, q_db 0.01, 750 iterations (the example runs
+   capacity 256 a shard, q_db 0.01, 300 iterations (the example runs
    1,500); 64 chains from θ_MAP
    at step 0.03), with the
    streamed moments, R̂ and query budget held to the offline trace, the
@@ -262,7 +263,21 @@ a register and a wide softmax kernel):
    against its own plain piece (``rwkv6_bwd_ds_ref``, and
    ``rwkv6_bwd_chunks_ref`` fed the kernel's dS); two calls bitwise equal;
    each kernel's device ms and their sum, all the backward's device work,
-   the call's and the plain backward's ms beside the bound).
+   the call's and the plain backward's ms beside the bound);
+19. runs the sharded train step (``sharded_train_path``,
+   ``launch.steps.make_sharded_train_step``) of llama3.2-3b at its
+   published width cut to 8 of 28 layers, bf16, remat, 2 × 2048 tokens:
+   one NCCL rank on mesh (1, 1) bitwise the single-device step; 4 gloo
+   ranks over CUDA tensors on (data=2, model=2), their loss and gradient
+   norm against the single device's, one ``fused_ce`` launch a step a
+   rank (on its vocabulary shard); the state saved after step 2 (logical
+   arrays) and restored onto (2, 2), (1, 2) and one device, every leaf
+   the same and the resumed steps bitwise; compressed pod gradients on
+   (pod=2, data=1, model=2) at 2 layers within 5% of exact; then
+   ``fused_ce`` at the vocabulary shard (T = 4,096, D = 3,072, V/2 =
+   64,128) against its plain version, the two shards merged against the
+   whole head. Prints step ms, peak memory a rank, the collectives a step
+   by kind with their bytes, and the save and restore seconds.
 
 Any failure raises (nonzero exit, no result line). The build's ptxas
 registers, shared memory and spills are printed per kernel. The last two
@@ -272,9 +287,11 @@ lines are the ``{"kernels": [...]}`` table and ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -301,7 +318,9 @@ CAPACITY = 512
 # 1,000 iterations (FlyMC or full-data alike), so convergence is checked on a
 # second run at the MNIST N with D = 3, long enough to converge.
 WARMUP, SAMPLES, CHAINS = 250, 750, 2
-D_CONV, WARMUP_CONV, SAMPLES_CONV = 3, 1000, 2500
+# (600 + 2,000 iterations: 1,000 + 2,500 did not leave the smoke room for
+# the sharded train step within its time limit on a slow host)
+D_CONV, WARMUP_CONV, SAMPLES_CONV = 3, 600, 2000
 # LM serving path: recurrentgemma-9b at its published width.
 ARCH = "recurrentgemma-9b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2304, 32
@@ -346,7 +365,8 @@ LANES, LANE_CHAINS, LANE_SAMPLES = 8, 2, 64
 # Data-sharded FlyMC on the one card: 4 gloo ranks over CUDA tensors. The
 # reference example's problem (examples/distributed_flymc.py: logistic,
 # N = 32,768, D = 11, RWMH, capacity 256 a shard, q_db 0.01; the example's
-# 1,500 iterations cut to 750 to fit the smoke's time limit on a slow host,
+# 1,500 iterations cut to 300 to fit the smoke's time limit on a slow host
+# (750 until the sharded train step joined the smoke),
 # a quarter of them warmup; 64 chains, the example's one chain
 # 64 times over, started at θ_MAP: RWMH in these 11 dimensions reads
 # split-R̂ ~1.3 after 1,500 steps (8 chains, CPU), so the posterior held
@@ -356,7 +376,7 @@ LANES, LANE_CHAINS, LANE_SAMPLES = 8, 2, 64
 # iterations, the robust problem at the OPV width on 4 ranks (slice, from
 # θ_MAP, 100 iterations, burn 25), and a chain fleet of 4 ranks × 2 chains
 # at the MNIST width.
-DIST_RANKS, DIST_N, DIST_D, DIST_ITERS, DIST_CAP = 4, 32_768, 11, 750, 256
+DIST_RANKS, DIST_N, DIST_D, DIST_ITERS, DIST_CAP = 4, 32_768, 11, 300, 256
 DIST_Q, DIST_CHAINS, NCCL_ITERS = 0.01, 64, 50
 # The example's RWMH starts at step 0.1, which its warmup's Robbins–Monro
 # adaptation takes more than its 375 steps to shrink at this N: 8 chains
@@ -427,6 +447,20 @@ SP_STEPS, SP_BATCH, SP_SEQ = 4, 2, 2049
 # params, 50.52 GB of f32 weights, gradients and AdamW moments; 32 layers
 # need 120 GB), remat, bf16 compute, batch 2 × 2048 tokens, 4 steps.
 RWKV_TRAIN_LAYERS, RWKV_TRAIN_STEPS = 12, 4
+# The sharded train step (sharded_train_path): llama3.2-3b at full width
+# cut to 8 of 28 layers (1.594 B params, 25.5 GB of f32 weights, gradients
+# and moments summed over the ranks), remat, bf16 compute, 2 × 2048 tokens,
+# seed 0; warmup 1 so that the steps move the weights. Mesh (1, 1) on one
+# NCCL rank; (data=2, model=2) on 4 gloo ranks sharing the card, the state
+# saved after step 2; (pod=2, data=1, model=2) at 2 layers with and
+# without the compressed pod gradients (peak lr 1e-3 and warmup 200, the
+# reference test's schedule).
+SHARDED_ARCH, SHARDED_LAYERS, SHARDED_SEED = "llama3.2-3b", 8, 0
+SHARDED_BATCH, SHARDED_SEQ, SHARDED_STEPS, SHARDED_SAVE_AT = 2, 2048, 4, 2
+SHARDED_KW = dict(warmup_steps=1)
+COMPRESS_LAYERS, COMPRESS_STEPS = 2, 4
+COMPRESS_KW = dict(peak_lr=1e-3)  # tests/test_distributed_training.py's
+SHARDED_TIMEOUT_S = 900
 # The new LM heads of fused_ce on the SP path (d_model, padded vocab come
 # from these configs; llava's is mixtral's): T = SP_BATCH × (SP_SEQ − 1).
 SP_HEADS = ("llama3.2-3b", "mixtral-8x7b", "qwen1.5-110b", "whisper-tiny")
@@ -3611,7 +3645,7 @@ def step_breakdown(model, dev, remat: bool = False):
     loss.backward()
     ev[2].record()
     grads = {n: p.grad for n, p in params.items()}
-    gnorm = T.global_grad_norm(grads)
+    gnorm = T.global_grad_norm(grads, model.specs, model.par)
     adamw_update(params, grads, opt,
                  warmup_cosine(opt.step, peak_lr=3e-4, warmup_steps=1),
                  grad_scale=torch.clamp(1.0 / (gnorm + 1e-6), max=1.0))
@@ -4176,6 +4210,458 @@ def family_serve_path(dev):
     return launches, phases
 
 
+# ---------------------------------------------------------------------------
+# The sharded train step (torch.distributed ranks on the one card)
+# ---------------------------------------------------------------------------
+
+
+def _sharded_cfg(layers: int):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(SHARDED_ARCH), n_layers=layers)
+
+
+def _sharded_batch(cfg):
+    """The global batch: SHARDED_BATCH × SHARDED_SEQ token ids and labels
+    from a seeded CPU generator, as numpy (the ranks take them so)."""
+    gen = torch.Generator().manual_seed(SHARDED_SEED)
+    shape = (SHARDED_BATCH, SHARDED_SEQ)
+    return {k: torch.randint(0, cfg.vocab_size, shape, generator=gen).numpy()
+            for k in ("tokens", "labels")}
+
+
+def _leaf_digest(t, spec, par):
+    """A position-weighted sum of the bits of the logical tensor that
+    ``t`` is this rank's shard of (int64, wrapping; replicas counted
+    once): the same for one logical tensor however it is sharded, and
+    another for any other tensor with all but vanishing probability. One
+    SUM all-reduce a leaf on a mesh."""
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.par import shard_index
+
+    ints = {4: torch.int32, 2: torch.int16}[t.element_size()]
+    bits = t.detach().contiguous().view(ints).to(torch.int64)
+    idx = torch.zeros((), dtype=torch.int64, device=t.device)
+    stride = 1
+    sharded = par is not None and par.mesh is not None
+    starts = [s.start or 0 for s in shard_index(spec, par)] if sharded else [
+        0] * t.dim()
+    for dim in reversed(range(t.dim())):
+        ar = torch.arange(t.shape[dim], device=t.device) + starts[dim]
+        idx = idx + (ar * stride).view([-1] + [1] * (t.dim() - 1 - dim))
+        stride *= spec.shape[dim]
+    part = (bits * (idx % 1000003 + 1)).sum().view(1)
+    if par is None or par.mesh is None:
+        return int(part)
+    if spec.sync and par.mesh.index(spec.sync):
+        part = torch.zeros_like(part)  # a replica: counted on one rank
+    return int(comm.all_reduce_sum(part, par.mesh.group(par.mesh.axis_names)))
+
+
+def _state_digests(model, opt):
+    """{name: (weight, m, v) digests} of a model's and its AdamW state's
+    logical tensors (collective on a mesh)."""
+    par = model.par if model.par.mesh is not None else None
+    return {n: tuple(_leaf_digest(t, model.specs[n], par)
+                     for t in (p, opt.m[n], opt.v[n]))
+            for n, p in model.named_parameters()}
+
+
+def _timed_steps(step, model, opt, batch, steps, err=None):
+    """``steps`` steps: per step the metrics (host floats), the host ms
+    (ending in a synchronize), the collectives by kind and the
+    ``fused_ce`` launches."""
+    from repro_torch.distributed import comm
+    from repro_torch.kernels.fused_ce import ops as cops
+
+    out = []
+    for _ in range(steps):
+        comm.reset_counts()
+        ce0 = cops.launch_count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(model, opt, batch) if err is None else step(model, opt,
+                                                              batch, err)
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        out.append({**m, "ms": (time.perf_counter() - t0) * 1e3,
+                    "collectives": comm.tally(),
+                    "fused_ce": cops.launch_count - ce0})
+    return out
+
+
+def _sharded_rank(group, job):
+    """One rank of the (2, 2) run: SHARDED_STEPS steps from the seed,
+    the state saved after SHARDED_SAVE_AT; a model of another seed
+    restored from that save and stepped to the end; then the save
+    restored onto (1, 2) by ranks 0 and 1, and (4 ranks on (pod=2, data=1,
+    model=2)) COMPRESS_LAYERS layers exact and with compress_axes=("pod",).
+    Returns host values: each run's steps, digests, peak memory."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch.mesh import make_mesh, make_par
+    from repro_torch.launch.steps import make_sharded_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import AdamWState
+    from repro_torch.optim.compression import init_error_state
+
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    shape = ShapeConfig("sharded", SHARDED_SEQ, SHARDED_BATCH, "train")
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in job["batch"].items()}
+    cfg = _sharded_cfg(SHARDED_LAYERS)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    step, specs, build = make_sharded_train_step(
+        cfg, mesh, shape, torch.bfloat16, remat=True, **SHARDED_KW)
+    shardings = {"params": specs, "opt": AdamWState(None, specs, specs)}
+    out = {"rank": mesh.rank}
+    start = time.perf_counter()
+
+    def stage(what):  # rank 0's progress, for a run cut by its time limit
+        if mesh.rank == 0:
+            log(f"  sharded rank 0: {what} at {time.perf_counter() - start:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, opt = build(SHARDED_SEED, dev)
+    stage("built")
+    ck = Checkpointer(job["ckpt"])
+    first = _timed_steps(step, model, opt, batch, SHARDED_SAVE_AT)
+    out["saved"] = _state_digests(model, opt)
+    t0 = time.perf_counter()
+    ck.save(SHARDED_SAVE_AT, {"params": dict(model.named_parameters()),
+                              "opt": opt}, shardings=shardings, mesh=mesh,
+            blocking=True)
+    out["save_s"] = time.perf_counter() - t0
+    stage(f"steps 1-{SHARDED_SAVE_AT} ({[round(s['ms'], 1) for s in first]} "
+          f"ms) and the save ({out['save_s']:.1f} s)")
+    rest = _timed_steps(step, model, opt, batch,
+                        SHARDED_STEPS - SHARDED_SAVE_AT)
+    out.update(steps=first + rest, final=_state_digests(model, opt),
+               peak=torch.cuda.max_memory_allocated(dev))
+    del model, opt
+    torch.cuda.empty_cache()
+
+    # (c) a model of another seed, restored from the save, to the end
+    model, opt = build(SHARDED_SEED + 1, dev)
+    t0 = time.perf_counter()
+    restored, _ = ck.restore({"params": dict(model.named_parameters()),
+                              "opt": opt}, step=SHARDED_SAVE_AT,
+                             shardings=shardings, mesh=mesh, verify=False)
+    out["restore_s"] = time.perf_counter() - t0
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(restored["params"][n])
+    opt = restored["opt"]
+    del restored
+    out["restored"] = _state_digests(model, opt)
+    out["resumed"] = _timed_steps(step, model, opt, batch,
+                                  SHARDED_STEPS - SHARDED_SAVE_AT)
+    out["resumed_final"] = _state_digests(model, opt)
+    del model, opt
+    torch.cuda.empty_cache()
+    stage(f"steps {SHARDED_SAVE_AT + 1}-{SHARDED_STEPS} "
+          f"({[round(s['ms'], 1) for s in rest]} ms), the (2, 2) restore "
+          f"({out['restore_s']:.1f} s) and its steps")
+
+    # (c) the save onto (1, 2): ranks 0 and 1
+    half = make_mesh((1, 2), ("data", "model"))
+    if half.rank is not None:
+        m2 = T.LM(cfg, dev, torch.float32, make_par(half))
+        o2 = T.init_opt(m2)
+        shard2 = {"params": m2.specs, "opt": AdamWState(None, m2.specs,
+                                                        m2.specs)}
+        restored, _ = ck.restore({"params": dict(m2.named_parameters()),
+                                  "opt": o2}, step=SHARDED_SAVE_AT,
+                                 shardings=shard2, mesh=half, verify=False)
+        with torch.no_grad():
+            for n, p in m2.named_parameters():
+                p.copy_(restored["params"][n])
+        out["half"] = _state_digests(m2, restored["opt"])
+        del m2, o2, restored
+        torch.cuda.empty_cache()
+    stage("the (1, 2) restore")
+
+    # (d) the pod axis: exact, then compressed
+    pod = make_mesh((2, 1, 2), ("pod", "data", "model"))
+    small = _sharded_cfg(COMPRESS_LAYERS)
+    for comp in ((), ("pod",)):
+        step, _, build = make_sharded_train_step(
+            small, pod, shape, torch.bfloat16, remat=True,
+            compress_axes=comp, **COMPRESS_KW)
+        model, opt = build(SHARDED_SEED, dev)
+        err = (init_error_state(dict(model.named_parameters()))
+               if comp else None)
+        run = _timed_steps(step, model, opt, batch, COMPRESS_STEPS, err)
+        out["pod" if not comp else "pod_compressed"] = run
+        del model, opt, err
+        torch.cuda.empty_cache()
+        stage(f"pod mesh, compress_axes={comp}: losses "
+              f"{[s['loss'] for s in run]}, ms {[round(s['ms'], 1) for s in run]}")
+    return out
+
+
+def fused_ce_shard_phase(dev):
+    """``fused_ce`` at a vocabulary shard, the sharded step's call: T =
+    SHARDED_BATCH × SHARDED_SEQ rows (mesh (1, 2)'s), D = 3,072, V/2 =
+    64,128 columns of llama3.2-3b's head, bf16 in the path's rounding mode.
+    Both shards against their plain version (labels shifted into each
+    block; a label of the other block gives a target of exactly 0), and
+    the two shards' merged (lse, target), M + log Σ exp(lse_r − M) and
+    Σ target_r, against the kernel over the whole head to 1e-4 (float32
+    sums grouped another way). Times shard 0 as :func:`fused_ce_phase`
+    does; the library yardstick is ``F.cross_entropy(x @ w_shard)``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.fused_ce import ops
+    from repro_torch.kernels.fused_ce.ref import fused_ce_ref
+
+    cfg = _sharded_cfg(1)
+    t, d, v = SHARDED_BATCH * SHARDED_SEQ, cfg.d_model, cfg.padded_vocab()
+    vb = v // 2
+    gen = torch.Generator(device=dev).manual_seed(28)
+    x = torch.randn(t, d, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn(d, v, generator=gen, device=dev)
+         / d**0.5).to(torch.bfloat16)
+    lab = torch.randint(0, v, (t,), generator=gen, device=dev)
+    edge = [0, vb - 1, vb, v - 1]
+    lab[:len(edge)] = torch.tensor(edge, device=dev)
+    parts, err, flipped = [], 0.0, 0.0
+    for r in range(2):
+        ws = w[:, r * vb:(r + 1) * vb].contiguous()
+        ls = lab - r * vb
+        lse, tgt = ops.lse_and_target(x, ws, ls, True)
+        lse_ref, tgt_ref = fused_ce_ref(x, ws, ls, True)
+        torch.cuda.synchronize()
+        out = (ls < 0) | (ls >= vb)
+        if not (bool(out.any()) and bool((tgt[out] == 0).all())
+                and bool(torch.isfinite(lse).all())):
+            raise AssertionError("fused_ce shard: a label of the other "
+                                 "block gave a target other than 0")
+        flipped = max(flipped, _check_rounded(f"shard {r}", lse, lse_ref),
+                      _check_rounded(f"shard {r}", tgt, tgt_ref))
+        err = max(err, float((lse - lse_ref).abs().max()),
+                  float((tgt - tgt_ref).abs().max()))
+        parts.append((lse, tgt))
+        if r == 0:
+            w0, l0 = ws, ls
+        else:
+            del ws
+    m = torch.maximum(parts[0][0], parts[1][0])
+    lse = m + torch.log(torch.exp(parts[0][0] - m) + torch.exp(parts[1][0] - m))
+    tgt = parts[0][1] + parts[1][1]
+    lse_w, tgt_w = ops.lse_and_target(x, w, lab, True)
+    merge_err = max(float((lse - lse_w).abs().max()),
+                    float((tgt - tgt_w).abs().max()))
+    if merge_err > 1e-4:
+        raise AssertionError(f"fused_ce shards' merge vs the whole head: "
+                             f"max|Δ| {merge_err:.3g}")
+    del w, parts, lse_w, tgt_w
+    call = lambda: ops.lse_and_target(x, w0, l0, True)
+    dev_ms = device_ms(call, ("ce_wgmma_kernel", "ce_merge_kernel"), reps=3)
+    ms = median_ms(call, reps=3, warm=1)
+    plain = median_ms(lambda: fused_ce_ref(x, w0, l0, True), reps=3, warm=1)
+    lib_lab = lab % vb
+    lib_ms = median_ms(lambda: F.cross_entropy(x @ w0, lib_lab,
+                                               reduction="none"),
+                       reps=5, warm=1)
+    b_ms, b_by = bound(t * d * 2 + d * vb * 2 + t * 8 + t * 8,
+                       2.0 * t * d * vb, BF16_FLOP_PER_S)
+    log(f"fused_ce[shard: T={t} D={d} V/2={vb} bf16, bf16 logits] max|Δ| vs "
+        f"plain {err:.3g} ({flipped:.2g} of the tokens beyond 1e-4), merged "
+        f"shards vs the whole head max|Δ| {merge_err:.3g}; call {ms:.4f} ms "
+        f"(device {dev_ms:.6f} ms, {2.0 * t * d * vb / dev_ms / 1e9:.1f} "
+        f"TFLOP/s), plain {plain:.4f} ms, library (x@w + cross_entropy) "
+        f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); {card_line()}")
+    del x, w0
+    torch.cuda.empty_cache()
+    return {"phase": "vocab-shard", "T": t, "D": d, "V": vb,
+            "dtype": "bfloat16", "round_logits": True,
+            "max_abs_err": max(err, merge_err), "merge_max_abs_err": merge_err,
+            "ms": dev_ms, "call_ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
+def sharded_train_path(dev):
+    """The sharded train step (``launch.steps.make_sharded_train_step``)
+    of llama3.2-3b at full width cut to SHARDED_LAYERS layers, bf16
+    compute, f32 master weights and moments, remat, SHARDED_BATCH ×
+    SHARDED_SEQ tokens, seed SHARDED_SEED:
+
+    (a) the single-device step, then one NCCL rank on mesh (1, 1), 2
+        steps each: loss and grad_norm bitwise, and every weight and
+        moment by :func:`_leaf_digest`;
+    (b) 4 gloo ranks over CUDA tensors on the card, mesh (data=2,
+        model=2), SHARDED_STEPS steps: step 1's loss within 2e-3 of (a)'s
+        and its grad_norm within 1e-2; finite losses; the ranks agree;
+        one ``fused_ce`` launch a step a rank; step ms, peak memory a
+        rank, the collectives a step by kind with their bytes;
+    (c) (b)'s state saved after step SHARDED_SAVE_AT (logical arrays, rank
+        0 writes) and restored onto (2, 2), (1, 2) and one device: every
+        logical leaf's digest equal to the saved state's, and the (2, 2)
+        restore's last steps bitwise (b)'s (metrics and final state);
+    (d) mesh (pod=2, data=1, model=2) at COMPRESS_LAYERS layers,
+        COMPRESS_STEPS steps exact and with compress_axes=("pod",): both
+        descend, and the compressed losses are within 5% of the exact
+        ones and within a tenth of the exact run's descent;
+    (e) :func:`fused_ce_shard_phase`.
+
+    Returns (fused_ce launches by run, the kernel phase)."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.launch import run_ranks, single_rank
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_sharded_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import AdamWState
+
+    card = card_line()
+    cfg = _sharded_cfg(SHARDED_LAYERS)
+    batch_np = _sharded_batch(cfg)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch_np.items()}
+    shape = ShapeConfig("sharded", SHARDED_SEQ, SHARDED_BATCH, "train")
+    launches = {}
+
+    # (a) one device, then one NCCL rank on (1, 1)
+    torch.cuda.empty_cache()
+    model = T.init_model(cfg, SHARDED_SEED, dev)
+    model.requires_grad_(True)
+    opt = T.init_opt(model)
+    step = T.make_train_step(cfg, torch.bfloat16, remat=True, **SHARDED_KW)
+    single = _timed_steps(step, model, opt, batch, 2)
+    want = _state_digests(model, opt)
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, opt
+    torch.cuda.empty_cache()
+    with single_rank("nccl" if dev.type == "cuda" else "gloo", dev.type):
+        mesh = make_mesh((1, 1), ("data", "model"))
+        step, _, build = make_sharded_train_step(
+            cfg, mesh, shape, torch.bfloat16, remat=True, **SHARDED_KW)
+        model, opt = build(SHARDED_SEED, dev)
+        one = _timed_steps(step, model, opt, batch, 2)
+        same = _state_digests(model, opt) == want
+        del model, opt
+    torch.cuda.empty_cache()
+    keys = ("loss", "grad_norm")
+    if not same or any(a[k] != b[k] for a, b in zip(single, one)
+                       for k in keys):
+        raise AssertionError(f"(a) mesh (1, 1) is not bitwise the single-"
+                             f"device step: weights equal {same}, "
+                             f"{[(a['loss'], b['loss'], a['grad_norm'], b['grad_norm']) for a, b in zip(single, one)]}")
+    launches["sharded_one_rank"] = sum(s["fused_ce"] for s in one)
+
+    # (b), (c), (d) on 4 ranks
+    ckpt = ROOT / "build" / "sharded_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        outs = run_ranks(_sharded_rank, 4, backend="gloo", device=dev.type,
+                         args=(dict(batch=batch_np, ckpt=str(ckpt),
+                                    device=dev.type),),
+                         timeout_s=SHARDED_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        # (c) the save onto one device
+        model = T.LM(cfg, dev)
+        opt = T.init_opt(model)
+        t1 = time.perf_counter()
+        restored, _ = Checkpointer(ckpt).restore(
+            {"params": dict(model.named_parameters()), "opt": opt},
+            step=SHARDED_SAVE_AT, verify=False)
+        one_restore_s = time.perf_counter() - t1
+        ckpt_gb = _dir_bytes(ckpt / f"step_{SHARDED_SAVE_AT:08d}") / 1e9
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(restored["params"][n])
+        whole = _state_digests(model, restored["opt"])
+        del model, opt, restored
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    r0 = outs[0]
+    for o in outs[1:]:
+        for k in ("steps", "resumed", "pod", "pod_compressed"):
+            if [s["loss"] for s in o[k]] != [s["loss"] for s in r0[k]]:
+                raise AssertionError(f"(b) the ranks' {k} losses differ")
+    steps_b = r0["steps"]
+    losses = [s["loss"] for s in steps_b]
+    gap = abs(steps_b[0]["loss"] / single[0]["loss"] - 1)
+    ggap = abs(steps_b[0]["grad_norm"] / single[0]["grad_norm"] - 1)
+    ce_a_step = {s["fused_ce"] for o in outs for s in o["steps"]}
+    if not (np.all(np.isfinite(losses)) and gap <= 2e-3 and ggap <= 1e-2
+            and ce_a_step == {1}):
+        raise AssertionError(f"(b): losses {losses}, step-1 gap to (a) "
+                             f"{gap:.3g} (limit 2e-3), grad_norm gap "
+                             f"{ggap:.3g} (limit 1e-2), fused_ce a step "
+                             f"{ce_a_step}")
+    bad = [n for n in r0["saved"] if not (
+        r0["restored"][n] == r0["saved"][n] == whole[n]
+        and outs[0]["half"][n] == r0["saved"][n])]
+    resumed_same = (
+        [(s["loss"], s["grad_norm"]) for s in r0["resumed"]]
+        == [(s["loss"], s["grad_norm"]) for s in steps_b[SHARDED_SAVE_AT:]]
+        and r0["resumed_final"] == r0["final"])
+    if bad or not resumed_same:
+        raise AssertionError(f"(c): leaves not restored bitwise {bad[:4]}; "
+                             f"resumed steps bitwise {resumed_same}")
+    exact = [s["loss"] for s in r0["pod"]]
+    comp = [s["loss"] for s in r0["pod_compressed"]]
+    comp_gap = max(abs(c / e - 1) for c, e in zip(comp, exact))
+    # the exact run's descent, and the largest gap as a share of it: a
+    # compressed run whose pod gradient is lost stays near its first loss
+    # (share ~1) while 5% of the loss can exceed the whole descent
+    drop = exact[0] - exact[-1]
+    drop_share = max(abs(c - e) for c, e in zip(comp, exact)) / drop
+    if not (np.all(np.isfinite(exact + comp)) and comp_gap <= 0.05
+            and comp[-1] < comp[0] and drop > 0 and drop_share <= 0.1):
+        raise AssertionError(f"(d): compressed {comp} vs exact {exact}: "
+                             f"gap {comp_gap:.3g} (limit 0.05), "
+                             f"{drop_share:.3g} of the exact descent "
+                             f"{drop:.6g} (limit 0.1)")
+    launches["sharded_rank0"] = sum(s["fused_ce"] for s in steps_b)
+    launches["sharded_resumed_rank0"] = sum(s["fused_ce"]
+                                            for s in r0["resumed"])
+
+    step_ms = statistics.median(s["ms"] for s in steps_b[1:])
+    coll = steps_b[-1]["collectives"]
+    tokens = SHARDED_BATCH * SHARDED_SEQ
+    state_gb = n_params * 16 / 1e9
+    log(f"sharded train [{SHARDED_ARCH} full width, {SHARDED_LAYERS} of "
+        f"{get_config(SHARDED_ARCH).n_layers} layers, {n_params / 1e9:.3f} B "
+        f"params, remat, bf16 compute, f32 master and moments, batch "
+        f"{SHARDED_BATCH} x {SHARDED_SEQ} tokens, seed {SHARDED_SEED}; "
+        f"{card}]: (a) one device and 1 NCCL rank on (1, 1) bitwise over 2 "
+        f"steps: loss {[round(s['loss'], 6) for s in single]}, grad_norm "
+        f"{[round(s['grad_norm'], 6) for s in single]}, step ms one device "
+        f"{[round(s['ms'], 3) for s in single]}, NCCL "
+        f"{[round(s['ms'], 3) for s in one]} | (b) 4 gloo ranks over CUDA "
+        f"tensors on one card, mesh (data=2, model=2), {SHARDED_STEPS} steps: "
+        f"loss {[round(x, 6) for x in losses]} (step 1 vs (a): {gap:.3g}), "
+        f"grad_norm {[round(s['grad_norm'], 6) for s in steps_b]} (step 1 vs "
+        f"(a): {ggap:.3g}), step ms {[round(s['ms'], 1) for s in steps_b]} "
+        f"(median of steps 2-{SHARDED_STEPS}: {step_ms:.1f} ms, "
+        f"{tokens / step_ms * 1e3:.1f} tokens/s), peak memory a rank "
+        f"{[round(o['peak'] / 1e9, 2) for o in outs]} GB (training state "
+        f"{state_gb:.2f} GB summed over the ranks), collectives a step rank 0 "
+        f"{coll}, fused_ce launches a step a rank {sorted(ce_a_step)} | (c) "
+        f"saved after step {SHARDED_SAVE_AT} ({ckpt_gb:.2f} GB, "
+        f"{r0['save_s']:.1f} s), restored onto (2, 2) in "
+        f"{max(o['restore_s'] for o in outs):.1f} s, onto (1, 2) and one "
+        f"device ({one_restore_s:.1f} s): every leaf's digest equal; steps "
+        f"{SHARDED_SAVE_AT + 1}-{SHARDED_STEPS} resumed bitwise | (d) mesh "
+        f"(pod=2, data=1, model=2), {COMPRESS_LAYERS} layers, "
+        f"{COMPRESS_STEPS} steps: exact {[round(x, 5) for x in exact]}, "
+        f"compressed {[round(x, 5) for x in comp]} (max gap {comp_gap:.3g}; "
+        f"exact descent {drop:.6f}, the gap {drop_share:.3g} of it), "
+        f"step ms exact {[round(s['ms'], 1) for s in r0['pod']]}, compressed "
+        f"{[round(s['ms'], 1) for s in r0['pod_compressed']]}, collectives "
+        f"a compressed step {r0['pod_compressed'][-1]['collectives']} | "
+        f"ranks' wall {ranks_s:.1f} s")
+    phase = fused_ce_shard_phase(dev)
+    return launches, phase
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4280,6 +4766,9 @@ def main() -> int:
     rwkv_train_launches, _ = train_rwkv_path(dev)
     torch.cuda.empty_cache()
     done("rwkv6 training")
+    sharded_launches, ce_shard = sharded_train_path(dev)
+    torch.cuda.empty_cache()
+    done("sharded training")
 
     for p in bright + z + scan + scan_bwd + wkv_bwd:
         one_kernel_a_call(p, "bright_glm_kernel" if p in bright
@@ -4407,11 +4896,13 @@ def main() -> int:
          "launches_resumed": resumed_launches["fused_ce"],
          "launches_train_rwkv6-7b": rwkv_train_launches["fused_ce"],
          **{f"launches_train_{a}": v for a, v in sp_launches.items()},
-         "max_abs_err": max(p["max_abs_err"] for p in ce + sp_ce),
+         **{f"launches_{k}": v for k, v in sharded_launches.items()},
+         "max_abs_err": max(p["max_abs_err"] for p in ce + sp_ce
+                            + [ce_shard]),
          "ms": ce[0]["ms"], "call_ms": ce[0]["call_ms"],
          "plain_ms": ce[0]["plain_ms"], "bound_ms": ce[0]["bound_ms"],
          "bound_by": ce[0]["bound_by"], "library_ms": ce[0]["library_ms"],
-         "phases": ce + ce_grads + sp_ce + sp_ce_grads},
+         "phases": ce + ce_grads + sp_ce + sp_ce_grads + [ce_shard]},
     ]}
     log(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps(table), flush=True)

@@ -35,8 +35,15 @@ Properties, as the reference's:
   * **Restore onto a device** — each tensor leaf goes to the device of its
     target leaf, or to ``device=`` when the caller gives one; a leaf whose
     target is a host value (int, float, bool, str) comes back as that
-    Python type. Restore onto a mesh (``shardings=``) waits for the LM
-    stack's sharded paths (ROADMAP queue 1, item 9f).
+    Python type.
+  * **Logical on disk, sharded in memory** — a sharded run saves with
+    ``shardings=`` (a tree of :class:`~repro_torch.distributed.par.WSpec`
+    mirroring the saved tree; a leaf without one is replicated) and
+    ``mesh=``: the ranks' shards of each leaf are gathered to rank 0, and
+    rank 0 writes the logical arrays, the files a single-device save of
+    the same state writes. ``restore(shardings=, mesh=)`` gives each rank
+    its slices, so a state saved on one mesh restores onto another mesh or
+    onto one device (the reference's elastic restore).
 
 Leaves: tensors (bfloat16 stored as its uint16 bits, its dtype recorded as
 ``"bfloat16"``), numpy arrays and host scalars. A reference-written
@@ -54,10 +61,12 @@ import copy
 import dataclasses
 import io
 import json
+import math
 import os
 import shutil
 import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Callable
 
@@ -108,17 +117,28 @@ def _children(node) -> list[tuple[str, Any]] | None:
     return None
 
 
-def flatten_with_paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
-    """``[(path, leaf)]`` in the reference's flattening order and spelling."""
+def flatten_with_paths(tree, prefix: str = "",
+                       is_leaf: Callable[[Any], bool] | None = None
+                       ) -> list[tuple[str, Any]]:
+    """``[(path, leaf)]`` in the reference's flattening order and spelling
+    (``is_leaf``: a node to keep whole, e.g. a WSpec dataclass)."""
     if tree is None:
         return []
-    kids = _children(tree)
+    kids = None if is_leaf is not None and is_leaf(tree) else _children(tree)
     if kids is None:
         return [(prefix, tree)]
     out = []
     for key, child in kids:
-        out.extend(flatten_with_paths(child, prefix + key))
+        out.extend(flatten_with_paths(child, prefix + key, is_leaf))
     return out
+
+
+def _spec_paths(shardings) -> dict:
+    """path → WSpec of a tree of WSpecs (None leaves: replicated)."""
+    from repro_torch.distributed.par import WSpec
+
+    return dict(flatten_with_paths(shardings,
+                                   is_leaf=lambda x: isinstance(x, WSpec)))
 
 
 def map_with_paths(fn, tree, prefix: str = ""):
@@ -143,21 +163,34 @@ def map_with_paths(fn, tree, prefix: str = ""):
     return out
 
 
+def _np_bits(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy, without a copy (bfloat16 as its uint16
+    bits)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
 def _host(leaf) -> tuple[np.ndarray, str]:
     """A host copy of one leaf, and the dtype name the manifest records."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
-        if t.dtype == torch.bfloat16:
-            bits = t.view(torch.int16).to("cpu", copy=True).numpy()
-            return bits.view(np.uint16), "bfloat16"
-        a = t.to("cpu", copy=True).numpy()
-        return a, str(a.dtype)
+        a = _np_bits(t.to("cpu", copy=True))
+        return a, "bfloat16" if t.dtype == torch.bfloat16 else str(a.dtype)
     if isinstance(leaf, (np.ndarray, np.generic) + _HOST_SCALARS):
         a = np.array(leaf, copy=True)
         if a.dtype == object:
             raise TypeError(f"cannot checkpoint an object array ({leaf!r})")
         return a, str(a.dtype)
     raise TypeError(f"cannot checkpoint a leaf of type {type(leaf).__name__}")
+
+
+def _write_npy(path: Path, a: np.ndarray):
+    """``a`` as a ``.npy`` file, fsync'd."""
+    with open(path, "wb") as f:
+        np.save(f, a)
+        f.flush()
+        os.fsync(f.fileno())
 
 
 def _fsync_path(p: Path):
@@ -206,6 +239,29 @@ def _restored_leaf(arr: np.ndarray, meta: dict, ref, device):
     raise TypeError(f"cannot restore into a leaf of type {type(ref).__name__}")
 
 
+def _manifest(step, tree_label, metas, extra_metadata) -> dict:
+    """A step's manifest before its checksums: ``metas`` is one (path,
+    shape, dtype name) a leaf, in flattening order."""
+    return {
+        "step": int(step),
+        "treedef": f"{tree_label} of {len(metas)} leaves",
+        "leaves": [
+            {"path": p, "file": f"leaf_{i:04d}.npy", "shape": list(shape),
+             "dtype": dtype, "prng_key": False}
+            for i, (p, shape, dtype) in enumerate(metas)
+        ],
+        "extra": extra_metadata or {},
+    }
+
+
+def _np_storage(t: torch.Tensor) -> np.dtype:
+    """The numpy dtype a tensor is stored as (bfloat16 as its uint16
+    bits)."""
+    if t.dtype == torch.bfloat16:
+        return np.dtype(np.uint16)
+    return torch.empty((), dtype=t.dtype).numpy().dtype
+
+
 class Checkpointer:
     def __init__(self, directory: str | os.PathLike, keep: int = 3,
                  keep_last: int | None = None):
@@ -250,7 +306,7 @@ class Checkpointer:
     # ------------------------------------------------------------------ save
 
     def save(self, step: int, tree, extra_metadata: dict | None = None,
-             blocking: bool = False):
+             blocking: bool = False, shardings=None, mesh=None):
         """Copy every leaf to host memory, then write, fsync and rename on a
         worker thread (``blocking``: on this thread). Write order (kill
         points in brackets): [begin] leaf files fsync'd one by one
@@ -258,71 +314,134 @@ class Checkpointer:
         fsync'd [pre_rename], any existing final parked to ``.old``
         [parked], tmp renamed to final and the parent dir fsync'd
         [renamed], parking dir removed, old steps removed. A crash at any
-        point leaves either the old step or the new one intact."""
+        point leaves either the old step or the new one intact.
+
+        Sharded (``shardings``, ``mesh``; every rank of the mesh calls it):
+        one leaf at a time, every rank's shard is gathered to rank 0
+        (:func:`~repro_torch.distributed.comm.gather`), which assembles the
+        logical array and writes and fsyncs its file on a writer thread
+        while the next leaf is gathered; a leaf without a spec is rank
+        0's. Rank 0 alone writes, so the save is the same on a local disk
+        or a shared filesystem, and at most two logical leaves are in its
+        host memory at a time. The files are written before ``save``
+        returns; the checksums, manifest and rename follow on rank 0's
+        worker thread, and with ``blocking`` every rank returns once the
+        step is on disk."""
         self.wait()
+        if shardings is not None:
+            return self._save_sharded(step, tree, extra_metadata, blocking,
+                                      shardings, mesh)
         host = [(p, *_host(a)) for p, a in flatten_with_paths(tree)]
-        manifest = {
-            "step": int(step),
-            "treedef": f"{type(tree).__name__} of {len(host)} leaves",
-            "leaves": [
-                {"path": p, "file": f"leaf_{i:04d}.npy",
-                 "shape": list(a.shape), "dtype": dtype, "prng_key": False}
-                for i, (p, a, dtype) in enumerate(host)
-            ],
-            "extra": extra_metadata or {},
-        }
+        manifest = _manifest(step, type(tree).__name__,
+                             [(p, a.shape, dtype) for p, a, dtype in host],
+                             extra_metadata)
 
         def write():
-            tmp = self.dir / f"step_{step:08d}.tmp"
-            final = self.dir / f"step_{step:08d}"
-            old = self.dir / f"step_{step:08d}.old"
-            self._kill("begin")
-            if tmp.exists():
-                shutil.rmtree(tmp)
-            tmp.mkdir(parents=True)
+            tmp = self._fresh_tmp(step)
             for i, (_, a, _) in enumerate(host):
-                fpath = tmp / f"leaf_{i:04d}.npy"
-                with open(fpath, "wb") as f:
-                    np.save(f, a)
-                    f.flush()
-                    os.fsync(f.fileno())
-                # Checksum the FILE bytes (header included), read back after
-                # the fsync: a later single-bit flip anywhere in the file
-                # fails verify.
-                manifest["leaves"][i]["crc32"] = zlib.crc32(
-                    fpath.read_bytes()
-                )
-            self._kill("leaves_written")
-            with open(tmp / "manifest.json", "w") as f:
-                f.write(json.dumps(manifest, indent=1))
-                f.flush()
-                os.fsync(f.fileno())
-            self._kill("manifest_written")
-            _fsync_path(tmp)
-            self._kill("pre_rename")
-            if final.exists():
-                if old.exists():
-                    shutil.rmtree(old)
-                os.rename(final, old)
-                self._kill("parked")
-            os.rename(tmp, final)
-            _fsync_path(self.dir)
-            self._kill("renamed")
-            if old.exists():
-                shutil.rmtree(old, ignore_errors=True)
-            self._gc()
+                _write_npy(tmp / f"leaf_{i:04d}.npy", a)
+            self._commit(step, manifest)
 
+        self._run(write, blocking)
+
+    def _save_sharded(self, step, tree, extra_metadata, blocking, shardings,
+                      mesh):
+        import torch.distributed as dist
+
+        from repro_torch.distributed import comm
+        from repro_torch.distributed.par import shard_index
+        from repro_torch.launch.mesh import make_par
+
+        group = mesh.group(mesh.axis_names)
+        specs = _spec_paths(shardings)
+        leaves = [(p, a, specs.get(p)) for p, a in flatten_with_paths(tree)]
+        root = mesh.rank == 0
+        if root:  # each rank's shard index and whether it is a first replica
+            pars = [make_par(dataclasses.replace(mesh, rank=r))
+                    for r in range(mesh.size)]
+            tmp = self._fresh_tmp(step)
+            writer = ThreadPoolExecutor(1)  # leaf i's write overlaps i + 1
+            pending = writer.submit(lambda: None)
+        metas = []
+        for i, (p, a, spec) in enumerate(leaves):
+            parts = None if spec is None else comm.gather(a, group)
+            if not root:
+                continue
+            if spec is None:  # whole on every rank: rank 0 writes it
+                arr, dtype = _host(a)
+            else:
+                arr = np.empty(spec.shape, _np_storage(a))
+                dtype = _dtype_name(a)
+                for q, part in zip(pars, parts):
+                    if spec.sync and q.mesh.index(spec.sync):
+                        continue  # a replica of a shard placed already
+                    arr[shard_index(spec, q)] = _np_bits(part.cpu())
+            metas.append((p, arr.shape, dtype))
+            pending.result()  # at most two logical leaves in host memory
+            pending = writer.submit(_write_npy, tmp / f"leaf_{i:04d}.npy",
+                                    arr)
+            del arr, parts
+        if root:
+            pending.result()
+            writer.shutdown()
+            manifest = _manifest(step, type(tree).__name__, metas,
+                                 extra_metadata)
+            self._run(lambda: self._commit(step, manifest), blocking)
+        if blocking:
+            dist.barrier(group=group)
+
+    def _fresh_tmp(self, step) -> Path:
+        """[begin], then an empty ``step_*.tmp`` directory."""
+        tmp = self.dir / f"step_{step:08d}.tmp"
+        self._kill("begin")
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        return tmp
+
+    def _commit(self, step, manifest):
+        """Checksum the tmp directory's leaf files (the FILE bytes, header
+        included, read back after their fsync: a later single-bit flip
+        anywhere in a file fails verify), then the manifest, the fsyncs and
+        the rename of the save's write order."""
+        tmp = self.dir / f"step_{step:08d}.tmp"
+        final = self.dir / f"step_{step:08d}"
+        old = self.dir / f"step_{step:08d}.old"
+        for meta in manifest["leaves"]:
+            meta["crc32"] = zlib.crc32((tmp / meta["file"]).read_bytes())
+        self._kill("leaves_written")
+        with open(tmp / "manifest.json", "w") as f:
+            f.write(json.dumps(manifest, indent=1))
+            f.flush()
+            os.fsync(f.fileno())
+        self._kill("manifest_written")
+        _fsync_path(tmp)
+        self._kill("pre_rename")
+        if final.exists():
+            if old.exists():
+                shutil.rmtree(old)
+            os.rename(final, old)
+            self._kill("parked")
+        os.rename(tmp, final)
+        _fsync_path(self.dir)
+        self._kill("renamed")
+        if old.exists():
+            shutil.rmtree(old, ignore_errors=True)
+        self._gc()
+
+    def _run(self, write, blocking):
         if blocking:
             write()
-        else:
-            def runner():
-                try:
-                    write()
-                except BaseException as e:  # surfaced by the next wait()
-                    self._error = e
+            return
 
-            self._thread = threading.Thread(target=runner, daemon=True)
-            self._thread.start()
+        def runner():
+            try:
+                write()
+            except BaseException as e:  # surfaced by the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=runner, daemon=True)
+        self._thread.start()
 
     def wait(self):
         """Join any in-flight write; re-raise its failure instead of letting
@@ -446,7 +565,7 @@ class Checkpointer:
         )
 
     def restore(self, target_tree, step: int | None = None, shardings=None,
-                verify: bool = True, device=None):
+                verify: bool = True, device=None, mesh=None):
         """Restore into the structure of ``target_tree``; returns
         ``(tree, manifest)``.
 
@@ -460,16 +579,25 @@ class Checkpointer:
         raises :class:`CheckpointCorruptError`; with ``step=None`` the
         newest intact step is loaded (skipped corrupt steps land in
         ``self.last_skipped``), and if every step is corrupt the restore
-        refuses. ``shardings`` (restore onto a mesh) waits for the LM
-        stack's tensor-parallel and FSDP paths."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore onto a mesh (shardings=) comes with the LM stack's "
-                "tensor-parallel and FSDP paths (ROADMAP queue 1, item 9f); "
-                "pass device= instead"
-            )
+        refuses.
+
+        ``shardings`` (a tree of WSpecs mirroring the target; a leaf without
+        one is replicated) with ``mesh``, this rank's mesh: restore onto a
+        mesh. Every rank of the mesh calls it (after a barrier that lets
+        rank 0's pending write finish); each stored leaf must have its
+        spec's logical shape, and each rank gets its slice, whose shape
+        must be its target leaf's. Without ``verify`` the files are memory
+        mapped, so each rank reads only its blocks of each file."""
         dev = None if device is None else resolve_device(device)
         self.wait()
+        specs, par = {}, None
+        if shardings is not None:
+            import torch.distributed as dist
+
+            from repro_torch.launch.mesh import make_par
+
+            dist.barrier(group=mesh.group(mesh.axis_names))
+            specs, par = _spec_paths(shardings), make_par(mesh)
         self.last_skipped = []
         pinned = step is not None
         step = self._resolve(step, verify)
@@ -489,15 +617,27 @@ class Checkpointer:
             if path not in by_path:
                 raise KeyError(f"checkpoint missing leaf {path}")
             meta = by_path[path]
-            raw = (cdir / meta["file"]).read_bytes()
-            want = meta.get("crc32")
-            if verify and want is not None and zlib.crc32(raw) != want:
-                raise CheckpointCorruptError(
-                    f"checkpoint step {step} is corrupt",
-                    [f"step {step}: {meta['file']} ({path}) crc32 "
-                     f"{zlib.crc32(raw):#010x} != manifest {want:#010x}"],
-                )
-            arr = np.load(io.BytesIO(raw))
+            spec = specs.get(path)
+            if not verify and math.prod(meta["shape"]):
+                # a memory map: a sharded restore reads only its blocks
+                arr = np.load(cdir / meta["file"], mmap_mode="r")
+            else:
+                raw = (cdir / meta["file"]).read_bytes()
+                want = meta.get("crc32")
+                if verify and want is not None and zlib.crc32(raw) != want:
+                    raise CheckpointCorruptError(
+                        f"checkpoint step {step} is corrupt",
+                        [f"step {step}: {meta['file']} ({path}) crc32 "
+                         f"{zlib.crc32(raw):#010x} != manifest {want:#010x}"],
+                    )
+                arr = np.load(io.BytesIO(raw))
+            if spec is not None:
+                if tuple(arr.shape) != spec.shape:
+                    raise ValueError(f"shape mismatch for {path}: "
+                                     f"{arr.shape} vs logical {spec.shape}")
+                from repro_torch.distributed.par import local_slice
+
+                arr = local_slice(arr, spec, par)
             if tuple(arr.shape) != _shape_of(ref):
                 raise ValueError(f"shape mismatch for {path}: {arr.shape} "
                                  f"vs {_shape_of(ref)}")

@@ -22,6 +22,8 @@ from repro_torch.core.flymc import FlyMCState
 from repro_torch.core.numerics import M32
 from repro_torch.core.samplers import SamplerState
 from repro_torch.device import resolve_device
+from repro_torch.distributed.par import local_slice
+from repro_torch.launch.mesh import make_par
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Params
 from repro_torch.models.transformer import LM
@@ -125,15 +127,18 @@ def per_layer(tree: dict, cfg: ModelConfig) -> list[dict]:
 
 
 @torch.no_grad()
-def _load(mod: Params, leaves: dict) -> None:
+def _load(mod: Params, leaves: dict, par) -> None:
     groups = {n for n, _ in mod.named_children()}  # nested Params
     if set(leaves) != set(mod.defs) | groups:
         raise ValueError(f"weights {sorted(leaves)} != "
                          f"{sorted(set(mod.defs) | groups)}")
     for name in groups:
-        _load(getattr(mod, name), leaves[name])
+        _load(getattr(mod, name), leaves[name], par)
     for name in mod.defs:
         a = np.asarray(leaves[name])
+        spec = mod.specs[name]
+        if a.shape == spec.shape and spec.local_shape != spec.shape:
+            a = local_slice(a, spec, par)  # this rank's shard
         p = getattr(mod, name)
         if a.shape != tuple(p.shape):
             raise ValueError(f"{name}: shape {a.shape} != {tuple(p.shape)}")
@@ -141,7 +146,8 @@ def _load(mod: Params, leaves: dict) -> None:
 
 
 def lm_params(params_np: dict, cfg: ModelConfig, device="cuda",
-              dtype=torch.float32) -> LM:
+              dtype=torch.float32, mesh=None,
+              exclude_fsdp: tuple[str, ...] = ()) -> LM:
     """The reference's ``init_model`` parameter tree (numpy leaves) as the
     port's :class:`~repro_torch.models.transformer.LM`. The reference's
     attention sublayer ``attn`` is the block's ``mix`` here; an RWKV block
@@ -152,13 +158,22 @@ def lm_params(params_np: dict, cfg: ModelConfig, device="cuda",
     ``ffn``'s ``router``, ``w1``..``w3`` and ``dense`` group (arctic), a
     decoder block's ``ln_cross`` and ``cross`` (whisper), and the
     encoder's ``enc_blocks`` (stacked over ``encoder_layers``, each layer
-    one of ``model.enc_blocks``) and ``enc_norm``."""
-    model = LM(cfg, device, dtype)
-    _load(model.embed, params_np["embed"])
-    _load(model.final_norm, params_np["final_norm"])
+    one of ``model.enc_blocks``) and ``enc_norm``.
+
+    With ``mesh`` (this rank's bound mesh) the model is this rank's shards
+    (placed as :func:`repro_torch.models.transformer.build_specs` places
+    them, with ``exclude_fsdp``): each global leaf is cut to its slice."""
+    return _lm_params(params_np, cfg, device, dtype,
+                      None if mesh is None else make_par(mesh), exclude_fsdp)
+
+
+def _lm_params(params_np, cfg, device, dtype, par, exclude_fsdp) -> LM:
+    model = LM(cfg, device, dtype, par, exclude_fsdp)
+    _load(model.embed, params_np["embed"], model.par)
+    _load(model.final_norm, params_np["final_norm"], model.par)
     blocks = list(zip(model.blocks, per_layer(params_np, cfg)))
     if cfg.family == "encdec":
-        _load(model.enc_norm, params_np["enc_norm"])
+        _load(model.enc_norm, params_np["enc_norm"], model.par)
         enc = params_np["enc_blocks"]  # stacked over encoder_layers
         blocks += [(blk, _tree_map(lambda a: a[i], enc))
                    for i, blk in enumerate(model.enc_blocks)]
@@ -169,7 +184,7 @@ def lm_params(params_np: dict, cfg: ModelConfig, device="cuda",
             raise ValueError(f"{blk.kind} block: sublayers {sorted(tree)} "
                              f"!= {sorted(src)}")
         for ref_name, name in src.items():
-            _load(getattr(blk, name), tree[ref_name])
+            _load(getattr(blk, name), tree[ref_name], model.par)
     return model
 
 
@@ -179,12 +194,13 @@ def adamw_state(opt_np, model: LM) -> AdamWState:
     ``model``: moments keyed by ``model.named_parameters()`` names, on the
     model's device, in the config's ``opt_dtype`` as the reference keeps
     them (bfloat16 moments are exact in the float32 twin they pass
-    through)."""
+    through); a sharded model's moments are its shards of them."""
     dev = model.final_norm.scale.device
     dtype = getattr(torch, model.cfg.opt_dtype)
 
     def moments(tree):
-        twin = lm_params(tree, model.cfg, dev, torch.float32)
+        twin = _lm_params(tree, model.cfg, dev, torch.float32, model.par,
+                          model.exclude_fsdp)
         return {n: p.detach().to(dtype) for n, p in twin.named_parameters()}
 
     m, v = moments(opt_np.m), moments(opt_np.v)

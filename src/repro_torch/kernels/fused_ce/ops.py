@@ -21,12 +21,23 @@ compute dtype, softmax over the whole vocabulary in float32,
 ``dx = dlogits·wᵀ`` and ``dw += xᵀ·dlogits``. Those are plain matrix
 products, as the reference leaves them to XLA; the (T, V) logits are never
 whole in memory.
+
+At a vocabulary shard (the sharded train step's ``ce_loss_sp`` with
+several model ranks, :func:`fused_ce_shard`), each rank launches the
+kernel once on its rows against its (D, V/mp) block of the head, with the
+labels shifted into the block's columns (a label outside gives a target of
+0). The blocks' (lse, target) are merged over the group: lse = M + log
+Σ_r exp(lse_r − M) with M the max of the lse_r, target = Σ_r target_r.
+The backward takes the softmax of this block's columns against the merged
+lse, with the one-hot only where the label falls in the block; dx is this
+block's part, which the caller's all-gather sums over the shards.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import comm
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_ce.ref import fused_ce_ref
 
@@ -104,10 +115,12 @@ def lse_and_target(x, w, labels, round_logits: bool = False):
 
 
 def ce_backward(x, w, labels, g, need_x=True, need_w=True,
-                chunk: int = BWD_CHUNK):
+                chunk: int = BWD_CHUNK, lse=None):
     """(dx, dw) of Σ_t g_t·nll_t, ``chunk`` rows at a time (see the module
     docstring). dx comes back in x's dtype; dw is summed over the chunks,
-    in order, in float32 and returned in w's dtype."""
+    in order, in float32 and returned in w's dtype. With ``lse`` (T,) w is
+    a vocabulary block: the probabilities are exp(logit − lse) over its
+    columns, and a label outside [0, V) subtracts no one-hot."""
     dtype = x.dtype
     dx = torch.empty_like(x) if need_x else None
     dw = (torch.zeros(w.shape, dtype=torch.float32, device=w.device)
@@ -115,9 +128,16 @@ def ce_backward(x, w, labels, g, need_x=True, need_w=True,
     for t0 in range(0, x.shape[0], chunk):
         t1 = t0 + chunk
         xc = x[t0:t1]
-        p = torch.softmax((xc @ w).float(), dim=-1)
-        rows = torch.arange(xc.shape[0], device=x.device)
-        p[rows, labels[t0:t1].long()] -= 1.0
+        if lse is None:
+            p = torch.softmax((xc @ w).float(), dim=-1)
+            rows = torch.arange(xc.shape[0], device=x.device)
+            p[rows, labels[t0:t1].long()] -= 1.0
+        else:
+            p = torch.exp((xc @ w).float() - lse[t0:t1, None])
+            lab = labels[t0:t1].long()
+            hit = (lab >= 0) & (lab < w.shape[1])
+            p.scatter_add_(1, lab.clamp(0, w.shape[1] - 1)[:, None],
+                           -hit[:, None].float())
         dlog = p.mul_(g[t0:t1, None].float()).to(dtype)
         del p
         if need_x:
@@ -147,6 +167,41 @@ class FusedCE(torch.autograd.Function):
         need_x, need_w = ctx.needs_input_grad[:2]
         dx, dw = ce_backward(x, w, labels, g, need_x, need_w, ctx.chunk)
         return dx, dw, None, None, None
+
+
+class _FusedCEShard(torch.autograd.Function):
+    """Per-token NLL over the whole vocabulary from this rank's block (see
+    the module docstring); differentiable in x and w (this block's
+    parts)."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, group, round_logits, chunk):
+        lse_r, tgt_r = lse_and_target(x, w, labels, round_logits)
+        m = comm.all_reduce_max(lse_r, group)
+        se_tgt = comm.all_reduce_sum(
+            torch.stack([torch.exp(lse_r - m), tgt_r]), group)
+        lse = m + torch.log(se_tgt[0])
+        ctx.save_for_backward(x, w, labels, lse)
+        ctx.chunk = chunk
+        return lse - se_tgt[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, labels, lse = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad[:2]
+        dx, dw = ce_backward(x, w, labels, g, need_x, need_w, ctx.chunk, lse)
+        return dx, dw, None, None, None, None
+
+
+def fused_ce_shard(x, w, labels, group, round_logits: bool = False,
+                   chunk: int = BWD_CHUNK):
+    """Per-token NLL (T,) float32 over the vocabulary split by columns
+    over ``group``'s ranks: ``w`` (D, V/mp) is this rank's block and
+    ``labels`` are shifted into its columns (outside [0, V/mp) for a label
+    of another block). One kernel launch on this block, then one MAX and
+    one SUM all-reduce of (T,)-sized partials. Every rank returns the same
+    NLL; under autograd dx and dw are this block's parts."""
+    return _FusedCEShard.apply(x, w, labels, group, round_logits, chunk)
 
 
 def fused_ce(x, w, labels, round_logits: bool = False,

@@ -19,10 +19,11 @@ _CHUNK = 1024  # tokens whose (chunk, V) logits are live at once
 
 
 def fused_ce_ref(x, w, labels, round_logits: bool = False):
-    """x (T, D); w (D, V); labels (T,) in [0, V), T > 0. Returns (lse (T,),
-    tgt (T,)) float32: ``logsumexp(x·w)`` and ``(x·w)[label]`` per token,
-    the logits formed 1024 tokens at a time (rounded to bfloat16 first if
-    ``round_logits``)."""
+    """x (T, D); w (D, V); labels (T,), T > 0. Returns (lse (T,), tgt (T,))
+    float32: ``logsumexp(x·w)`` and ``(x·w)[label]`` per token (0 for a
+    label outside [0, V), as the kernels give: a vocabulary block's
+    labels of other blocks), the logits formed 1024 tokens at a time
+    (rounded to bfloat16 first if ``round_logits``)."""
     wf = w.float()
     lse, tgt = [], []
     for t0 in range(0, x.shape[0], _CHUNK):
@@ -30,6 +31,8 @@ def fused_ce_ref(x, w, labels, round_logits: bool = False):
         if round_logits:
             logits = logits.to(torch.bfloat16).float()
         lse.append(torch.logsumexp(logits, dim=-1))
-        lab = labels[t0:t0 + _CHUNK].long()[:, None]
-        tgt.append(torch.gather(logits, 1, lab)[:, 0])
+        lab = labels[t0:t0 + _CHUNK].long()
+        hit = (lab >= 0) & (lab < w.shape[1])
+        got = torch.gather(logits, 1, lab.clamp(0, w.shape[1] - 1)[:, None])
+        tgt.append(torch.where(hit, got[:, 0], 0.0))
     return torch.cat(lse), torch.cat(tgt)

@@ -1,7 +1,8 @@
 """Architecture configuration for the LM families — the port's own copy.
 
 A copy of :mod:`repro.models.config` (``MoEConfig``, ``ModelConfig``,
-``_expand_pattern``, ``layer_kinds``, ``reduced``): the port imports nothing
+``ShapeConfig``, ``SHAPES``, ``_expand_pattern``, ``layer_kinds``,
+``reduced``): the port imports nothing
 of the JAX package, not even its pure-Python dataclasses. One frozen dataclass
 describes every architecture the reference supports, and the port builds
 each of them and trains each on both devices (:func:`check_trainable`).
@@ -84,6 +85,24 @@ class ModelConfig:
         """Vocab padded for TP divisibility (Megatron-style)."""
         v = self.vocab_size
         return ((v + multiple - 1) // multiple) * multiple
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """A workload shape: sequence length, global batch and kind."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 def _expand_pattern(pattern: tuple[str, ...], n_layers: int) -> tuple[str, ...]:

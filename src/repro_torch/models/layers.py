@@ -1,4 +1,4 @@
-"""Model layers of the LM serving and training paths, single device.
+"""Model layers of the LM serving and training paths.
 
 The port's counterpart of :mod:`repro.models.layers`, with what every
 family's path runs (recurrentgemma, rwkv6, the dense decoders, mixtral and
@@ -9,12 +9,21 @@ swiglu) for both the sequence-parallel ("SP mode") and head-parallel ("TP
 mode") stacks, the capacity-dispatched MoE, the RG-LRU mixer, the RWKV6
 time and channel mixes and the embedding. Each function keeps the reference's name;
 ``w`` is the layer's :class:`~repro_torch.models.params.Params` module
-where the reference takes a weight dict. On one device every gather, psum
-and reduce-scatter of the reference is the identity and is left out, so SP
-attention is the plain computation over the whole sequence.
+where the reference takes a weight dict. On one device (the trivial
+``Par()``, the default ``par``) every gather, psum and reduce-scatter of the
+reference is the identity, so SP attention is the plain computation over
+the whole sequence. The SP-mode dense path also runs on a mesh (``par``
+from :func:`repro_torch.launch.mesh.make_par`): the residual stream is
+(B/dp, S/mp, d), each weight is this rank's shard and is gathered over its
+fsdp axes where it is used; ``embed_tokens`` is vocab-parallel with a
+reduce-scatter into the sequence blocks, ``attn_tp`` (``attn_sp``)
+all-gathers K and V over ``model``, ``mlp_sp`` all-gathers a sequence
+chunk for its column/row-parallel product and reduce-scatters it back, and
+``ce_loss_sp`` is vocab-parallel over ``model``.
 
 Weights are cast to the compute ``dtype`` where the reference's
-``gather_param`` casts them (a no-op when the model is stored in ``dtype``).
+``gather_param`` casts them (a no-op when the model is stored in ``dtype``),
+before their gather.
 The RG-LRU scan goes through :mod:`repro_torch.kernels.rglru_scan`, a CUDA
 kernel on the card; the reference's model path uses ``lax.associative_scan``
 for the same recurrence. The RWKV6 WKV goes through
@@ -33,7 +42,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import par as P
+from repro_torch.distributed.par import Par
 from repro_torch.kernels.fused_ce import ops as ce_ops
 from repro_torch.kernels.rglru_scan import ops as rglru_ops
 from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
@@ -42,6 +54,7 @@ from repro_torch.models.params import Params, WDef
 
 _NEG = -1e30
 _I32_MAX = 2**31 - 1
+ONE = Par()  # the trivial axis context: one device, every collective the identity
 
 
 @functools.cache
@@ -89,9 +102,10 @@ def norm_defs(d: int) -> dict[str, WDef]:
     return {"scale": WDef((d,), init="ones")}
 
 
-def apply_norm(x, w: Params, dtype, kind: str = "rmsnorm"):
+def apply_norm(x, w: Params, dtype, kind: str = "rmsnorm", par: Par = ONE):
     """RMSNorm, or the bias-free layernorm (``kind="layernorm"``:
-    stablelm), in float32, times the scale cast to ``dtype``."""
+    stablelm), in float32, times the scale cast to ``dtype`` (gathered
+    under ``par``). Rows are independent: no collective on activations."""
     xf = x.float()
     if kind == "rmsnorm":
         xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
@@ -101,7 +115,8 @@ def apply_norm(x, w: Params, dtype, kind: str = "rmsnorm"):
         xf = (xf - mu) * torch.rsqrt(var + 1e-6)
     else:
         raise ValueError(f"unknown norm {kind!r}")
-    return (xf * w.scale.to(dtype).float()).to(dtype)
+    scale = P.gather_param(w.scale, w.specs["scale"], dtype, par)
+    return (xf * scale.float()).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -187,29 +202,39 @@ def chunked_attention(q, k, v, q_pos, k_pos, causal: bool = True,
 def attn_defs(cfg: ModelConfig, cross: bool = False) -> dict[str, WDef]:
     """Q, K, V and output projections, and with ``cfg.qkv_bias`` (qwen)
     zero-initialised Q, K and V biases; a cross-attention (``cross``,
-    whisper's decoder) has none."""
+    whisper's decoder) has none. Placement: the reference's ``attn_defs``
+    in SP mode (every weight FSDP-sharded, K/V gathered in compute), its
+    ``attn_tp_defs`` in TP mode (Q column- and O row-parallel heads)."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    defs = {"wq": WDef((d, qd)), "wk": WDef((d, kvd)), "wv": WDef((d, kvd)),
-            "wo": WDef((qd, d))}
+    both = (0, 1)
+    if cfg.parallel_mode == "tp" and not cross:
+        q = WDef((d, qd), tp_dim=1)
+        o = WDef((qd, d), tp_dim=0, fsdp_pref=(1,))
+    else:
+        q, o = WDef((d, qd), fsdp_pref=both), WDef((qd, d), fsdp_pref=both)
+    defs = {"wq": q, "wk": WDef((d, kvd), fsdp_pref=both),
+            "wv": WDef((d, kvd), fsdp_pref=both), "wo": o}
     if cfg.qkv_bias and not cross:
         defs.update(bq=WDef((qd,), init="zeros"), bk=WDef((kvd,), init="zeros"),
                     bv=WDef((kvd,), init="zeros"))
     return defs
 
 
-def qkv_proj(x, w: Params, name: str):
+def qkv_proj(x, w: Params, name: str, par: Par = ONE):
     """``x @ w{name}`` (+ ``b{name}`` where the layer has biases), both in
-    x's dtype, as the reference's ``proj``."""
+    x's dtype (gathered under ``par``), as the reference's ``proj``."""
     dtype = x.dtype
-    y = x @ getattr(w, "w" + name).to(dtype)
+    g = lambda n: P.gather_param(getattr(w, n), w.specs[n], dtype, par)
+    y = x @ g("w" + name)
     if "b" + name in w.defs:
-        y = y + getattr(w, "b" + name).to(dtype)
+        y = y + g("b" + name)
     return y
 
 
 def attn_tp(x, w: Params, cfg: ModelConfig, *, causal: bool = True,
             window: int | None = None, chunk: int = 1024,
-            return_kv: bool = False, kv_source=None, use_rope: bool = True):
+            return_kv: bool = False, kv_source=None, use_rope: bool = True,
+            par: Par = ONE):
     """All heads over the whole sequence (on one device the reference's
     head split, or its K/V gather in SP mode, is the identity): GQA, the
     QKV bias where the layer has one, RoPE at absolute positions, KV chunks
@@ -217,23 +242,36 @@ def attn_tp(x, w: Params, cfg: ModelConfig, *, causal: bool = True,
     x: (B, S, d). ``kv_source`` (B, S_kv, d) is a cross-attention's key and
     value input (whisper's encoder output; with ``causal=False`` and
     ``use_rope=False``). With ``return_kv`` also returns the (roped) (k, v)
-    for the decode cache."""
+    for the decode cache.
+
+    Under a sharded ``par`` (SP mode, the reference's ``attn_sp``) x is
+    this rank's (B, S/mp, d) sequence block: its rows sit at positions
+    shard·S_loc + i, and K and V, projected and roped on the local rows,
+    are all-gathered over ``model`` (small for GQA), so every rank attends
+    its queries to the whole sequence."""
     dtype = x.dtype
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     kv_in = x if kv_source is None else kv_source
     s_kv = kv_in.shape[1]
-    q = qkv_proj(x, w, "q").reshape(b, s, cfg.n_heads, hd)
-    k = qkv_proj(kv_in, w, "k").reshape(b, s_kv, cfg.n_kv_heads, hd)
-    v = qkv_proj(kv_in, w, "v").reshape(b, s_kv, cfg.n_kv_heads, hd)
-    q_pos = torch.arange(s, dtype=torch.int32, device=x.device)
-    k_pos = torch.arange(s_kv, dtype=torch.int32, device=x.device)
+    q = qkv_proj(x, w, "q", par).reshape(b, s, cfg.n_heads, hd)
+    k = qkv_proj(kv_in, w, "k", par).reshape(b, s_kv, cfg.n_kv_heads, hd)
+    v = qkv_proj(kv_in, w, "v", par).reshape(b, s_kv, cfg.n_kv_heads, hd)
+    shard = P.axis_index(par.mp, par)
+    q_pos = shard * s + torch.arange(s, dtype=torch.int32, device=x.device)
+    k_pos = shard * s_kv + torch.arange(s_kv, dtype=torch.int32,
+                                        device=x.device)
     if use_rope:
         q = rope(q, q_pos, cfg.rope_theta)
         k = rope(k, k_pos, cfg.rope_theta)
+    if par.mp:
+        k = P.all_gather(k, par.mp_axes, 1, par)
+        v = P.all_gather(v, par.mp_axes, 1, par)
+        k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
     out = chunked_attention(q, k, v, q_pos, k_pos, causal=causal,
                             window=window, chunk=chunk)
-    y = out.reshape(b, s, cfg.q_dim) @ w.wo.to(dtype)
+    y = out.reshape(b, s, cfg.q_dim) @ P.gather_param(w.wo, w.specs["wo"],
+                                                      dtype, par)
     if return_kv:
         return y, (k, v)
     return y
@@ -249,38 +287,65 @@ attn_sp = functools.partial(attn_tp, chunk=512)  # the reference's SP name
 
 def mlp_defs(cfg: ModelConfig) -> dict[str, WDef]:
     d, ff = cfg.d_model, cfg.d_ff
-    defs = {"w1": WDef((d, ff)), "w2": WDef((ff, d))}
+    defs = {"w1": WDef((d, ff), tp_dim=1),
+            "w2": WDef((ff, d), tp_dim=0, fsdp_pref=(1,))}
     if cfg.mlp == "swiglu":
-        defs["w3"] = WDef((d, ff))
+        defs["w3"] = WDef((d, ff), tp_dim=1)
     return defs
 
 
-def mlp_tp(x, w: Params, kind: str = "gelu"):
+def mlp_tp(x, w: Params, kind: str = "gelu", par: Par = ONE):
     """gelu(x·w1)·w2, or silu(x·w1)·(x·w3)·w2 (swiglu), in x's dtype: the
     MLP of either mode on one device (TP's psum, and SP's all-gather and
     reduce-scatter, are identities; SP's sequence chunks only bound the
-    reference's transients, as rows are independent)."""
+    reference's transients, as rows are independent). Under ``par`` the
+    weights are gathered over their fsdp axes (w1, w3 stay column and w2
+    row shards of ``model``)."""
     dtype = x.dtype
-    h = x @ w.w1.to(dtype)
+    g = lambda n: P.gather_param(getattr(w, n), w.specs[n], dtype, par)
+    h = x @ g("w1")
     if kind == "swiglu":
-        h = F.silu(h) * (x @ w.w3.to(dtype))
+        h = F.silu(h) * (x @ g("w3"))
     else:
         h = _gelu(h)
-    return h @ w.w2.to(dtype)
+    return h @ g("w2")
 
 
-def mlp_sp(x, w: Params, cfg: ModelConfig):  # the reference's SP name
-    return mlp_tp(x, w, cfg.mlp)
+def mlp_sp(x, w: Params, cfg: ModelConfig, par: Par = ONE):
+    """The reference's SP-mode MLP (Megatron-SP). One device: ``mlp_tp``.
+    Under a sharded ``par``, x is (B, S_loc, d) sequence-sharded: each of
+    :func:`_auto_chunk`'s sequence chunks is all-gathered over ``model``,
+    runs through the column/row-parallel MLP (the ``d_ff / mp`` columns of
+    this rank), and its partial output is reduce-scattered back over the
+    sequence; several chunks each run under a checkpoint, so one chunk's
+    gathered activations are live at a time."""
+    if par.mesh is None:
+        return mlp_tp(x, w, cfg.mlp)
+    b, s_loc, d = x.shape
+    chunk = _auto_chunk(b, s_loc, d, par.mp_size)
+
+    def one_chunk(xc):
+        xg = P.all_gather(xc, par.mp_axes, 1, par)
+        return P.reduce_scatter(mlp_tp(xg, w, cfg.mlp, par), par.mp_axes, 1,
+                                par)
+
+    if s_loc <= chunk:
+        return one_chunk(x)
+    return torch.cat([checkpoint(one_chunk, x[:, c0:c0 + chunk],
+                                 use_reentrant=False)
+                      for c0 in range(0, s_loc, chunk)], 1)
 
 
-def _auto_chunk(b: int, s: int, d: int, budget: int = 1 << 27) -> int:
-    """The reference's ``_auto_chunk`` on one device: the largest
-    power-of-two halving of ``s`` (down to 16) whose (B, chunk, d) bf16
-    tensor stays under ``budget`` bytes, halved again until it divides
-    ``s``. The reference's MoE sees one such sequence chunk a call, so its
-    capacity, and which pairs it drops, depend on it."""
+def _auto_chunk(b: int, s: int, d: int, mp: int = 1,
+                budget: int = 1 << 27) -> int:
+    """The reference's ``_auto_chunk``: the largest power-of-two halving of
+    ``s`` (down to 16) whose (B, chunk·mp, d) bf16 tensor (a chunk
+    gathered over ``mp`` model shards) stays under ``budget`` bytes,
+    halved again until it divides ``s``. The reference's MoE sees one such
+    sequence chunk a call, so its capacity, and which pairs it drops,
+    depend on it."""
     chunk = s
-    while chunk > 16 and b * chunk * d * 2 > budget:
+    while chunk > 16 and b * chunk * mp * d * 2 > budget:
         chunk //= 2
     while s % chunk:
         chunk //= 2
@@ -297,8 +362,10 @@ def moe_defs(cfg: ModelConfig) -> dict[str, WDef | dict]:
     and w2 (E, ff, d), and with ``dense_residual`` (arctic) a dense FFN
     ``dense`` beside them."""
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
-    defs = {"router": WDef((d, e)), "w1": WDef((e, d, ff)),
-            "w2": WDef((e, ff, d)), "w3": WDef((e, d, ff))}
+    defs = {"router": WDef((d, e)),
+            "w1": WDef((e, d, ff), tp_dim=2, fsdp_pref=(1,)),
+            "w2": WDef((e, ff, d), tp_dim=1, fsdp_pref=(2,)),
+            "w3": WDef((e, d, ff), tp_dim=2, fsdp_pref=(1,))}
     if cfg.moe.dense_residual:
         defs["dense"] = mlp_defs(cfg)
     return defs
@@ -404,13 +471,13 @@ _RGLRU_C = 8.0
 def rglru_defs(cfg: ModelConfig) -> dict[str, WDef]:
     d, r = cfg.d_model, cfg.rnn_dim
     return {
-        "wx": WDef((d, r)),
-        "wgate": WDef((d, r)),  # gelu branch
-        "wa": WDef((d, r)),  # recurrence gate a_t
-        "wi": WDef((d, r)),  # input gate i_t
-        "conv": WDef((4, r), init="scaled", init_scale=0.5),
-        "lam": WDef((r,), init="ones"),  # Λ (softplus-parameterized)
-        "wo": WDef((r, d)),
+        "wx": WDef((d, r), tp_dim=1),
+        "wgate": WDef((d, r), tp_dim=1),  # gelu branch
+        "wa": WDef((d, r), tp_dim=1),  # recurrence gate a_t
+        "wi": WDef((d, r), tp_dim=1),  # input gate i_t
+        "conv": WDef((4, r), init="scaled", init_scale=0.5, tp_dim=1),
+        "lam": WDef((r,), init="ones", tp_dim=0),  # Λ (softplus-parameterized)
+        "wo": WDef((r, d), tp_dim=0, fsdp_pref=(1,)),
     }
 
 
@@ -471,21 +538,22 @@ def rwkv_defs(cfg: ModelConfig) -> dict[str, WDef]:
     mixes ``mu``, the LoRA's ``wb`` and the bonus ``u`` start at zero."""
     d, h, hd, ff = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim, cfg.d_ff
     return {
-        "mu": WDef((5, d), init="zeros"),  # r, k, v, g, w token shifts
-        "wr": WDef((d, d)),
-        "wk": WDef((d, d)),
-        "wv": WDef((d, d)),
-        "wg": WDef((d, d)),
+        # r, k, v, g, w token shifts
+        "mu": WDef((5, d), init="zeros", fsdp_pref=(1,)),
+        "wr": WDef((d, d), tp_dim=1),
+        "wk": WDef((d, d), tp_dim=1),
+        "wv": WDef((d, d), tp_dim=1),
+        "wg": WDef((d, d), tp_dim=1),
         # decay base: exp(w0) ≈ 0.05 per step (see the clip in rwkv_mix)
-        "w0": WDef((d,), init="const", init_scale=-3.0),
+        "w0": WDef((d,), init="const", init_scale=-3.0, tp_dim=0),
         "wa": WDef((d, _RWKV_LORA)),  # decay LoRA
-        "wb": WDef((_RWKV_LORA, d), init="zeros"),
-        "u": WDef((h, hd), init="zeros"),  # per-head bonus
-        "ln_x": WDef((d,), init="ones"),  # per-head group norm
-        "wo": WDef((d, d)),
-        "cm_r": WDef((d, d)),
-        "cm_k": WDef((d, ff)),
-        "cm_v": WDef((ff, d)),
+        "wb": WDef((_RWKV_LORA, d), init="zeros", tp_dim=1),
+        "u": WDef((h, hd), init="zeros", tp_dim=0),  # per-head bonus
+        "ln_x": WDef((d,), init="ones", tp_dim=0),  # per-head group norm
+        "wo": WDef((d, d), tp_dim=0, fsdp_pref=(1,)),
+        "cm_r": WDef((d, d), fsdp_pref=(0, 1)),
+        "cm_k": WDef((d, ff), tp_dim=1),
+        "cm_v": WDef((ff, d), tp_dim=0, fsdp_pref=(1,)),
     }
 
 
@@ -603,18 +671,36 @@ def rwkv_block_chunked(x, blk, cfg: ModelConfig, capture: bool = False):
 
 def embed_defs(cfg: ModelConfig) -> dict[str, WDef]:
     vp, d = cfg.padded_vocab(), cfg.d_model
-    return {"table": WDef((vp, d), init_scale=1.0), "head": WDef((d, vp))}
+    return {"table": WDef((vp, d), init_scale=1.0, tp_dim=0,
+                          fsdp_pref=(1,)),
+            "head": WDef((d, vp), tp_dim=1)}
 
 
-def embed_tokens(ids, w: Params, dtype):
+def embed_tokens(ids, w: Params, dtype, par: Par = ONE):
     """ids: (B, S) → (B, S, d). Rows are gathered, then cast (the reference
     casts the table first; the values are the same). One lookup for both
     modes: on one device the reference's vocab-parallel psum (TP) and
     reduce-scatter into sequence parallelism (SP) are identities.
     ``F.embedding``, not ``table[ids]``: the indexing's backward accumulates
     a repeated id's rows in an order that changes from run to run on the
-    CPU, the embedding's backward in a fixed one."""
-    return F.embedding(ids, w.table).to(dtype)
+    CPU, the embedding's backward in a fixed one.
+
+    Under a sharded ``par`` (SP mode): ids are replicated over ``model``;
+    each rank looks its ids up in its vocabulary block of the table
+    (gathered over the fsdp axes in the table's own dtype, so that the rows
+    are cast after the lookup as on one device), zeroes the ids outside
+    the block, and a reduce-scatter over the sequence sums the blocks'
+    rows and enters sequence parallelism: (B, S/mp, d)."""
+    if par.mesh is None:
+        return F.embedding(ids, w.table).to(dtype)
+    table = P.gather_param(w.table, w.specs["table"], w.table.dtype, par)
+    v_loc = table.shape[0]
+    local = ids - P.axis_index(par.mp, par) * v_loc
+    hit = (local >= 0) & (local < v_loc)
+    rows = F.embedding(local.clamp(0, v_loc - 1), table).to(dtype)
+    partial = torch.where(hit[..., None], rows, torch.zeros((), dtype=dtype,
+                                                            device=ids.device))
+    return P.reduce_scatter(partial, par.mp_axes, 1, par)
 
 
 # ---------------------------------------------------------------------------
@@ -642,10 +728,14 @@ def ce_loss_tp(x, labels, w: Params, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def ce_loss_sp(x, labels, w: Params, cfg: ModelConfig):
-    """SP-mode cross-entropy on one device (the reference's ``ce_loss_sp``
-    with its model axis of 1): x (B, S, d) final-norm hidden, labels
-    (B, S). Returns (Σ per-token NLL (float32 scalar), token count).
+def ce_loss_sp(x, labels, w: Params, cfg: ModelConfig, par: Par = ONE):
+    """SP-mode cross-entropy (the reference's ``ce_loss_sp``): x (B, S_loc,
+    d) final-norm hidden, labels (B, S). Returns (Σ per-token NLL (float32
+    scalar), token count), both replicated over ``model``.
+
+    With one model shard (one device, or a mesh whose ``model`` axis is 1)
+    this is the single-device loss below, on the head gathered over its
+    fsdp axes. With several it is :func:`_ce_loss_vocab_parallel`.
 
     The reference scans over sequence chunks of c = min(S, 256) tokens
     (its default chunk, ``fused_ce``'s ``BWD_CHUNK``), halved until c
@@ -656,6 +746,8 @@ def ce_loss_sp(x, labels, w: Params, cfg: ModelConfig):
     takes B·c rows a chunk: the reference's chunks, in its order. In
     bfloat16 the logits are rounded to bfloat16 before the softmax, as in
     :func:`ce_loss_tp`."""
+    if par.mp_size > 1:
+        return _ce_loss_vocab_parallel(x, labels, w, par)
     b, s, d = x.shape
     c = min(s, ce_ops.BWD_CHUNK)
     while s % c:
@@ -663,7 +755,41 @@ def ce_loss_sp(x, labels, w: Params, cfg: ModelConfig):
     n = s // c
     rows = x.reshape(b, n, c, d).transpose(0, 1).reshape(n * b * c, d)
     lab = labels.reshape(b, n, c).transpose(0, 1).reshape(n * b * c)
-    nll = ce_ops.fused_ce(rows, w.head.to(x.dtype), lab,
+    head = P.gather_param(w.head, w.specs["head"], x.dtype, par)
+    nll = ce_ops.fused_ce(rows, head, lab,
                           round_logits=x.dtype == torch.bfloat16,
                           chunk=b * c)
     return nll.sum(), b * s
+
+
+def _ce_loss_vocab_parallel(x, labels, w: Params, par: Par):
+    """The reference's ``ce_loss_sp`` over mp > 1 model shards: x (B,
+    S_loc, d) is this rank's sequence block, the head (d, V/mp) its
+    vocabulary block (gathered over its fsdp axes).
+
+    The hidden is all-gathered over ``model`` (the SP exit; its backward
+    reduce-scatters dx back over the sequence) and laid out in the
+    reference's chunks: chunk j of c = 256/mp local tokens (halved until it
+    divides S_loc) holds, for each batch row, every shard's c tokens, so
+    that each backward chunk is the reference's gathered chunk. Then one
+    :func:`~repro_torch.kernels.fused_ce.ops.fused_ce_shard` call: the
+    kernel's (lse, target) of these rows against this vocabulary block,
+    merged over ``model`` into the whole vocabulary's, and the backward
+    on this block's columns."""
+    b, s_loc, d = x.shape
+    mp = par.mp_size
+    c = max(1, min(s_loc, ce_ops.BWD_CHUNK // mp))
+    while s_loc % c:
+        c //= 2
+    n = s_loc // c
+    head = P.gather_param(w.head, w.specs["head"], x.dtype, par)
+    xg = P.all_gather(x, par.mp_axes, 1, par)  # (B, mp·S_loc, d)
+    rows = (xg.reshape(b, mp, n, c, d).permute(2, 0, 1, 3, 4)
+            .reshape(n * b * mp * c, d))
+    lab = labels.reshape(b, mp, n, c).permute(2, 0, 1, 3).reshape(-1)
+    v0 = P.axis_index(par.mp, par) * head.shape[1]
+    nll = ce_ops.fused_ce_shard(rows, head, lab - v0,
+                                par.mesh.group(par.mp_axes),
+                                round_logits=x.dtype == torch.bfloat16,
+                                chunk=b * mp * c)
+    return nll.sum(), b * s_loc * mp

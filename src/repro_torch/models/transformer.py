@@ -14,11 +14,23 @@ group loop is a plain Python loop over ``LM.blocks``, whose layer ``i`` is
 group ``i // P``, slot ``i % P`` for the first ``P·n_groups`` layers and
 ``extra{i - P·n_groups}`` after them (:func:`repro_torch.convert.per_layer`
 maps the reference's tree onto it).
+
+On a mesh (``par``, :func:`repro_torch.launch.mesh.make_par`) a model
+holds this rank's shards: every weight at its
+:class:`~repro_torch.distributed.par.WSpec`'s local shape
+(:func:`build_specs`, the reference's placement). The SP-mode dense
+decoders (llama3.2, qwen2, stablelm, qwen1.5) run sharded: ZeRO-3 weight
+gathers over the data axes (and ``model`` where a weight has no model
+dimension), sequence-parallel blocks and a vocab-parallel embedding and
+loss over ``model`` (:mod:`repro_torch.models.layers`). The same code runs
+on one device under the trivial ``Par()``, where every collective is the
+identity.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -26,6 +38,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import par as P
+from repro_torch.distributed.par import Par, WSpec
 from repro_torch.models import layers as L
 from repro_torch.models.config import (
     ModelConfig,
@@ -33,7 +47,7 @@ from repro_torch.models.config import (
     check_trainable,
     layer_kinds,
 )
-from repro_torch.models.params import Params, init_params
+from repro_torch.models.params import Params, WDef, init_params
 from repro_torch.optim import AdamWState, adamw_init, adamw_update, warmup_cosine
 
 
@@ -62,18 +76,67 @@ def _slot_defs(cfg: ModelConfig, kind: str,
     raise ValueError(kind)
 
 
+def model_defs(cfg: ModelConfig) -> dict:
+    """Every weight declaration of ``cfg``'s model, in the module's layout:
+    ``embed``, ``final_norm``, ``blocks`` (a list, one block's defs per
+    layer) and for whisper ``enc_blocks`` and ``enc_norm``."""
+    cross = cfg.family == "encdec"
+    defs = {"embed": L.embed_defs(cfg),
+            "final_norm": L.norm_defs(cfg.d_model),
+            "blocks": [_slot_defs(cfg, k, cross) for k in layer_kinds(cfg)]}
+    if cross:
+        enc_cfg = dataclasses.replace(cfg, moe=None)
+        defs["enc_blocks"] = [_slot_defs(enc_cfg, "attn")
+                              for _ in range(cfg.encoder_layers)]
+        defs["enc_norm"] = L.norm_defs(cfg.d_model)
+    return defs
+
+
+def build_specs(cfg: ModelConfig, mesh_sizes: dict[str, int], mp_axis,
+                exclude_fsdp: tuple[str, ...] = ()) -> dict:
+    """:func:`model_defs` resolved for a mesh (the reference's
+    ``build_specs``; its stacked leaf of layer group g, slot s is layer
+    g·P + s here, with the same placement, its dimensions one lower)."""
+    def walk(x):
+        if isinstance(x, WDef):
+            return P.resolve(x, mesh_sizes, mp_axis, exclude_fsdp)
+        if isinstance(x, list):
+            return [walk(v) for v in x]
+        return {k: walk(v) for k, v in x.items()}
+
+    return walk(model_defs(cfg))
+
+
 class Block(nn.Module):
     """One layer: norm → mixer (attention or RG-LRU) → [norm →
     cross-attention] → norm → MLP or MoE, or an RWKV block (norm → time mix
     → norm → channel mix). The attention mixer is named ``mix`` here; the
-    reference calls it ``attn``."""
+    reference calls it ``attn``. ``specs``: its weights' placement, by
+    sublayer (default: whole, one device)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device, dtype,
-                 cross: bool = False):
+                 cross: bool = False, specs: dict | None = None):
         super().__init__()
         self.kind = kind
         for name, defs in _slot_defs(cfg, kind, cross).items():
-            self.add_module(name, Params(defs, device, dtype))
+            self.add_module(name, Params(defs, device, dtype,
+                                         None if specs is None
+                                         else specs[name]))
+
+
+def check_shardable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config whose sharded paths are
+    not ported: only the SP-mode dense decoders run on a mesh."""
+    if cfg.parallel_mode == "tp":
+        raise NotImplementedError(
+            f"{cfg.name}: the TP-mode sharded paths (attn_tp, mlp_tp, the "
+            "RG-LRU and RWKV heads over 'model') are ROADMAP queue 1 item "
+            "9f, step 3")
+    if cfg.family != "dense" or cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: sharded {cfg.family} training (moe_sp's expert-ff "
+            "TP, the encoder's frames over 'model', the VLM's patches) is "
+            "ROADMAP queue 1 item 9f, step 2")
 
 
 class LM(nn.Module):
@@ -81,36 +144,59 @@ class LM(nn.Module):
     kinds) or SP-mode attention blocks (dense, MoE, VLM), and for the
     encoder-decoder family (whisper) the decoder's blocks with
     cross-attention, ``enc_blocks`` (``encoder_layers`` attention blocks
-    with a dense MLP) and ``enc_norm``."""
+    with a dense MLP) and ``enc_norm``.
+
+    ``par`` (default the trivial ``Par()``): the axis context the model
+    runs under; on a mesh every weight is this rank's shard, placed by
+    :func:`build_specs` with ``exclude_fsdp`` (the axes whose gradients are
+    compressed keep the weights replicated). ``specs``: name → WSpec, as
+    ``named_parameters``."""
 
     def __init__(self, cfg: ModelConfig, device="cuda",
-                 dtype=torch.float32):
+                 dtype=torch.float32, par: Par | None = None,
+                 exclude_fsdp: tuple[str, ...] = ()):
         super().__init__()
         check_supported(cfg)
+        par = par or Par()
+        if par.mesh is not None:
+            check_shardable(cfg)
         dev = resolve_device(device)
-        self.cfg = cfg
+        self.cfg, self.par, self.exclude_fsdp = cfg, par, tuple(exclude_fsdp)
+        tree = build_specs(cfg, par.mesh.sizes if par.mesh else {}, par.mp,
+                           self.exclude_fsdp)
         cross = cfg.family == "encdec"
-        self.embed = Params(L.embed_defs(cfg), dev, dtype)
+        self.embed = Params(L.embed_defs(cfg), dev, dtype, tree["embed"])
         self.blocks = nn.ModuleList(
-            Block(cfg, kind, dev, dtype, cross) for kind in layer_kinds(cfg))
-        self.final_norm = Params(L.norm_defs(cfg.d_model), dev, dtype)
+            Block(cfg, kind, dev, dtype, cross, sp)
+            for kind, sp in zip(layer_kinds(cfg), tree["blocks"]))
+        self.final_norm = Params(L.norm_defs(cfg.d_model), dev, dtype,
+                                 tree["final_norm"])
         if cross:
             enc_cfg = dataclasses.replace(cfg, moe=None)
             self.enc_blocks = nn.ModuleList(
-                Block(enc_cfg, "attn", dev, dtype)
-                for _ in range(cfg.encoder_layers))
-            self.enc_norm = Params(L.norm_defs(cfg.d_model), dev, dtype)
+                Block(enc_cfg, "attn", dev, dtype, specs=sp)
+                for sp in tree["enc_blocks"])
+            self.enc_norm = Params(L.norm_defs(cfg.d_model), dev, dtype,
+                                   tree["enc_norm"])
+        self.specs = {
+            f"{m}.{n}" if m else n: spec
+            for m, mod in self.named_modules() if isinstance(mod, Params)
+            for n, spec in mod.specs.items()}
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
-               dtype=torch.float32) -> LM:
+               dtype=torch.float32, par: Par | None = None,
+               exclude_fsdp: tuple[str, ...] = ()) -> LM:
     """An :class:`LM` with weights drawn by the reference's init rule from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (normals in
     float32, then cast to ``dtype``: a bfloat16 model is the float32 model
-    of the same seed, rounded)."""
+    of the same seed, rounded). Under a sharded ``par`` each rank draws
+    every logical weight in the same order and keeps its shard: the
+    single-device model of ``seed``, cut up, bit for bit."""
     dev = resolve_device(device)
-    model = LM(cfg, dev, dtype)
-    init_params(model, torch.Generator(device=dev).manual_seed(seed))
+    model = LM(cfg, dev, dtype, par, exclude_fsdp)
+    init_params(model, torch.Generator(device=dev).manual_seed(seed),
+                model.par)
     return model
 
 
@@ -120,7 +206,7 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
 
 
 def _block_fwd(x, blk: Block, cfg: ModelConfig, capture: bool = False,
-               enc=None, aux: list | None = None):
+               enc=None, aux: list | None = None, par: Par = L.ONE):
     """One block. x: (B, S, d); ``enc`` the encoder's output that a
     cross-attention block attends. Returns (x, cache): the layer's
     contribution to the serving cache when ``capture`` (prefill), else {}.
@@ -131,12 +217,12 @@ def _block_fwd(x, blk: Block, cfg: ModelConfig, capture: bool = False,
         return L.rwkv_block_chunked(x, blk, cfg, capture=capture)
     dtype = x.dtype
     cache = {}
-    h = L.apply_norm(x, blk.ln1, dtype, cfg.norm)
+    h = L.apply_norm(x, blk.ln1, dtype, cfg.norm, par)
     if blk.kind == "attn":
         a = L.attn_tp(h, blk.mix, cfg,
                       window=cfg.swa_window or cfg.local_attn_window,
                       chunk=512 if cfg.parallel_mode == "sp" else 1024,
-                      return_kv=capture)
+                      return_kv=capture, par=par)
         if capture:
             a, cache["kv_full"] = a
     elif blk.kind == "rglru":
@@ -153,13 +239,13 @@ def _block_fwd(x, blk: Block, cfg: ModelConfig, capture: bool = False,
         if capture:
             c, cache["cross_kv_full"] = c
         x = x + c
-    h = L.apply_norm(x, blk.ln2, dtype, cfg.norm)
+    h = L.apply_norm(x, blk.ln2, dtype, cfg.norm, par)
     if blk.kind == "attn" and cfg.moe is not None:
         y, moe_aux = L.moe_sp(h, blk.ffn, cfg)
         if aux is not None:
             aux.append(moe_aux)
     else:
-        y = L.mlp_tp(h, blk.ffn, cfg.mlp)
+        y = L.mlp_sp(h, blk.ffn, cfg, par)
     return x + y, cache
 
 
@@ -195,7 +281,8 @@ def encode(model: LM, frames, dtype=torch.bfloat16, remat: bool = False):
     return L.apply_norm(enc, model.enc_norm, dtype, cfg.norm)
 
 
-def _group_fwd(x, blocks, cfg: ModelConfig, enc, capture: bool = False):
+def _group_fwd(x, blocks, cfg: ModelConfig, enc, capture: bool = False,
+               par: Par = L.ONE):
     """One layer group (``len(cfg.block_pattern)`` blocks). Returns (x, the
     group's MoE {lb_loss, drop_frac}, each the mean over its MoE blocks, or
     None; the blocks' cache contributions). The aux is returned, not
@@ -204,7 +291,7 @@ def _group_fwd(x, blocks, cfg: ModelConfig, enc, capture: bool = False):
     auxes, caches = [], []
     for blk in blocks:
         x, cache = _block_fwd(x, blk, cfg, capture=capture, enc=enc,
-                              aux=auxes)
+                              aux=auxes, par=par)
         caches.append(cache)
     aux = ({n: torch.stack([a[n] for a in auxes]).mean() for n in auxes[0]}
            if auxes else None)
@@ -212,16 +299,17 @@ def _group_fwd(x, blocks, cfg: ModelConfig, enc, capture: bool = False):
 
 
 def _groups_fwd(x, groups, cfg: ModelConfig, enc, remat: bool,
-                capture: bool = False):
+                capture: bool = False, par: Par = L.ONE):
     """``groups`` in order, each under its own checkpoint with ``remat``.
     Returns (x, the groups' aux in order, the blocks' cache
     contributions in layer order)."""
     auxes, caches = [], []
     for blocks in groups:
         if remat:
-            x, aux, cache = _checkpoint(_group_fwd, x, blocks, cfg, enc)
+            x, aux, cache = _checkpoint(_group_fwd, x, blocks, cfg, enc,
+                                        False, par)
         else:
-            x, aux, cache = _group_fwd(x, blocks, cfg, enc, capture)
+            x, aux, cache = _group_fwd(x, blocks, cfg, enc, capture, par)
         auxes.append(aux)
         caches += cache
     return x, auxes, caches
@@ -260,11 +348,11 @@ def forward_hidden(model: LM, tokens, dtype=torch.bfloat16,
     only the outer boundaries' inputs stay live through the forward; each
     encoder block has its own. The values and gradients are those without
     it."""
-    cfg = model.cfg
+    cfg, par = model.cfg, model.par
     if remat and capture:
         raise ValueError("remat is for training; a prefill captures its "
                          "cache without it")
-    x = L.embed_tokens(tokens, model.embed, dtype)
+    x = L.embed_tokens(tokens, model.embed, dtype, par)
     if cfg.family == "vlm":
         n = min(cfg.patch_positions, x.shape[1])
         x = torch.cat([patches[:, :n].to(dtype), x[:, n:]], 1)
@@ -279,14 +367,15 @@ def forward_hidden(model: LM, tokens, dtype=torch.bfloat16,
         auxes, captured = [], []
         for o in range(0, n_groups, inner):
             x, outs, _ = _checkpoint(_groups_fwd, x, groups[o:o + inner],
-                                     cfg, enc, True)
+                                     cfg, enc, True, False, par)
             auxes += outs
     else:
-        x, auxes, captured = _groups_fwd(x, groups, cfg, enc, remat, capture)
+        x, auxes, captured = _groups_fwd(x, groups, cfg, enc, remat, capture,
+                                         par)
     for blk in blocks[n_groups * p:]:
-        x, cap = _block_fwd(x, blk, cfg, capture=capture, enc=enc)
+        x, cap = _block_fwd(x, blk, cfg, capture=capture, enc=enc, par=par)
         captured.append(cap)
-    x = L.apply_norm(x, model.final_norm, dtype, cfg.norm)
+    x = L.apply_norm(x, model.final_norm, dtype, cfg.norm, par)
     out = (x, captured) if capture else (x,)
     if aux:
         auxes = [a for a in auxes if a is not None]
@@ -305,32 +394,48 @@ LB_COEF = 0.01  # the MoE balance term's weight: the reference's default
 
 
 def loss_fn(model: LM, batch, dtype=torch.bfloat16, remat: bool = False):
-    """The reference's ``loss_fn`` on one device: the mean next-token NLL
-    over ``batch`` ({"tokens", "labels"}, each (B, S) int, and whisper's
-    "frames" (B, S_enc, d) or llava's "patches" (B, P, d)), through
+    """The reference's ``loss_fn``: the mean next-token NLL over ``batch``
+    ({"tokens", "labels"}, each (B, S) int, and whisper's "frames" (B,
+    S_enc, d) or llava's "patches" (B, P, d)), through
     :func:`~repro_torch.models.layers.ce_loss_sp` in SP mode and
     :func:`~repro_torch.models.layers.ce_loss_tp` in TP mode, plus
     ``LB_COEF``·lb_loss where the config has an MoE. Returns (loss,
     metrics {"loss", "nll", "lb_loss", "drop_frac"}); ``remat`` as in
-    :func:`forward_hidden`. The head is untied."""
-    cfg = model.cfg
+    :func:`forward_hidden`. The head is untied.
+
+    On a mesh ``batch`` is this rank's rows (``launch.steps.batch_slice``):
+    the NLL total is psummed over the data axes (one all-reduce; its
+    gradient passes through), and the count is the local count times the
+    data ranks, every rank's rows being the same in number (the
+    reference psums it). Every rank returns the global loss."""
+    cfg, par = model.cfg, model.par
     h, aux = forward_hidden(model, batch["tokens"], dtype,
                             frames=batch.get("frames"),
                             patches=batch.get("patches"), aux=True,
                             remat=remat)
-    ce = L.ce_loss_sp if cfg.parallel_mode == "sp" else L.ce_loss_tp
+    ce = (functools.partial(L.ce_loss_sp, par=par)
+          if cfg.parallel_mode == "sp" else L.ce_loss_tp)
     nll_sum, count = ce(h, batch["labels"], model.embed, cfg)
+    if par.dp:
+        nll_sum = P.psum(nll_sum, par.dp, par)
+        count *= par.dp_size
     nll = nll_sum / count
     loss = nll + LB_COEF * aux["lb_loss"] if cfg.moe is not None else nll
     return loss, {"loss": loss, "nll": nll, **aux}
 
 
-def global_grad_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt(Σ over every gradient of Σ g²), float32 (on one device no leaf
-    is replicated, so the reference's replica divisor is 1)."""
-    sq = [torch.linalg.vector_norm(g, dtype=torch.float32).square()
-          for g in grads.values()]
-    return torch.stack(sq).sum().sqrt()
+def global_grad_norm(grads: dict[str, torch.Tensor],
+                     specs: dict[str, WSpec], par: Par) -> torch.Tensor:
+    """sqrt(Σ over every gradient of Σ g²), float32. On a mesh each local
+    square is divided by its leaf's replica count (``specs``) and the sum
+    psummed over every axis: the whole model's norm on every rank. On one
+    device no leaf is replicated and nothing is divided."""
+    sq = []
+    for name, g in grads.items():
+        q = torch.linalg.vector_norm(g, dtype=torch.float32).square()
+        r = specs[name].replicas
+        sq.append(q if r == 1 else q / r)
+    return P.psum(torch.stack(sq).sum(), par.all_axes, par).sqrt()
 
 
 def init_opt(model: LM) -> AdamWState:
@@ -342,21 +447,44 @@ def init_opt(model: LM) -> AdamWState:
 
 def make_train_step(cfg: ModelConfig, dtype=torch.bfloat16,
                     clip_norm: float = 1.0, peak_lr: float = 3e-4,
-                    warmup_steps: int = 200, remat: bool = False):
-    """``train_step(model, opt, batch) → metrics``: the reference's step on
-    one device. Gradients of :func:`loss_fn` in ``dtype`` (master weights
-    stay in the model's dtype), the global norm clipped to ``clip_norm``
-    (fused into AdamW as a gradient scale), the learning rate from
+                    warmup_steps: int = 200, remat: bool = False,
+                    compress_axes: tuple[str, ...] = ()):
+    """``train_step(model, opt, batch) → metrics``: the reference's step.
+    Gradients of :func:`loss_fn` in ``dtype`` (master weights stay in the
+    model's dtype), the global norm clipped to ``clip_norm`` (fused into
+    AdamW as a gradient scale), the learning rate from
     :func:`~repro_torch.optim.warmup_cosine` at the optimizer's step, then
     AdamW in place on the model and ``opt``. ``remat``: activation
     checkpointing as in :func:`forward_hidden` (the reference's default;
     the same numbers, less memory, one more forward). Metrics: loss, nll,
     lb_loss, drop_frac, grad_norm and lr, as tensors. The model's
-    parameters must require gradients (``model.requires_grad_(True)``)."""
-    check_supported(cfg)
+    parameters must require gradients (``model.requires_grad_(True)``).
 
-    def train_step(model: LM, opt: AdamWState, batch) -> dict:
+    On a mesh (the model's ``par``) the step is the same code on this
+    rank's shards and rows: the backward's reduce-scatters leave each
+    shard the global gradient of its FSDP- and TP-sharded weights, one
+    psum over ``sync`` completes each replicated one (``sync_grads``), the
+    norm is the whole model's, and AdamW updates the local shards. The
+    gradients are the single-device step's (the reference's are that
+    times the device count: ROADMAP queue 3 item 3).
+
+    ``compress_axes`` (e.g. ("pod",); the model built with
+    ``exclude_fsdp`` equal to it): the gradient reduction over those axes
+    is ``optim.compression.compressed_pmean`` times the axes' size (int8
+    with error feedback), and the step takes ``err``, the error state
+    (``compression.init_error_state``), which it updates in place:
+    ``train_step(model, opt, batch, err)``."""
+    check_supported(cfg)
+    compress_axes = tuple(compress_axes)
+
+    def train_step(model: LM, opt: AdamWState, batch, err=None) -> dict:
         check_trainable(cfg, model.final_norm.scale.device)
+        if model.exclude_fsdp != compress_axes or (err is None) != (
+                not compress_axes):
+            raise ValueError(
+                f"compress_axes={compress_axes} needs a model built with "
+                f"exclude_fsdp={compress_axes} (got {model.exclude_fsdp}) "
+                "and an error state exactly when it is not empty")
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
@@ -369,7 +497,9 @@ def make_train_step(cfg: ModelConfig, dtype=torch.bfloat16,
                 raise ValueError(f"parameter {name} got no gradient: call "
                                  "model.requires_grad_(True) first")
             grads[name] = p.grad
-        gnorm = global_grad_norm(grads)
+        grads = P.sync_grads(grads, model.specs, model.par, compress_axes,
+                             err)
+        gnorm = global_grad_norm(grads, model.specs, model.par)
         scale = torch.clamp(clip_norm / (gnorm + 1e-6), max=1.0)
         lr = warmup_cosine(opt.step, peak_lr=peak_lr,
                            warmup_steps=warmup_steps)

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_lm_ranks as ranks
 from _hypothesis_compat import given, settings, st
 
 from repro.checkpoint import Checkpointer as RefCheckpointer
@@ -24,8 +25,12 @@ from repro_torch.checkpoint import CheckpointCorruptError, Checkpointer
 from repro_torch.checkpoint.checkpointer import flatten_with_paths, map_with_paths
 from repro_torch.core import flymc
 from repro_torch.data import logistic_data
+from repro_torch.distributed.launch import run_ranks, single_rank
+from repro_torch.distributed.par import resolve
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.train import train_reduced
 from repro_torch.models.bayes_glm import GLMModel
+from repro_torch.models.params import WDef
 from repro_torch.optim import AdamWState
 
 jax.config.update("jax_platform_name", "cpu")
@@ -464,14 +469,49 @@ def test_bf16_round_trips_as_its_uint16_bits(tmp_path):
     _assert_tree_equal(restored, tree)
 
 
+def test_sharded_save_gathers_the_logical_arrays_to_rank_zero(tmp_path):
+    """Two gloo ranks save their shards; the files are the logical arrays
+    (a single-device restore reads them), each rank restores its own
+    slice, and a replicated leaf is stored once, from its first replica."""
+    out = run_ranks(ranks.sharded_save, 2, backend="gloo", device="cpu",
+                    args=({"dir": str(tmp_path), "ranks": 2,
+                           "device": "cpu"},))
+    full = (torch.arange(24, dtype=torch.float32).reshape(4, 6) / 7).to(
+        torch.bfloat16)
+    ck = Checkpointer(tmp_path)
+    assert ck.verify(1) == []
+    whole, _ = ck.restore({"cols": torch.zeros(4, 6, dtype=torch.bfloat16),
+                           "rep": torch.zeros(3), "step": torch.tensor(0)},
+                          step=1)
+    assert torch.equal(whole["cols"], full)
+    assert whole["rep"].tolist() == [0.0, 0.0, 0.0] and int(whole["step"]) == 5
+    for r, got in enumerate(out):
+        assert np.array_equal(got["cols"], got["mine"])
+        assert np.array_equal(got["cols"],
+                              full[:, 3 * r:3 * r + 3].float().numpy())
+        assert got["rep"].tolist() == [0.0, 0.0, 0.0]
+        assert got["gathers"] == 2  # the two leaves with a spec
+
+
 def test_restore_places_leaves_on_the_asked_device(tmp_path, monkeypatch):
     ck = Checkpointer(tmp_path)
     ck.save(1, _tree(), blocking=True)
     restored, _ = ck.restore(_zeros(_tree()), device="cpu")
     assert all(t.device.type == "cpu"
                for _, t in flatten_with_paths(restored))
-    with pytest.raises(NotImplementedError, match="item 9f"):
-        ck.restore(_zeros(_tree()), shardings={"a": None})
+    # onto a mesh (one gloo rank): a leaf with a spec comes back as this
+    # rank's slice of its logical array, checked against the spec's shape
+    with single_rank("gloo", "cpu"):
+        mesh = make_mesh((1,), ("data",))
+        spec = resolve(WDef((8, 16)), mesh.sizes, None)
+        assert spec.fsdp_axes == ("data",)
+        onto, _ = ck.restore(_zeros(_tree()), shardings={"a": spec},
+                             mesh=mesh)
+        _assert_tree_equal(onto, _tree())
+        with pytest.raises(ValueError, match="logical"):
+            ck.restore(_zeros(_tree()), mesh=mesh,
+                       shardings={"a": resolve(WDef((16, 8)), mesh.sizes,
+                                               None)})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ck.restore(_zeros(_tree()), device="cuda")  # no silent CPU fallback

@@ -1852,3 +1852,136 @@ def test_adamw_state_keeps_bf16_moments_on_card(dev):
     met = step(model, opt, b)
     assert np.isfinite(float(met["loss"])) and int(opt.step) == 3
     assert all(t.dtype == torch.bfloat16 for t in opt.m.values())
+
+
+# ---------------------------------------------------------------------------
+# The sharded train step: fused_ce at a vocabulary shard, the merge, the
+# vocab-parallel backward, a 1-rank NCCL step
+# ---------------------------------------------------------------------------
+
+
+def _shard_inputs(dev, t=1031, d=256, v=4096, seed=28):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(t, d, generator=g).to(torch.bfloat16).to(dev)
+    w = (torch.randn(d, v, generator=g) / d**0.5).to(torch.bfloat16).to(dev)
+    lab = torch.randint(0, v, (t,), generator=g)
+    lab[:4] = torch.tensor([0, v // 2 - 1, v // 2, v - 1])
+    return x, w, lab.to(dev)
+
+
+def test_fused_ce_vocab_shard_matches_plain(dev):
+    """Each half of the head with the labels shifted into its columns:
+    the kernel against its plain version (the rounding mode's bound, as
+    ``test_fused_ce_round_logits_matches_plain``), and a label of the
+    other half gives a target of exactly 0 in both."""
+    x, w, lab = _shard_inputs(dev)
+    vb = w.shape[1] // 2
+    for r in range(2):
+        ws, ls = w[:, r * vb:(r + 1) * vb].contiguous(), lab - r * vb
+        lse, tgt = cops.lse_and_target(x, ws, ls, round_logits=True)
+        lse_ref, tgt_ref = fused_ce_ref(x, ws, ls, round_logits=True)
+        torch.cuda.synchronize()
+        out = (ls < 0) | (ls >= vb)
+        assert out.any() and (~out).any()
+        assert bool((tgt[out] == 0).all()) and bool((tgt_ref[out] == 0).all())
+        top = float((x.float() @ ws.float()).abs().max())
+        ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+        for a, ref in ((lse, lse_ref), (tgt, tgt_ref)):
+            err = (a - ref).abs()
+            assert float((err > 1e-4).float().mean()) <= 0.01
+            assert float(err.max()) <= 1e-4 + ulp
+
+
+def test_fused_ce_merged_shards_match_the_whole_head(dev):
+    """M + log Σ_r exp(lse_r − M) and Σ_r tgt_r of the two halves against
+    one launch over the whole head, to 1e-4 (float32 sums grouped another
+    way)."""
+    x, w, lab = _shard_inputs(dev)
+    vb = w.shape[1] // 2
+    parts = [cops.lse_and_target(x, w[:, r * vb:(r + 1) * vb].contiguous(),
+                                 lab - r * vb, round_logits=True)
+             for r in range(2)]
+    m = torch.maximum(parts[0][0], parts[1][0])
+    lse = m + torch.log(sum(torch.exp(p[0] - m) for p in parts))
+    tgt = parts[0][1] + parts[1][1]
+    lse_w, tgt_w = cops.lse_and_target(x, w, lab, round_logits=True)
+    torch.testing.assert_close(lse, lse_w, rtol=0, atol=1e-4)
+    torch.testing.assert_close(tgt, tgt_w, rtol=0, atol=1e-4)
+
+
+def test_vocab_parallel_backward_matches_the_whole_head(dev):
+    """``ce_backward`` on each half against the merged lse (the
+    vocab-parallel backward of ``fused_ce_shard``): the halves' dx sum to
+    the whole head's and their dw are its column blocks, float32."""
+    g = torch.Generator().manual_seed(6)
+    t, d, v = 300, 128, 2048
+    x = torch.randn(t, d, generator=g).to(dev)
+    w = (torch.randn(d, v, generator=g) / d**0.5).to(dev)
+    lab = torch.randint(0, v, (t,), generator=g).to(dev)
+    c = torch.rand(t, generator=g).to(dev)
+    vb = v // 2
+    shards = [(w[:, r * vb:(r + 1) * vb].contiguous(), lab - r * vb)
+              for r in range(2)]
+    parts = [cops.lse_and_target(x, ws, ls) for ws, ls in shards]
+    m = torch.maximum(parts[0][0], parts[1][0])
+    lse = m + torch.log(sum(torch.exp(p[0] - m) for p in parts))
+    grads = [cops.ce_backward(x, ws, ls, c, chunk=128, lse=lse)
+             for ws, ls in shards]
+    dx, dw = cops.ce_backward(x, w, lab, c, chunk=128)
+    torch.testing.assert_close(grads[0][0] + grads[1][0], dx, rtol=1e-5,
+                               atol=1e-5 * float(dx.abs().max()))
+    torch.testing.assert_close(torch.cat([grads[0][1], grads[1][1]], 1), dw,
+                               rtol=1e-5, atol=1e-5 * float(dw.abs().max()))
+
+
+def test_one_nccl_rank_sharded_step_is_bitwise_single_device(dev):
+    """The reduced llama twin in bf16 with remat: 2 steps of the sharded
+    step on a (1, 1) mesh of one NCCL rank are bitwise the single-device
+    step's (loss, grad_norm, every weight); each rank step is one
+    ``fused_ce`` launch."""
+    import _torch_lm_ranks as ranks
+    from repro_torch.distributed.launch import single_rank
+
+    cfg = get_reduced("llama3.2-3b")
+    gen = np.random.default_rng(4)
+    batch = {k: gen.integers(0, cfg.vocab_size, (8, 64), dtype=np.int64)
+             for k in ("tokens", "labels")}
+    model = T.init_model(cfg, 0, dev).requires_grad_(True)
+    opt = T.init_opt(model)
+    step = T.make_train_step(cfg, torch.bfloat16, remat=True, warmup_steps=1)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    single = [ranks.metrics_of(step(model, opt, b)) for _ in range(2)]
+    before = cops.launch_count
+    with single_rank("nccl", "cuda") as group:
+        got = ranks.train(group, dict(arch="llama3.2-3b", device="cuda",
+                                      batch=batch, steps=2, remat=True,
+                                      dtype=torch.bfloat16,
+                                      kw=dict(warmup_steps=1),
+                                      mesh=((1, 1), ("data", "model"))))
+    assert cops.launch_count == before + 2
+    assert got["metrics"] == single
+    assert got["tally"]["all_gather"]["calls"] > 0  # through NCCL
+    for n, p in model.named_parameters():
+        assert np.array_equal(got["params"][n], p.detach().float().cpu()
+                              .numpy()), n
+
+
+def test_one_nccl_rank_sharded_save_is_the_logical_array(dev, tmp_path):
+    """A sharded save on a mesh of one NCCL rank gathers its CUDA shards
+    through NCCL and writes the logical arrays: a single-device restore
+    reads them, and the mesh restore gives them back bitwise."""
+    import _torch_lm_ranks as ranks
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed.launch import single_rank
+
+    with single_rank("nccl", "cuda") as group:
+        got = ranks.sharded_save(group, {"dir": str(tmp_path), "ranks": 1,
+                                         "device": "cuda"})
+    full = (torch.arange(24, dtype=torch.float32).reshape(4, 6) / 7).to(
+        torch.bfloat16)
+    whole, _ = Checkpointer(tmp_path).restore(
+        {"cols": torch.zeros(4, 6, dtype=torch.bfloat16),
+         "rep": torch.zeros(3), "step": torch.tensor(0)}, step=1)
+    assert torch.equal(whole["cols"], full) and int(whole["step"]) == 5
+    assert np.array_equal(got["cols"], full.float().numpy())
+    assert got["rep"].tolist() == [0.0, 0.0, 0.0] and got["gathers"] == 2

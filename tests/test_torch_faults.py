@@ -457,8 +457,8 @@ def test_plan_chain_slots_zero_is_legal_negative_is_not():
     assert elastic.plan_chain_slots(2, slots_per_device=4) == 8
     with pytest.raises(ValueError):
         elastic.plan_chain_slots(-1)
-    with pytest.raises(NotImplementedError, match="item 9f"):
-        elastic.plan_mesh(16)
+    mesh = elastic.plan_mesh(16)  # one full model-parallel group of 16
+    assert (mesh.axis_names, mesh.shape) == (("data", "model"), (1, 16))
 
 
 def test_engine_rejects_foreign_and_duplicate_jobs():
