@@ -266,7 +266,7 @@ a register and a wide softmax kernel):
    the call's and the plain backward's ms beside the bound);
 19. runs the sharded train step (``sharded_train_path``,
    ``launch.steps.make_sharded_train_step``) of llama3.2-3b at its
-   published width cut to 8 of 28 layers, bf16, remat, 2 × 2048 tokens:
+   published width cut to 2 of 28 layers, bf16, remat, 2 × 2048 tokens:
    one NCCL rank on mesh (1, 1) bitwise the single-device step; 4 gloo
    ranks over CUDA tensors on (data=2, model=2), their loss and gradient
    norm against the single device's, one ``fused_ce`` launch a step a
@@ -277,7 +277,21 @@ a register and a wide softmax kernel):
    ``fused_ce`` at the vocabulary shard (T = 4,096, D = 3,072, V/2 =
    64,128) against its plain version, the two shards merged against the
    whole head. Prints step ms, peak memory a rank, the collectives a step
-   by kind with their bytes, and the save and restore seconds.
+   by kind with their bytes, and the save and restore seconds;
+20. runs the sharded prefill and decode (``sharded_serve_path``,
+   ``launch.steps.make_sharded_prefill`` and ``make_sharded_decode``) of
+   llama3.2-3b at its published width, float32 compute, bf16 rings: the
+   training layout at 8 of 28 layers (4 prompts of 2,048 tokens into
+   2,064 slots, then 8 greedy steps) on one NCCL rank on mesh (1, 1),
+   bitwise the single device, and on 4 gloo ranks on (data=2, model=2)
+   within 1% of its largest values; the serving-resident layout at all 28
+   layers on the same ranks from an empty cache, 16 forced and 8 greedy
+   steps, against the single device; one ``decode_attention`` launch a
+   layer a step on every rank (the kernel at a rank's ring block and at
+   the tp ring against its plain version and ``sdpa``, and the blocks'
+   merge against the whole ring on the card, run with the kernel phases:
+   ``sharded_attention_phases``). Prints prefill ms, decode ms/token, the
+   collectives of a step, peak memory a rank.
 
 Any failure raises (nonzero exit, no result line). The build's ptxas
 registers, shared memory and spills are printed per kernel. The last two
@@ -318,9 +332,11 @@ CAPACITY = 512
 # 1,000 iterations (FlyMC or full-data alike), so convergence is checked on a
 # second run at the MNIST N with D = 3, long enough to converge.
 WARMUP, SAMPLES, CHAINS = 250, 750, 2
-# (600 + 2,000 iterations: 1,000 + 2,500 did not leave the smoke room for
-# the sharded train step within its time limit on a slow host)
-D_CONV, WARMUP_CONV, SAMPLES_CONV = 3, 600, 2000
+# (400 + 1,200 iterations: 1,000 + 2,500, then 600 + 2,000, did not leave
+# the smoke room for the sharded train, then serving, paths within its time
+# limit on a slow host; 600 + 2,000 read split-R̂ 1.038 and 1.008, 450 +
+# 1,500 1.046 and 1.024)
+D_CONV, WARMUP_CONV, SAMPLES_CONV = 3, 400, 1200
 # LM serving path: recurrentgemma-9b at its published width.
 ARCH = "recurrentgemma-9b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2304, 32
@@ -339,8 +355,9 @@ DESCENT_STEPS = 8
 # limit, far below the O(1) error of a sampler gone astray.
 ROBUST_ITERS, ROBUST_BURN, ROBUST_FULL_ITERS = 200, 50, 3
 ROBUST_RMSE_MAX = 0.02
-# HMC path at the MNIST width, and the plain-engine yardstick.
-HMC_WARMUP, HMC_SAMPLES, HMC_LEAPFROG = 30, 75, 10
+# HMC path at the MNIST width, and the plain-engine yardstick (20 + 50
+# iterations: 30 + 75 until the sharded serving path joined the smoke).
+HMC_WARMUP, HMC_SAMPLES, HMC_LEAPFROG = 20, 50, 10
 PLAIN_ITERS = 100
 # The sampling service: job_mix's five kinds at the paper's widths, 8 jobs,
 # 8 chain slots (the mix has 11 chains), 128 samples in chunks of 32. The
@@ -365,8 +382,9 @@ LANES, LANE_CHAINS, LANE_SAMPLES = 8, 2, 64
 # Data-sharded FlyMC on the one card: 4 gloo ranks over CUDA tensors. The
 # reference example's problem (examples/distributed_flymc.py: logistic,
 # N = 32,768, D = 11, RWMH, capacity 256 a shard, q_db 0.01; the example's
-# 1,500 iterations cut to 300 to fit the smoke's time limit on a slow host
-# (750 until the sharded train step joined the smoke),
+# 1,500 iterations cut to 200 to fit the smoke's time limit on a slow host
+# (750 until the sharded train step joined the smoke, 300 until the sharded
+# serving path did),
 # a quarter of them warmup; 64 chains, the example's one chain
 # 64 times over, started at θ_MAP: RWMH in these 11 dimensions reads
 # split-R̂ ~1.3 after 1,500 steps (8 chains, CPU), so the posterior held
@@ -376,7 +394,7 @@ LANES, LANE_CHAINS, LANE_SAMPLES = 8, 2, 64
 # iterations, the robust problem at the OPV width on 4 ranks (slice, from
 # θ_MAP, 100 iterations, burn 25), and a chain fleet of 4 ranks × 2 chains
 # at the MNIST width.
-DIST_RANKS, DIST_N, DIST_D, DIST_ITERS, DIST_CAP = 4, 32_768, 11, 300, 256
+DIST_RANKS, DIST_N, DIST_D, DIST_ITERS, DIST_CAP = 4, 32_768, 11, 200, 256
 DIST_Q, DIST_CHAINS, NCCL_ITERS = 0.01, 64, 50
 # The example's RWMH starts at step 0.1, which its warmup's Robbins–Monro
 # adaptation takes more than its 375 steps to shrink at this N: 8 chains
@@ -448,19 +466,35 @@ SP_STEPS, SP_BATCH, SP_SEQ = 4, 2, 2049
 # need 120 GB), remat, bf16 compute, batch 2 × 2048 tokens, 4 steps.
 RWKV_TRAIN_LAYERS, RWKV_TRAIN_STEPS = 12, 4
 # The sharded train step (sharded_train_path): llama3.2-3b at full width
-# cut to 8 of 28 layers (1.594 B params, 25.5 GB of f32 weights, gradients
+# cut to 2 of 28 layers (0.990 B params, 15.8 GB of f32 weights, gradients
 # and moments summed over the ranks), remat, bf16 compute, 2 × 2048 tokens,
 # seed 0; warmup 1 so that the steps move the weights. Mesh (1, 1) on one
-# NCCL rank; (data=2, model=2) on 4 gloo ranks sharing the card, the state
-# saved after step 2; (pod=2, data=1, model=2) at 2 layers with and
-# without the compressed pod gradients (peak lr 1e-3 and warmup 200, the
-# reference test's schedule).
-SHARDED_ARCH, SHARDED_LAYERS, SHARDED_SEED = "llama3.2-3b", 8, 0
-SHARDED_BATCH, SHARDED_SEQ, SHARDED_STEPS, SHARDED_SAVE_AT = 2, 2048, 4, 2
+# NCCL rank; (data=2, model=2) on 4 gloo ranks sharing the card, 3 steps,
+# the state saved after step 2; (pod=2, data=1, model=2) at 2 layers, 3
+# steps with and without the compressed pod gradients (peak lr 1e-3 and
+# warmup 200, the reference test's schedule). (8 layers and 4 steps until
+# the sharded serving path joined the smoke.)
+SHARDED_ARCH, SHARDED_LAYERS, SHARDED_SEED = "llama3.2-3b", 2, 0
+SHARDED_BATCH, SHARDED_SEQ, SHARDED_STEPS, SHARDED_SAVE_AT = 2, 2048, 3, 2
 SHARDED_KW = dict(warmup_steps=1)
-COMPRESS_LAYERS, COMPRESS_STEPS = 2, 4
+COMPRESS_LAYERS, COMPRESS_STEPS = 2, 3
 COMPRESS_KW = dict(peak_lr=1e-3)  # tests/test_distributed_training.py's
 SHARDED_TIMEOUT_S = 900
+# The sharded prefill and decode (sharded_serve_path): llama3.2-3b at full
+# width, seed 0. The training layout ("fsdp") at 8
+# of 28 layers: 4 prompts of 2,048 tokens into a 2,064-slot ring (1,032
+# slots a rank on model = 2), then 8 greedy tokens; one NCCL rank on
+# (1, 1), then 4 gloo ranks on (data=2, model=2). The serving-resident
+# layout ("tp", bf16 weights) at all 28 layers on (2, 2) from an empty
+# cache: 16 teacher-forced steps, then 8 greedy ones. Rings in bf16;
+# compute in float32 (SERVE_DTYPE), so that the 4-rank runs can be held to
+# the single device's at SERVE_TOL of the largest reference value: in bf16
+# the ranks' sums in another order drift by ~1 ulp a layer (1.2% of the
+# largest logit at 2 layers in a CPU run), as far as a wrong merge would.
+SERVE_FSDP_LAYERS, SERVE_BATCH = 8, 4
+SERVE_PROMPT, SERVE_SEQ, SERVE_GEN = 2048, 2064, 8
+SERVE_TP_FORCED, SERVE_TP_GREEDY = 16, 8
+SERVE_DTYPE, SERVE_TOL = torch.float32, 1e-2
 # The new LM heads of fused_ce on the SP path (d_model, padded vocab come
 # from these configs; llava's is mixtral's): T = SP_BATCH × (SP_SEQ − 1).
 SP_HEADS = ("llama3.2-3b", "mixtral-8x7b", "qwen1.5-110b", "whisper-tiny")
@@ -1145,8 +1179,9 @@ def gradient_path():
     return launches
 
 
-EXACT_RUNS = (  # θ-kernel, its knobs, iterations
-    ("rwmh", {"step_size": 0.02}, 150),
+EXACT_RUNS = (  # θ-kernel, its knobs, iterations (RWMH's 150 until the
+    # sharded serving path joined the smoke)
+    ("rwmh", {"step_size": 0.02}, 100),
     ("slice", {"step_size": 0.05}, 40),
     ("hmc", {"step_size": 0.005, "kernel_params": (("n_leapfrog", 5),)}, 24),
 )
@@ -4662,6 +4697,407 @@ def sharded_train_path(dev):
     return launches, phase
 
 
+def _rel_gap(got, want) -> float:
+    """max|got − want| over max|want| (float32)."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _clear_rows(logits, tol: float):
+    """The rows of (B, 1, V) logits whose top-2 gap clears ``tol`` of the
+    largest |logit|: there the greedy token is decided beyond the
+    tolerance."""
+    top = logits.float().topk(2, dim=-1).values[:, 0]
+    return (top[:, 0] - top[:, 1]) > tol * float(logits.abs().max())
+
+
+def _serve_tokens(cfg):
+    """The prompts (SERVE_BATCH, SERVE_PROMPT) and the tp run's forced
+    tokens (SERVE_BATCH, SERVE_TP_FORCED), from a seeded CPU generator."""
+    gen = torch.Generator().manual_seed(SHARDED_SEED + 29)
+    ids = torch.randint(0, cfg.vocab_size,
+                        (SERVE_BATCH, SERVE_PROMPT + SERVE_TP_FORCED),
+                        generator=gen)
+    return ids[:, :SERVE_PROMPT], ids[:, SERVE_PROMPT:]
+
+
+def _timed(fn):
+    """(fn(), its host ms, ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _decode_run(step, model, cache, feed, greedy: int = 0):
+    """One decode step a token of ``feed`` (each (B, 1) on the device),
+    then ``greedy`` steps each fed the last one's token: per step the
+    logits and next tokens as ``step(model, cache, token)`` returns them,
+    the host ms, the decode-attention launches and the collectives by
+    kind."""
+    from repro_torch.distributed import comm
+    from repro_torch.kernels.decode_attention import ops as aops
+
+    out = {"logits": [], "tokens": [], "ms": [], "launches": [],
+           "collectives": []}
+    feed = list(feed)
+    for i in range(len(feed) + greedy):
+        tok = feed[i] if i < len(feed) else out["tokens"][-1]
+        comm.reset_counts()
+        before = aops.launch_count
+        (nxt, logits, cache), ms = _timed(lambda: step(model, cache, tok))
+        out["launches"].append(aops.launch_count - before)
+        out["collectives"].append(comm.tally())
+        out["ms"].append(ms)
+        out["logits"].append(logits)
+        out["tokens"].append(nxt)
+    return out, cache
+
+
+def _one_device_serve(cfg, dev, prompt=None, forced=(), greedy=None,
+                      param_dtype=torch.float32):
+    """The single device: ``cfg``'s model of SHARDED_SEED (weights in
+    ``param_dtype``, SERVE_DTYPE compute, bf16 ring). With ``prompt``: its
+    prefill, the first token (the argmax of the last row's logits) and
+    SERVE_GEN steps from it, greedy; else ``forced``'s steps from an empty
+    cache, then ``greedy`` more."""
+    from repro_torch.models import serving as SV
+    from repro_torch.models import transformer as T
+
+    dt, bf = SERVE_DTYPE, torch.bfloat16
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = T.init_model(cfg, SHARDED_SEED, dev, param_dtype)
+    step = lambda m, c, t: SV.decode_step(m, c, t, SERVE_SEQ, dt)
+    out = {}
+    if prompt is not None:
+        (cache, h), out["prefill_ms"] = _timed(
+            lambda: SV.prefill(model, prompt, SERVE_SEQ, dt, bf))
+        out["hidden"] = h
+        out["tok0"] = SV.vocab_parallel_argmax(
+            (h[:, -1:] @ model.embed.head.to(dt)).float())
+        forced, greedy = [out["tok0"]], SERVE_GEN - 1
+    else:
+        cache = SV.init_cache(cfg, forced[0].shape[0], SERVE_SEQ, bf, dev)
+    run, cache = _decode_run(step, model, cache, forced, greedy)
+    del model
+    return out | run | {"cache": cache["layers"],
+                        "peak": torch.cuda.max_memory_allocated(dev),
+                        "ring_local": tuple(cache["layers"][0]["k"].shape)}
+
+
+def _sharded_serve(job, dev, ref=None):
+    """The port's sharded serving on mesh ``job["mesh"]`` (every rank calls
+    it). fsdp: the prefill of ``job["prompt"]`` at ``job["layers"]``
+    layers, the first token from the gathered hidden's last row, then a
+    step for each token of ``job["feed"]``; tp: ``job["feed"]``'s steps
+    from an empty cache. Returns the logical hidden, first token, logits
+    and tokens a step and final cache, with the times, launches,
+    collectives and peak memory; with ``ref`` (the single device's run of
+    the same weights) the gaps to it on mesh rank 0 instead of the
+    tensors."""
+    from repro_torch.distributed import par as P
+    from repro_torch.launch.mesh import make_mesh, make_par
+    from repro_torch.launch.steps import (make_sharded_decode,
+                                          make_sharded_prefill)
+    from repro_torch.models import serving as SV
+    from repro_torch.models.config import ShapeConfig
+
+    dt = SERVE_DTYPE
+    cfg = _sharded_cfg(job["layers"])
+    mesh = make_mesh(*job["mesh"])
+    par = make_par(mesh)
+    step, specs, build = make_sharded_decode(
+        cfg, mesh, ShapeConfig("decode", SERVE_SEQ, SERVE_BATCH, "decode"),
+        dt, job["layout"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    (model, cache), build_ms = _timed(lambda: build(SHARDED_SEED, dev))
+    out = {"rank": mesh.rank, "build_ms": build_ms}
+    if job["layout"] == "fsdp":
+        pstep, pspecs, _ = make_sharded_prefill(
+            cfg, mesh, ShapeConfig("prefill", SERVE_SEQ, SERVE_BATCH,
+                                   "prefill"), dt)
+        prompt = torch.as_tensor(job["prompt"], device=dev)
+        (cache, h), out["prefill_ms"] = _timed(lambda: pstep(model, prompt))
+        out["hidden"] = P.gather_logical(h, pspecs["out"], par)
+        head = P.gather_param(model.embed.head, model.embed.specs["head"], dt,
+                              par)
+        out["tok0"] = SV.vocab_parallel_argmax(
+            (out["hidden"][:, -1:] @ head).float(), par)
+        del h, head
+    run, cache = _decode_run(step, model, cache,
+                             [torch.as_tensor(t, device=dev)
+                              for t in job["feed"]])
+    out.update(run, peak=torch.cuda.max_memory_allocated(dev),
+               ring_local=tuple(cache["layers"][0]["k"].shape))
+    out["logits"] = [P.gather_logical(x, specs["out"], par)
+                     for x in run["logits"]]
+    out["tokens"] = [P.gather_logical(x, specs["tokens"], par)
+                     for x in run["tokens"]]
+    layers = list(zip(cache["layers"], specs["cache"]["layers"]))
+    out["cache"] = [{n: P.gather_logical(c[n], s[n], par) for n in c}
+                    for c, s in (layers if ref is None else _ends(layers))]
+    del model, cache
+    torch.cuda.empty_cache()
+    if ref is None:
+        return out
+    tensors = ("hidden", "tok0", "logits", "tokens", "cache")
+    gaps = _serve_gaps(out, ref) if mesh.rank == 0 else {}
+    return {k: v for k, v in out.items() if k not in tensors} | gaps
+
+
+def _ends(layers: list) -> list:
+    """The first and the last layer: the rings a 4-rank run gathers for
+    its check (every layer's through gloo would move 1.9 GB at 28)."""
+    return [layers[0], layers[-1]]
+
+
+def _serve_gaps(got, ref) -> dict:
+    """A sharded run's gaps to the single device's, as SERVE_TOL reads
+    them: the hidden, each step's logits and the first and last layers'
+    final K/V as max|Δ| over the reference's max; the ring positions and
+    the first token equal; the greedy tokens of the rows whose reference
+    top-2 gap clears SERVE_TOL (rows compared, rows equal)."""
+    clear = [_clear_rows(b, SERVE_TOL) for b in ref["logits"]]
+    gaps = {"logits": max(_rel_gap(a, b) for a, b in zip(got["logits"],
+                                                         ref["logits"])),
+            "tokens_compared": sum(int(c.sum()) for c in clear),
+            "tokens_equal": sum(
+                int((a.view(-1)[c] == b.view(-1)[c]).sum())
+                for a, b, c in zip(got["tokens"], ref["tokens"], clear)),
+            "kv": max(_rel_gap(g[n], w[n]) for g, w in zip(got["cache"],
+                                                           ref["cache"])
+                      for n in ("k", "v")),
+            "pos_equal": all(torch.equal(g["pos"], w["pos"])
+                             for g, w in zip(got["cache"], ref["cache"]))}
+    if "hidden" in ref:
+        gaps["hidden"] = _rel_gap(got["hidden"], ref["hidden"])
+        gaps["tok0_equal"] = bool(torch.equal(got["tok0"], ref["tok0"]))
+    return gaps
+
+
+def _serve_rank(group, job):
+    """One of the 4 gloo ranks: the fsdp run, then the tp run, each
+    against the single device's run that the parent saved to
+    ``job["ref"]`` (read by rank 0 alone)."""
+    import torch.distributed as dist
+
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    ref = (torch.load(job["ref"], map_location=dev, weights_only=False)
+           if dist.get_rank() == 0 else {"fsdp": None, "tp": None})
+    out = {}
+    for name in ("fsdp", "tp"):
+        out[name] = _sharded_serve(job[name], dev, ref[name] or {})
+        ref[name] = None
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_attention_phases(dev):
+    """The decode-attention kernel at the sharded serving path's shapes
+    (llama3.2-3b: H = 24, Hk = 8, D = 128, bf16 rings, SERVE_BATCH / 2 rows
+    a data rank): a model rank's block of the fsdp ring (the second 1,032
+    of 2,064 slots, part-empty at the last step's position) and the tp
+    layout's whole ring (H = 12, Hk = 4 a rank), each timed beside the
+    plain version and ``sdpa``; then the merge on the card: the kernel on
+    both blocks of one ring, merged (``ops.merge_stacked``, the ranks'
+    formula), against ``decode_attention_ref`` over the whole ring at the
+    last step's position and at one where the second block is empty."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    cfg = get_config(SHARDED_ARCH)
+    b, h, hk = SERVE_BATCH // 2, cfg.n_heads, cfg.n_kv_heads
+    d = cfg.resolved_head_dim
+    w, w_loc = SERVE_SEQ, SERVE_SEQ // 2
+    t = SERVE_PROMPT + SERVE_GEN - 1
+    gen = torch.Generator().manual_seed(29)
+    bf = torch.bfloat16
+    phases = [decode_attention_phase(
+        "sharded-fsdp-block", b, h, hk, d, w_loc, t, None, bf, dev, gen,
+        pos=_ring_pos(w, t, dev)[w_loc:]),
+        decode_attention_phase("sharded-tp", b, h // 2, hk // 2, d, w, t,
+                               None, bf, dev, gen)]
+    merge_err = 0.0
+    for t_ in (t, w_loc // 2):
+        q = torch.randn(b, h, d, generator=gen).to(dev)
+        k = torch.randn(b, w, hk, d, generator=gen).to(bf).to(dev)
+        v = torch.randn(b, w, hk, d, generator=gen).to(bf).to(dev)
+        pos = _ring_pos(w, t_, dev)
+        parts = [ops.decode_attention(q, k[:, s].contiguous(),
+                                      v[:, s].contiguous(),
+                                      pos[s].contiguous(), t_)
+                 for s in (slice(0, w_loc), slice(w_loc, w))]
+        merged = ops.merge_stacked(*(torch.stack(x) for x in zip(*parts)))
+        want = decode_attention_ref(q, k, v, pos, t_)[0]
+        torch.cuda.synchronize()
+        err = float((merged - want).abs().max())
+        if not err <= 1e-5:
+            raise AssertionError(f"decode_attention merged over 2 blocks at "
+                                 f"t={t_}: max|Δ| {err:.3g} vs the whole "
+                                 "ring (limit 1e-5)")
+        merge_err = max(merge_err, err)
+    log(f"decode_attention[sharded merge: B={b} H={h} Hk={hk} D={d}, 2 "
+        f"blocks of {w_loc} slots, t={t} and t={w_loc // 2} (second block "
+        f"empty)]: merged vs the whole ring max|Δ| {merge_err:.3g}; "
+        f"{card_line()}")
+    for p in phases:
+        p["merge_max_abs_err"] = merge_err
+    return phases
+
+
+def _serve_line(name, r, layers, card) -> str:
+    steps = r["ms"]
+    pre = (f"prefill {r['prefill_ms']:.3f} ms, " if "prefill_ms" in r
+           else "")
+    return (f"{name} [{layers} layers; {card}]: {pre}decode "
+            f"{statistics.median(steps):.3f} ms/token (median of "
+            f"{len(steps)}; steps {[round(x, 3) for x in steps]}), "
+            f"decode_attention launches a step {sorted(set(r['launches']))}, "
+            f"peak memory {r['peak'] / 1e9:.3f} GB, ring a rank "
+            f"{r['ring_local']}, collectives of the last step "
+            f"{r['collectives'][-1]}")
+
+
+def sharded_serve_path(dev):
+    """The sharded prefill and decode (``launch.steps.make_sharded_prefill``
+    and ``make_sharded_decode``) of llama3.2-3b at full width, SERVE_DTYPE
+    compute, bf16 rings:
+
+    (a) fsdp at SERVE_FSDP_LAYERS layers on the single device, then on one
+        NCCL rank on mesh (1, 1): the prefill's hidden, the first token,
+        SERVE_GEN greedy steps' logits and tokens and the final cache, bit
+        for bit;
+    (b) fsdp on 4 gloo ranks over CUDA tensors on the card, (data=2,
+        model=2), each step fed (a)'s token: the hidden, each step's logits
+        and the first and last layers' final K/V within SERVE_TOL of (a)'s
+        largest value, their ring positions and the first token equal, the
+        greedy tokens equal where (a)'s top-2 gap clears SERVE_TOL;
+    (c) tp at all 28 layers (bf16 weights) on the same ranks from an empty
+        cache: SERVE_TP_FORCED teacher-forced steps, then SERVE_TP_GREEDY
+        steps fed the single device's greedy tokens, against the single
+        device's run of the same weights, as (b).
+
+    Every decode step launches the decode-attention kernel once a layer on
+    every rank. Prints prefill ms, decode ms/token, the collectives of a
+    decode step by kind and bytes, peak memory a rank and the launches a
+    step. Returns the launches by run. The kernel at these shapes:
+    :func:`sharded_attention_phases`, with the kernel phases."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.launch import run_ranks, single_rank
+    from repro_torch.models.serving import serve_kv_heads
+
+    card = card_line()
+    axes = ("data", "model")
+    cfg8 = _sharded_cfg(SERVE_FSDP_LAYERS)
+    n_all = get_config(SHARDED_ARCH).n_layers
+    prompt, forced = _serve_tokens(cfg8)
+
+    # (a) one device, then one NCCL rank on (1, 1)
+    torch.cuda.empty_cache()
+    one = _one_device_serve(cfg8, dev, prompt=prompt.to(dev))
+    fsdp_job = dict(layers=SERVE_FSDP_LAYERS, layout="fsdp",
+                    prompt=prompt.numpy(),
+                    feed=[t.cpu().numpy()
+                          for t in [one["tok0"]] + one["tokens"][:-1]])
+    with single_rank("nccl" if dev.type == "cuda" else "gloo", dev.type):
+        nccl = _sharded_serve(dict(fsdp_job, mesh=((1, 1), axes)), dev)
+    same = (torch.equal(nccl["hidden"], one["hidden"])
+            and torch.equal(nccl["tok0"], one["tok0"])
+            and all(torch.equal(a, b) for k in ("logits", "tokens")
+                    for a, b in zip(nccl[k], one[k]))
+            and all(torch.equal(g[n], w[n])
+                    for g, w in zip(nccl["cache"], one["cache"]) for n in g))
+    if not same or set(nccl["launches"]) != {SERVE_FSDP_LAYERS}:
+        raise AssertionError(f"(a) mesh (1, 1): bitwise the single device "
+                             f"{same}; decode_attention launches a step "
+                             f"{nccl['launches']} (want {SERVE_FSDP_LAYERS})")
+    launches = {"sharded_serve_one_device": sum(one["launches"]),
+                "sharded_serve_nccl": sum(nccl["launches"])}
+    log(_serve_line("sharded serve (a) one device, f32 weights", one,
+                    SERVE_FSDP_LAYERS, card))
+    log(_serve_line("sharded serve (a) 1 NCCL rank, mesh (1, 1), fsdp: "
+                    "bitwise the single device", nccl, SERVE_FSDP_LAYERS,
+                    card))
+    refs = {"fsdp": {k: one[k] for k in ("hidden", "tok0", "logits",
+                                         "tokens")}}
+    refs["fsdp"]["cache"] = _ends(one["cache"])
+    del one, nccl
+    torch.cuda.empty_cache()
+
+    # (c)'s single device: every layer, bf16 weights, from an empty cache
+    tp_one = _one_device_serve(
+        _sharded_cfg(n_all), dev,
+        forced=[forced[:, i:i + 1].to(dev) for i in range(SERVE_TP_FORCED)],
+        greedy=SERVE_TP_GREEDY, param_dtype=torch.bfloat16)
+    log(_serve_line("sharded serve (c) one device, bf16 weights", tp_one,
+                    n_all, card))
+    tp_feed = ([forced[:, i:i + 1].numpy() for i in range(SERVE_TP_FORCED)]
+               + [t.cpu().numpy() for t in
+                  tp_one["tokens"][SERVE_TP_FORCED - 1:-1]])
+    refs["tp"] = {k: tp_one[k] for k in ("logits", "tokens")}
+    refs["tp"]["cache"] = _ends(tp_one["cache"])
+    launches["sharded_serve_tp_one_device"] = sum(tp_one["launches"])
+    del tp_one
+    ref_path = ROOT / "build" / "sharded_serve_ref.pt"
+    ref_path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(refs, ref_path)
+    del refs
+    torch.cuda.empty_cache()
+
+    # (b), (c) on 4 gloo ranks
+    job = dict(device=dev.type, ref=str(ref_path),
+               fsdp=dict(fsdp_job, mesh=((2, 2), axes)),
+               tp=dict(layers=n_all, layout="tp", mesh=((2, 2), axes),
+                       feed=tp_feed))
+    t0 = time.perf_counter()
+    try:
+        outs = run_ranks(_serve_rank, 4, backend="gloo", device=dev.type,
+                         args=(job,), timeout_s=SHARDED_TIMEOUT_S)
+    finally:
+        ref_path.unlink(missing_ok=True)
+    ranks_s = time.perf_counter() - t0
+    r0 = next(o for o in outs if o["fsdp"]["rank"] == 0)
+    hd = cfg8.resolved_head_dim
+    want_ring = {"fsdp": (SERVE_BATCH // 2, SERVE_SEQ // 2, cfg8.n_kv_heads,
+                          hd),
+                 "tp": (SERVE_BATCH // 2, SERVE_SEQ,
+                        serve_kv_heads(cfg8, 2), hd)}
+    for name, layers, label in (("fsdp", SERVE_FSDP_LAYERS, "(b)"),
+                                ("tp", n_all, "(c)")):
+        g = r0[name]
+        per_step = {x for o in outs for x in o[name]["launches"]}
+        rings = {o[name]["ring_local"] for o in outs}
+        gaps = {k: g[k] for k in ("hidden", "logits", "kv", "pos_equal",
+                                  "tok0_equal", "tokens_compared",
+                                  "tokens_equal") if k in g}
+        ok = (all(gaps[k] <= SERVE_TOL for k in ("hidden", "logits", "kv")
+                  if k in gaps)
+              and gaps["pos_equal"] and gaps.get("tok0_equal", True)
+              and 0 < gaps["tokens_compared"] == gaps["tokens_equal"]
+              and per_step == {layers} and rings == {want_ring[name]})
+        if not ok:
+            raise AssertionError(
+                f"{label} {name} on 4 gloo ranks against the single device: "
+                f"{gaps} (limit {SERVE_TOL}), launches a step {per_step} "
+                f"(want {layers}), rings a rank {rings}")
+        launches[f"sharded_serve_{name}_ranks"] = sum(
+            sum(o[name]["launches"]) for o in outs)
+        log(_serve_line(f"sharded serve {label} 4 gloo ranks on one card, "
+                        f"mesh (data=2, model=2), {name}, rank 0", g, layers,
+                        card)
+            + f" | against the single device: {gaps} (limit {SERVE_TOL} "
+            f"of the largest value); peak memory a rank "
+            f"{[round(o[name]['peak'] / 1e9, 3) for o in outs]} GB; "
+            f"decode ms/token a rank "
+            f"{[round(statistics.median(o[name]['ms']), 3) for o in outs]}")
+    log(f"sharded serve: ranks' wall {ranks_s:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4694,6 +5130,7 @@ def main() -> int:
 
     bright, z, mnist = kernel_phases(dev)
     attn = lm_kernel_phases(dev)
+    sharded_attn = sharded_attention_phases(dev)
     scan, scan_bwd = rglru_kernel_phases(dev)
     wkv = rwkv_kernel_phases(dev)
     wkv_bwd = rwkv_bwd_phases(dev)
@@ -4769,6 +5206,9 @@ def main() -> int:
     sharded_launches, ce_shard = sharded_train_path(dev)
     torch.cuda.empty_cache()
     done("sharded training")
+    serve_sharded_launches = sharded_serve_path(dev)
+    torch.cuda.empty_cache()
+    done("sharded serving")
 
     for p in bright + z + scan + scan_bwd + wkv_bwd:
         one_kernel_a_call(p, "bright_glm_kernel" if p in bright
@@ -4836,12 +5276,14 @@ def main() -> int:
          "launches": serve_launches["decode_attention"],
          **{f"launches_{a}": v for a, v in dense_launches.items()},
          **{f"launches_{a}": v for a, v in family_launches.items()},
-         "max_abs_err": max(p["max_abs_err"]
-                            for p in attn + dense_attn + family_attn),
+         **{f"launches_{k}": v for k, v in serve_sharded_launches.items()},
+         "max_abs_err": max(p["max_abs_err"] for p in attn + dense_attn
+                            + family_attn + sharded_attn),
+         "merge_max_abs_err": sharded_attn[0]["merge_max_abs_err"],
          "ms": attn[0]["ms"], "call_ms": attn[0]["call_ms"],
          "plain_ms": attn[0]["plain_ms"], "bound_ms": attn[0]["bound_ms"],
          "bound_by": attn[0]["bound_by"], "library_ms": attn[0]["library_ms"],
-         "phases": attn + dense_attn + family_attn},
+         "phases": attn + dense_attn + family_attn + sharded_attn},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:61",

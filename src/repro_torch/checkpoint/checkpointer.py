@@ -353,6 +353,9 @@ class Checkpointer:
         from repro_torch.launch.mesh import make_par
 
         group = mesh.group(mesh.axis_names)
+        # every rank's Checkpointer has swept stale tmps from the directory
+        # (its constructor) before rank 0 makes this step's
+        dist.barrier(group=group)
         specs = _spec_paths(shardings)
         leaves = [(p, a, specs.get(p)) for p, a in flatten_with_paths(tree)]
         root = mesh.rank == 0

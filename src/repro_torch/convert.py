@@ -6,9 +6,11 @@ object. Every FlyMC function here adds the port's leading chain axis unless
 the arrays already carry one (``batched=True``). :func:`lm_params` turns the
 reference's LM parameter tree into the port's modules (a gradient tree has
 the same structure, so it converts the same way), and :func:`adamw_state`
-its AdamW state into the port's. The parity tests use these to start both
-packages from the same state. :func:`glm_shard` and :func:`glm_lanes`
-carry a dataset into a rank's shard and datasets into a lane stack.
+its AdamW state into the port's, and :func:`lm_cache` its serving cache
+(gathered from a sharded run) into a rank's cache shard. The parity tests
+use these to start both packages from the same state. :func:`glm_shard`
+and :func:`glm_lanes` carry a dataset into a rank's shard and datasets
+into a lane stack.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from repro_torch.core.flymc import FlyMCState
 from repro_torch.core.numerics import M32
 from repro_torch.core.samplers import SamplerState
 from repro_torch.device import resolve_device
-from repro_torch.distributed.par import local_slice
+from repro_torch.distributed.par import Par, local_slice
 from repro_torch.launch.mesh import make_par
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Params
@@ -147,7 +149,8 @@ def _load(mod: Params, leaves: dict, par) -> None:
 
 def lm_params(params_np: dict, cfg: ModelConfig, device="cuda",
               dtype=torch.float32, mesh=None,
-              exclude_fsdp: tuple[str, ...] = ()) -> LM:
+              exclude_fsdp: tuple[str, ...] = (),
+              serve_tp: bool = False) -> LM:
     """The reference's ``init_model`` parameter tree (numpy leaves) as the
     port's :class:`~repro_torch.models.transformer.LM`. The reference's
     attention sublayer ``attn`` is the block's ``mix`` here; an RWKV block
@@ -162,13 +165,22 @@ def lm_params(params_np: dict, cfg: ModelConfig, device="cuda",
 
     With ``mesh`` (this rank's bound mesh) the model is this rank's shards
     (placed as :func:`repro_torch.models.transformer.build_specs` places
-    them, with ``exclude_fsdp``): each global leaf is cut to its slice."""
+    them, with ``exclude_fsdp``): each global leaf is cut to its slice.
+    ``serve_tp``: the serving-resident layout (``exclude_fsdp`` then the
+    mesh's data axes), whose attention has no QKV bias: the tree's
+    ``bq``/``bk``/``bv`` are left out, as the reference's layout leaves
+    them."""
     return _lm_params(params_np, cfg, device, dtype,
-                      None if mesh is None else make_par(mesh), exclude_fsdp)
+                      None if mesh is None else make_par(mesh), exclude_fsdp,
+                      serve_tp)
 
 
-def _lm_params(params_np, cfg, device, dtype, par, exclude_fsdp) -> LM:
-    model = LM(cfg, device, dtype, par, exclude_fsdp)
+_BIASES = ("bq", "bk", "bv")
+
+
+def _lm_params(params_np, cfg, device, dtype, par, exclude_fsdp,
+               serve_tp: bool = False) -> LM:
+    model = LM(cfg, device, dtype, par, exclude_fsdp, serve_tp)
     _load(model.embed, params_np["embed"], model.par)
     _load(model.final_norm, params_np["final_norm"], model.par)
     blocks = list(zip(model.blocks, per_layer(params_np, cfg)))
@@ -184,8 +196,45 @@ def _lm_params(params_np, cfg, device, dtype, par, exclude_fsdp) -> LM:
             raise ValueError(f"{blk.kind} block: sublayers {sorted(tree)} "
                              f"!= {sorted(src)}")
         for ref_name, name in src.items():
-            _load(getattr(blk, name), tree[ref_name], model.par)
+            leaves = tree[ref_name]
+            if serve_tp and name == "mix":
+                leaves = {k: v for k, v in leaves.items()
+                          if k not in _BIASES}
+            _load(getattr(blk, name), leaves, model.par)
     return model
+
+
+def lm_cache(cache_np: dict, cfg: ModelConfig, seq_len: int, device="cuda",
+             mesh=None, serve_tp: bool = False, batch_whole: bool = False,
+             dtype=None) -> dict:
+    """The reference's serving cache (numpy leaves: ``t``, each slot's
+    rings stacked over layer groups, ``extra{j}``; a sharded run's outputs
+    gathered to their logical arrays) as the port's cache: ``{"t": int,
+    "layers": [...]}`` in layer order. With ``mesh`` (this rank's bound
+    mesh) each leaf is cut to the rank's shard as
+    :func:`~repro_torch.models.serving.cache_pspecs` places it for
+    ``seq_len`` and ``serve_tp`` (``batch_whole``: a batch that runs whole
+    on every data rank). ``dtype``: the K/V dtype (default the leaves'
+    own; bfloat16 leaves come as float32 arrays, exact)."""
+    from repro_torch.launch.steps import strip_dp
+    from repro_torch.models.serving import cache_pspecs
+
+    dev = resolve_device(device)
+    par = Par() if mesh is None else make_par(mesh)
+    specs = cache_pspecs(cfg, seq_len, par, serve_tp)
+    if batch_whole:
+        specs = strip_dp(specs, par)
+    layers = []
+    for tree, spec in zip(per_layer(cache_np, cfg), specs["layers"]):
+        out = {}
+        for name, a in tree.items():
+            a = np.asarray(a)
+            if par.mesh is not None:
+                a = local_slice(a, spec[name], par)
+            dt = torch.int32 if name == "pos" else dtype
+            out[name] = _t(a, dev, dt)
+        layers.append(out)
+    return {"t": int(np.asarray(cache_np["t"])), "layers": layers}
 
 
 def adamw_state(opt_np, model: LM) -> AdamWState:

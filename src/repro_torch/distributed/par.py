@@ -39,7 +39,9 @@ from a :class:`~repro_torch.models.params.WDef` per mesh by :func:`resolve`
 
 A rank's shard of a logical tensor is :func:`local_slice`; the logical
 tensor is :func:`gather_logical` of the shards (the checkpointer's and the
-converter's tools).
+converter's tools). Both take a :class:`WSpec` or a :class:`PSpec`, the
+placement of an activation or a serving cache (the reference's
+``PartitionSpec``: the axes each dimension is split over).
 """
 
 from __future__ import annotations
@@ -266,8 +268,26 @@ def sync_grads(grads: dict[str, torch.Tensor], specs: dict[str, WSpec],
 # ---------------------------------------------------------------------------
 
 
-def _shard_dims(spec: WSpec, par: Par) -> list[tuple[int, tuple[str, ...]]]:
+@dataclasses.dataclass(frozen=True)
+class PSpec:
+    """The placement of a tensor that is not a weight (a serving cache's
+    leaf, a step's output): ``dims[i]`` the mesh axes dimension ``i`` is
+    split over, in mesh order, () where it is whole. The reference's
+    ``PartitionSpec``; the logical tensor's shape is each local dimension
+    times its axes' size."""
+
+    dims: tuple[tuple[str, ...], ...]
+
+    def without(self, axes) -> "PSpec":
+        """The same placement with ``axes`` left whole."""
+        return PSpec(tuple(tuple(a for a in d if a not in axes)
+                           for d in self.dims))
+
+
+def _shard_dims(spec, par: Par) -> list[tuple[int, tuple[str, ...]]]:
     """(dim, axes) of each sharded dimension of ``spec`` on ``par``."""
+    if isinstance(spec, PSpec):
+        return [(i, axes) for i, axes in enumerate(spec.dims) if axes]
     out = []
     if spec.tp_dim is not None and par.mp:
         out.append((spec.tp_dim, (par.mp,)))
@@ -276,23 +296,25 @@ def _shard_dims(spec: WSpec, par: Par) -> list[tuple[int, tuple[str, ...]]]:
     return out
 
 
-def shard_index(spec: WSpec, par: Par) -> tuple[slice, ...]:
-    """The index of this rank's shard in the logical tensor."""
-    idx = [slice(None)] * len(spec.shape)
+def shard_index(spec, par: Par, shape=None) -> tuple[slice, ...]:
+    """The index of this rank's shard in the logical tensor (of ``shape``,
+    by default a WSpec's own)."""
+    shape = spec.shape if shape is None else shape
+    idx = [slice(None)] * len(shape)
     for dim, axes in _shard_dims(spec, par):
-        step = spec.shape[dim] // par.mesh.size_of(axes)
+        step = shape[dim] // par.mesh.size_of(axes)
         i = par.mesh.index(axes)
         idx[dim] = slice(i * step, (i + 1) * step)
     return tuple(idx)
 
 
-def local_slice(full, spec: WSpec, par: Par):
+def local_slice(full, spec, par: Par):
     """This rank's shard of the logical tensor ``full`` (a view; a torch
     tensor or a numpy array)."""
-    return full[shard_index(spec, par)]
+    return full[shard_index(spec, par, full.shape)]
 
 
-def gather_logical(local: torch.Tensor, spec: WSpec, par: Par):
+def gather_logical(local: torch.Tensor, spec, par: Par):
     """The logical tensor from every rank's shard ``local`` (collective:
     every rank of the mesh calls it, and every rank gets the whole
     tensor). No gradient."""

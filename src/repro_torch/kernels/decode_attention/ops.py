@@ -1,7 +1,9 @@
-"""Wrapper for the flash-decode kernel: checks, launch, launch count.
+"""Wrapper for the flash-decode kernel: checks, launch, launch count, and
+the merge of the kernel's partial results across ranks.
 
 Entry point of :func:`repro_torch.models.serving._decode_attend`, one call
-per local-attention layer per decode step. A CUDA tensor goes to
+per local-attention layer per decode step (on a mesh, one per rank on its
+block of the ring, merged by :func:`merge_across`). A CUDA tensor goes to
 ``csrc/decode_attention.cu`` (or the wrapper raises): the ring cut into
 splits by :func:`plan_splits`, one CTA per (batch row, KV head, split),
 then a merge in split order; a CPU tensor goes to the plain version in
@@ -16,6 +18,7 @@ import functools
 
 import torch
 
+from repro_torch.distributed import par as P
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
@@ -113,3 +116,38 @@ def decode_attention(q, k, v, pos, t: int, window: int | None = None):
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, pos, t, window)
     raise ValueError(f"decode_attention: unsupported device {q.device}")
+
+
+def merge_partials(out, m, l, pmax, psum):
+    """The flash-decode of several blocks of one ring merged into the
+    whole ring's: each block's kernel output ``out`` (..., B, H, D) and its
+    statistics ``m``, ``l`` (..., B, Hk, G), with ``pmax`` and ``psum``
+    the reductions over the blocks. In this order: m_g = pmax(m),
+    w = l·e^{m − m_g}, L = psum(w), out = psum(out·w) / max(L, 1e-30).
+    A wholly masked block (m = −1e30, l its slots, out the mean of its V)
+    weighs e^{−1e30 − m_g} = 0 beside a block that holds a valid slot;
+    when every block is masked, the result is the mean of every V, as
+    the kernel's over the whole ring. Returns (B, H, D) float32."""
+    d = out.shape[-1]
+    m_g = pmax(m)
+    w = l * torch.exp(m - m_g)
+    tot = psum(w)
+    o = psum(out.reshape(*m.shape, d) * w[..., None])
+    o = o / torch.clamp(tot, min=1e-30)[..., None]
+    return o.reshape(*o.shape[:-3], -1, d)
+
+
+def merge_across(out, m, l, axes, par):
+    """:func:`merge_partials` over the ranks of ``axes`` (each rank's
+    block of a sequence-sharded ring): one pmax and two psums through
+    :mod:`repro_torch.distributed.par`."""
+    return merge_partials(out, m, l, lambda x: P.pmax(x, axes, par),
+                          lambda x: P.psum(x, axes, par))
+
+
+def merge_stacked(out, m, l):
+    """:func:`merge_partials` of blocks stacked on a leading axis (out
+    (n, B, H, D), m and l (n, B, Hk, G)) in one process: what the ranks'
+    merge computes, for checking it against the whole ring."""
+    return merge_partials(out, m, l, lambda x: x.amax(0),
+                          lambda x: x.sum(0))

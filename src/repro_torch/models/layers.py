@@ -19,7 +19,10 @@ fsdp axes where it is used; ``embed_tokens`` is vocab-parallel with a
 reduce-scatter into the sequence blocks, ``attn_tp`` (``attn_sp``)
 all-gathers K and V over ``model``, ``mlp_sp`` all-gathers a sequence
 chunk for its column/row-parallel product and reduce-scatters it back, and
-``ce_loss_sp`` is vocab-parallel over ``model``.
+``ce_loss_sp`` is vocab-parallel over ``model``. A decode step's token is
+replicated over ``model`` instead: ``embed_tokens(sp=False)`` psums the
+vocabulary blocks' rows and ``mlp_tp`` psums its column/row-parallel
+product.
 
 Weights are cast to the compute ``dtype`` where the reference's
 ``gather_param`` casts them (a no-op when the model is stored in ``dtype``),
@@ -199,22 +202,26 @@ def chunked_attention(q, k, v, q_pos, k_pos, causal: bool = True,
 # ---------------------------------------------------------------------------
 
 
-def attn_defs(cfg: ModelConfig, cross: bool = False) -> dict[str, WDef]:
+def attn_defs(cfg: ModelConfig, cross: bool = False,
+              serve_tp: bool = False) -> dict[str, WDef]:
     """Q, K, V and output projections, and with ``cfg.qkv_bias`` (qwen)
     zero-initialised Q, K and V biases; a cross-attention (``cross``,
     whisper's decoder) has none. Placement: the reference's ``attn_defs``
     in SP mode (every weight FSDP-sharded, K/V gathered in compute), its
-    ``attn_tp_defs`` in TP mode (Q column- and O row-parallel heads)."""
+    ``attn_tp_defs`` in TP mode (Q column- and O row-parallel heads).
+    ``serve_tp`` (the serving-resident layout of an SP arch) takes
+    ``attn_tp_defs`` too, which declares no bias: in that layout qwen's
+    attention runs without its QKV bias, as the reference's does."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     both = (0, 1)
-    if cfg.parallel_mode == "tp" and not cross:
+    if (cfg.parallel_mode == "tp" or serve_tp) and not cross:
         q = WDef((d, qd), tp_dim=1)
         o = WDef((qd, d), tp_dim=0, fsdp_pref=(1,))
     else:
         q, o = WDef((d, qd), fsdp_pref=both), WDef((qd, d), fsdp_pref=both)
     defs = {"wq": q, "wk": WDef((d, kvd), fsdp_pref=both),
             "wv": WDef((d, kvd), fsdp_pref=both), "wo": o}
-    if cfg.qkv_bias and not cross:
+    if cfg.qkv_bias and not cross and not serve_tp:
         defs.update(bq=WDef((qd,), init="zeros"), bk=WDef((kvd,), init="zeros"),
                     bv=WDef((kvd,), init="zeros"))
     return defs
@@ -294,13 +301,11 @@ def mlp_defs(cfg: ModelConfig) -> dict[str, WDef]:
     return defs
 
 
-def mlp_tp(x, w: Params, kind: str = "gelu", par: Par = ONE):
-    """gelu(x·w1)·w2, or silu(x·w1)·(x·w3)·w2 (swiglu), in x's dtype: the
-    MLP of either mode on one device (TP's psum, and SP's all-gather and
-    reduce-scatter, are identities; SP's sequence chunks only bound the
-    reference's transients, as rows are independent). Under ``par`` the
-    weights are gathered over their fsdp axes (w1, w3 stay column and w2
-    row shards of ``model``)."""
+def _mlp_core(x, w: Params, kind: str, par: Par = ONE):
+    """gelu(x·w1)·w2, or silu(x·w1)·(x·w3)·w2 (swiglu), in x's dtype, on
+    the weights gathered over their fsdp axes: under a sharded ``par`` w1
+    and w3 stay column and w2 row shards of ``model``, so the result is
+    this rank's partial sum."""
     dtype = x.dtype
     g = lambda n: P.gather_param(getattr(w, n), w.specs[n], dtype, par)
     h = x @ g("w1")
@@ -309,6 +314,16 @@ def mlp_tp(x, w: Params, kind: str = "gelu", par: Par = ONE):
     else:
         h = _gelu(h)
     return h @ g("w2")
+
+
+def mlp_tp(x, w: Params, kind: str = "gelu", par: Par = ONE):
+    """The TP-mode MLP (the reference's ``mlp_tp``): x (B, S, d) replicated
+    over ``model``, the column/row-parallel product, then a psum over
+    ``model``. On one device it is the MLP of either mode (SP's all-gather
+    and reduce-scatter are identities too; SP's sequence chunks only bound
+    the reference's transients, as rows are independent). A decode step
+    takes it in both serving layouts."""
+    return P.psum(_mlp_core(x, w, kind, par), par.mp_axes, par)
 
 
 def mlp_sp(x, w: Params, cfg: ModelConfig, par: Par = ONE):
@@ -326,8 +341,8 @@ def mlp_sp(x, w: Params, cfg: ModelConfig, par: Par = ONE):
 
     def one_chunk(xc):
         xg = P.all_gather(xc, par.mp_axes, 1, par)
-        return P.reduce_scatter(mlp_tp(xg, w, cfg.mlp, par), par.mp_axes, 1,
-                                par)
+        return P.reduce_scatter(_mlp_core(xg, w, cfg.mlp, par), par.mp_axes,
+                                1, par)
 
     if s_loc <= chunk:
         return one_chunk(x)
@@ -676,7 +691,7 @@ def embed_defs(cfg: ModelConfig) -> dict[str, WDef]:
             "head": WDef((d, vp), tp_dim=1)}
 
 
-def embed_tokens(ids, w: Params, dtype, par: Par = ONE):
+def embed_tokens(ids, w: Params, dtype, par: Par = ONE, sp: bool = True):
     """ids: (B, S) → (B, S, d). Rows are gathered, then cast (the reference
     casts the table first; the values are the same). One lookup for both
     modes: on one device the reference's vocab-parallel psum (TP) and
@@ -690,7 +705,9 @@ def embed_tokens(ids, w: Params, dtype, par: Par = ONE):
     (gathered over the fsdp axes in the table's own dtype, so that the rows
     are cast after the lookup as on one device), zeroes the ids outside
     the block, and a reduce-scatter over the sequence sums the blocks'
-    rows and enters sequence parallelism: (B, S/mp, d)."""
+    rows and enters sequence parallelism: (B, S/mp, d). With ``sp=False``
+    (a decode step's token) a psum over ``model`` sums them instead, and
+    every model rank holds the whole (B, S, d)."""
     if par.mesh is None:
         return F.embedding(ids, w.table).to(dtype)
     table = P.gather_param(w.table, w.specs["table"], w.table.dtype, par)
@@ -700,6 +717,8 @@ def embed_tokens(ids, w: Params, dtype, par: Par = ONE):
     rows = F.embedding(local.clamp(0, v_loc - 1), table).to(dtype)
     partial = torch.where(hit[..., None], rows, torch.zeros((), dtype=dtype,
                                                             device=ids.device))
+    if not sp:
+        return P.psum(partial, par.mp_axes, par)
     return P.reduce_scatter(partial, par.mp_axes, 1, par)
 
 

@@ -51,19 +51,22 @@ from repro_torch.models.params import Params, WDef, init_params
 from repro_torch.optim import AdamWState, adamw_init, adamw_update, warmup_cosine
 
 
-def _slot_defs(cfg: ModelConfig, kind: str,
-               cross: bool = False) -> dict[str, dict]:
+def _slot_defs(cfg: ModelConfig, kind: str, cross: bool = False,
+               serve_tp: bool = False) -> dict[str, dict]:
     """Weight declarations of one block, by sublayer (the reference's
     ``_slot_defs`` for the ``attn`` (SP or TP mode), ``rglru`` and ``rwkv``
     kinds). An RWKV block has no ``ffn``: its channel mix is in ``mix``. An
     attention block's ``ffn`` is the MoE where ``cfg.moe`` is set; with
-    ``cross`` (whisper's decoder) it also has ``ln_cross`` and ``cross``."""
+    ``cross`` (whisper's decoder) it also has ``ln_cross`` and ``cross``.
+    ``serve_tp``: the serving-resident layout, whose attention takes the
+    TP placement without a QKV bias (``layers.attn_defs``)."""
     d = cfg.d_model
     if kind == "rwkv":
         return {"ln1": L.norm_defs(d), "ln2": L.norm_defs(d),
                 "mix": L.rwkv_defs(cfg)}
     if kind == "attn":
-        defs = {"ln1": L.norm_defs(d), "mix": L.attn_defs(cfg),
+        defs = {"ln1": L.norm_defs(d),
+                "mix": L.attn_defs(cfg, serve_tp=serve_tp),
                 "ln2": L.norm_defs(d),
                 "ffn": L.moe_defs(cfg) if cfg.moe else L.mlp_defs(cfg)}
         if cross:
@@ -76,14 +79,15 @@ def _slot_defs(cfg: ModelConfig, kind: str,
     raise ValueError(kind)
 
 
-def model_defs(cfg: ModelConfig) -> dict:
+def model_defs(cfg: ModelConfig, serve_tp: bool = False) -> dict:
     """Every weight declaration of ``cfg``'s model, in the module's layout:
     ``embed``, ``final_norm``, ``blocks`` (a list, one block's defs per
     layer) and for whisper ``enc_blocks`` and ``enc_norm``."""
     cross = cfg.family == "encdec"
     defs = {"embed": L.embed_defs(cfg),
             "final_norm": L.norm_defs(cfg.d_model),
-            "blocks": [_slot_defs(cfg, k, cross) for k in layer_kinds(cfg)]}
+            "blocks": [_slot_defs(cfg, k, cross, serve_tp)
+                       for k in layer_kinds(cfg)]}
     if cross:
         enc_cfg = dataclasses.replace(cfg, moe=None)
         defs["enc_blocks"] = [_slot_defs(enc_cfg, "attn")
@@ -93,7 +97,8 @@ def model_defs(cfg: ModelConfig) -> dict:
 
 
 def build_specs(cfg: ModelConfig, mesh_sizes: dict[str, int], mp_axis,
-                exclude_fsdp: tuple[str, ...] = ()) -> dict:
+                exclude_fsdp: tuple[str, ...] = (),
+                serve_tp: bool = False) -> dict:
     """:func:`model_defs` resolved for a mesh (the reference's
     ``build_specs``; its stacked leaf of layer group g, slot s is layer
     g·P + s here, with the same placement, its dimensions one lower)."""
@@ -104,7 +109,7 @@ def build_specs(cfg: ModelConfig, mesh_sizes: dict[str, int], mp_axis,
             return [walk(v) for v in x]
         return {k: walk(v) for k, v in x.items()}
 
-    return walk(model_defs(cfg))
+    return walk(model_defs(cfg, serve_tp))
 
 
 class Block(nn.Module):
@@ -115,10 +120,11 @@ class Block(nn.Module):
     sublayer (default: whole, one device)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device, dtype,
-                 cross: bool = False, specs: dict | None = None):
+                 cross: bool = False, specs: dict | None = None,
+                 serve_tp: bool = False):
         super().__init__()
         self.kind = kind
-        for name, defs in _slot_defs(cfg, kind, cross).items():
+        for name, defs in _slot_defs(cfg, kind, cross, serve_tp).items():
             self.add_module(name, Params(defs, device, dtype,
                                          None if specs is None
                                          else specs[name]))
@@ -126,16 +132,18 @@ class Block(nn.Module):
 
 def check_shardable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config whose sharded paths are
-    not ported: only the SP-mode dense decoders run on a mesh."""
+    not ported: only the SP-mode dense decoders run on a mesh (training,
+    prefill and decode)."""
     if cfg.parallel_mode == "tp":
         raise NotImplementedError(
             f"{cfg.name}: the TP-mode sharded paths (attn_tp, mlp_tp, the "
-            "RG-LRU and RWKV heads over 'model') are ROADMAP queue 1 item "
-            "9f, step 3")
+            "RG-LRU and RWKV heads over 'model', their training and "
+            "serving) are ROADMAP queue 1 item 9f, step 3")
     if cfg.family != "dense" or cfg.moe is not None:
         raise NotImplementedError(
-            f"{cfg.name}: sharded {cfg.family} training (moe_sp's expert-ff "
-            "TP, the encoder's frames over 'model', the VLM's patches) is "
+            f"{cfg.name}: sharded {cfg.family} training and serving "
+            "(moe_sp's expert-ff TP, the encoder's frames over 'model', the "
+            "VLM's patches; the sharded prefill needs that forward) are "
             "ROADMAP queue 1 item 9f, step 2")
 
 
@@ -149,12 +157,14 @@ class LM(nn.Module):
     ``par`` (default the trivial ``Par()``): the axis context the model
     runs under; on a mesh every weight is this rank's shard, placed by
     :func:`build_specs` with ``exclude_fsdp`` (the axes whose gradients are
-    compressed keep the weights replicated). ``specs``: name → WSpec, as
-    ``named_parameters``."""
+    compressed keep the weights replicated; the serving-resident layout
+    excludes the data axes). ``serve_tp``: that layout's attention, Q and
+    O head-parallel over ``model`` and no QKV bias (a serving model
+    only). ``specs``: name → WSpec, as ``named_parameters``."""
 
     def __init__(self, cfg: ModelConfig, device="cuda",
                  dtype=torch.float32, par: Par | None = None,
-                 exclude_fsdp: tuple[str, ...] = ()):
+                 exclude_fsdp: tuple[str, ...] = (), serve_tp: bool = False):
         super().__init__()
         check_supported(cfg)
         par = par or Par()
@@ -162,12 +172,13 @@ class LM(nn.Module):
             check_shardable(cfg)
         dev = resolve_device(device)
         self.cfg, self.par, self.exclude_fsdp = cfg, par, tuple(exclude_fsdp)
+        self.serve_tp = serve_tp
         tree = build_specs(cfg, par.mesh.sizes if par.mesh else {}, par.mp,
-                           self.exclude_fsdp)
+                           self.exclude_fsdp, serve_tp)
         cross = cfg.family == "encdec"
         self.embed = Params(L.embed_defs(cfg), dev, dtype, tree["embed"])
         self.blocks = nn.ModuleList(
-            Block(cfg, kind, dev, dtype, cross, sp)
+            Block(cfg, kind, dev, dtype, cross, sp, serve_tp)
             for kind, sp in zip(layer_kinds(cfg), tree["blocks"]))
         self.final_norm = Params(L.norm_defs(cfg.d_model), dev, dtype,
                                  tree["final_norm"])
@@ -186,15 +197,18 @@ class LM(nn.Module):
 
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
                dtype=torch.float32, par: Par | None = None,
-               exclude_fsdp: tuple[str, ...] = ()) -> LM:
+               exclude_fsdp: tuple[str, ...] = (),
+               serve_tp: bool = False) -> LM:
     """An :class:`LM` with weights drawn by the reference's init rule from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (normals in
     float32, then cast to ``dtype``: a bfloat16 model is the float32 model
     of the same seed, rounded). Under a sharded ``par`` each rank draws
     every logical weight in the same order and keeps its shard: the
-    single-device model of ``seed``, cut up, bit for bit."""
+    single-device model of ``seed``, cut up, bit for bit. With
+    ``serve_tp`` the QKV biases are left out (they draw nothing: they are
+    zero-initialised), so every other weight is still that model's."""
     dev = resolve_device(device)
-    model = LM(cfg, dev, dtype, par, exclude_fsdp)
+    model = LM(cfg, dev, dtype, par, exclude_fsdp, serve_tp)
     init_params(model, torch.Generator(device=dev).manual_seed(seed),
                 model.par)
     return model

@@ -230,7 +230,11 @@ def sharded_save(group, job):
     (a file page holds every rank's columns), and a (3,) leaf replicated
     over ``data`` holding each rank's index (the save keeps the first
     replica's). Returns this rank's restore of the save onto the mesh,
-    its own columns ("mine") and the gathers it made."""
+    its own columns ("mine") and the gathers it made. ``job["late"]``: a
+    rank that makes its Checkpointer (whose constructor sweeps stale
+    tmps from the directory) a second after the others."""
+    import time
+
     from repro_torch.distributed.par import WSpec, local_slice
 
     n, dev = job["ranks"], job["device"]
@@ -245,6 +249,8 @@ def sharded_save(group, job):
             "rep": torch.full((3,), float(mesh.rank), device=dev),
             "step": torch.tensor(5, device=dev)}
     comm.reset_counts()
+    if job.get("late") == mesh.rank:
+        time.sleep(1.0)
     Checkpointer(job["dir"]).save(1, tree, shardings=specs, mesh=mesh,
                                   blocking=True)
     gathers = comm.shard_counts["gather"]

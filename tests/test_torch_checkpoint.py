@@ -493,6 +493,23 @@ def test_sharded_save_gathers_the_logical_arrays_to_rank_zero(tmp_path):
         assert got["gathers"] == 2  # the two leaves with a spec
 
 
+def test_sharded_save_waits_for_every_ranks_sweep(tmp_path):
+    """A rank that makes its Checkpointer late sweeps the directory's
+    stale tmps before rank 0 makes this step's: the save completes and
+    holds the logical arrays."""
+    run_ranks(ranks.sharded_save, 2, backend="gloo", device="cpu",
+              args=({"dir": str(tmp_path), "ranks": 2, "device": "cpu",
+                     "late": 1},))
+    ck = Checkpointer(tmp_path)
+    assert ck.verify(1) == []
+    whole, _ = ck.restore({"cols": torch.zeros(4, 6, dtype=torch.bfloat16),
+                           "rep": torch.zeros(3), "step": torch.tensor(0)},
+                          step=1)
+    full = (torch.arange(24, dtype=torch.float32).reshape(4, 6) / 7).to(
+        torch.bfloat16)
+    assert torch.equal(whole["cols"], full)
+
+
 def test_restore_places_leaves_on_the_asked_device(tmp_path, monkeypatch):
     ck = Checkpointer(tmp_path)
     ck.save(1, _tree(), blocking=True)

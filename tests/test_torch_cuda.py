@@ -1985,3 +1985,111 @@ def test_one_nccl_rank_sharded_save_is_the_logical_array(dev, tmp_path):
     assert torch.equal(whole["cols"], full) and int(whole["step"]) == 5
     assert np.array_equal(got["cols"], full.float().numpy())
     assert got["rep"].tolist() == [0.0, 0.0, 0.0] and got["gathers"] == 2
+
+
+# ---------------------------------------------------------------------------
+# The sharded prefill and decode: the merge of the kernel's blocks on the
+# card, one NCCL rank, 4 gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("t", [70, 20])
+def test_decode_attention_merge_of_blocks_on_card(dev, t):
+    """The kernel on each of 3 blocks of one ring, merged by the ranks'
+    formula, against the plain version over the whole ring (t = 20: the
+    last two blocks wholly empty)."""
+    g = torch.Generator().manual_seed(29)
+    b, h, hk, d, w_loc = 2, 24, 8, 128, 32
+    w = 3 * w_loc
+    q = torch.randn(b, h, d, generator=g).to(dev)
+    k = torch.randn(b, w, hk, d, generator=g).to(torch.bfloat16).to(dev)
+    v = torch.randn(b, w, hk, d, generator=g).to(torch.bfloat16).to(dev)
+    pos = torch.where(torch.arange(w) <= t, torch.arange(w), -1).to(
+        torch.int32).to(dev)
+    before = aops.launch_count
+    parts = [aops.decode_attention(q, k[:, i:i + w_loc].contiguous(),
+                                   v[:, i:i + w_loc].contiguous(),
+                                   pos[i:i + w_loc].contiguous(), t)
+             for i in range(0, w, w_loc)]
+    assert aops.launch_count == before + 3
+    got = aops.merge_stacked(*(torch.stack(x) for x in zip(*parts)))
+    want = decode_attention_ref(q, k, v, pos, t)[0]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _serve_single(cfg, dev, prompt, feed_len, seq):
+    """The single-device prefill of ``prompt`` and ``feed_len`` greedy
+    steps (float32, bf16 ring): hidden, logits, tokens, final cache."""
+    model = T.init_model(cfg, 0, dev)
+    cache, h = SV.prefill(model, prompt, seq, torch.float32)
+    tok = torch.as_tensor(prompt[:, -1:])  # any token: fed to both runs
+    feed, logits, toks = [], [], []
+    for _ in range(feed_len):
+        feed.append(tok.cpu().numpy())
+        tok, lg, cache = SV.decode_step(model, cache, tok, seq, torch.float32)
+        logits.append(lg)
+        toks.append(tok)
+    return h, logits, toks, cache, feed
+
+
+def test_one_nccl_rank_sharded_serve_is_bitwise_single_device(dev):
+    """The reduced llama twin on a (1, 1) mesh of one NCCL rank: the
+    sharded prefill's hidden and 5 decode steps' logits, tokens and cache
+    bit for bit the single device's; one decode-attention launch a layer
+    a step."""
+    import _torch_serve_ranks as ranks
+    from repro_torch.distributed.launch import single_rank
+
+    cfg = get_reduced("llama3.2-3b")
+    prompt = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (4, 28)), device=dev)
+    h, logits, toks, cache, feed = _serve_single(cfg, dev, prompt, 5, 32)
+    with single_rank("nccl", "cuda"):
+        got = ranks.serve(None, dict(
+            arch="llama3.2-3b", device="cuda", mesh=((1, 1), ("data", "model")),
+            seq_len=32, batch=4, prompt=prompt.cpu().numpy(), feed=feed))
+    assert got["launches"] == [cfg.n_layers] * 5
+    assert np.array_equal(got["hidden"], h.float().cpu().numpy())
+    for a, b in zip(got["logits"], logits):
+        assert np.array_equal(a, b.cpu().numpy())
+    for a, b in zip(got["tokens"], toks):
+        assert np.array_equal(a, b.cpu().numpy())
+    for g_, w_ in zip(got["cache"]["layers"], cache["layers"]):
+        for n in g_:
+            assert np.array_equal(g_[n], w_[n].float().cpu().numpy()), n
+
+
+def test_four_gloo_ranks_sharded_serve_on_card(dev):
+    """4 gloo ranks over CUDA tensors on the card, mesh (2, 2): the fsdp
+    prefill and 5 decode steps, and the tp layout's 5 steps from an empty
+    cache, against the single device (float32; logits to 5e-4, the bf16
+    rings within one ulp); one decode-attention launch a layer a step on
+    every rank."""
+    import _torch_serve_ranks as ranks
+    from repro_torch.distributed.launch import run_ranks
+
+    cfg = get_reduced("llama3.2-3b")
+    prompt = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (4, 28)), device=dev)
+    h, logits, _, _, feed = _serve_single(cfg, dev, prompt, 5, 32)
+    model = T.init_model(cfg, 0, dev)
+    cache = SV.init_cache(cfg, 4, 32, torch.bfloat16, dev)
+    tp_logits = []
+    for tok in feed:
+        _, lg, cache = SV.decode_step(model, cache, torch.as_tensor(
+            tok, device=dev), 32, torch.float32)
+        tp_logits.append(lg)
+    base = dict(arch="llama3.2-3b", device="cuda", seq_len=32, batch=4,
+                mesh=((2, 2), ("data", "model")), feed=feed)
+    jobs = [("serve", dict(base, prompt=prompt.cpu().numpy())),
+            ("serve", dict(base, layout="tp"))]
+    outs = run_ranks(ranks.many, 4, backend="gloo", device="cuda",
+                     args=(jobs,))
+    for fsdp, tp in outs:
+        assert fsdp["launches"] == tp["launches"] == [cfg.n_layers] * 5
+        np.testing.assert_allclose(fsdp["hidden"], h.cpu().numpy(), rtol=0,
+                                   atol=1e-5)
+        for got, want in ((fsdp, logits), (tp, tp_logits)):
+            for a, b in zip(got["logits"], want):
+                np.testing.assert_allclose(a, b.cpu().numpy(), rtol=0,
+                                           atol=5e-4)
