@@ -10,7 +10,9 @@ dense decoder (llama3.2-3b, qwen2-7b, stablelm-1.6b, qwen1.5-110b), MoE
 (mixtral-8x7b, arctic-480b), encoder-decoder (whisper-tiny) and VLM
 (llava-next-mistral-7b) LM serving paths, FlyMC over llama3.2-3b's LM
 head, and the
-recurrentgemma-9b, SP-mode, rwkv6-7b and sharded training steps — each
+recurrentgemma-9b, SP-mode, rwkv6-7b and sharded training steps, and the
+sharded serving of the dense decoders and of the MoE, encoder-decoder and
+VLM families — each
 with its kernels (six sources;
 ``rglru_scan.cu`` holds a forward and a backward kernel, ``bright_glm.cu``
 a register and a wide softmax kernel):
@@ -281,17 +283,39 @@ a register and a wide softmax kernel):
 20. runs the sharded prefill and decode (``sharded_serve_path``,
    ``launch.steps.make_sharded_prefill`` and ``make_sharded_decode``) of
    llama3.2-3b at its published width, float32 compute, bf16 rings: the
-   training layout at 8 of 28 layers (4 prompts of 2,048 tokens into
+   training layout at 4 of 28 layers (4 prompts of 2,048 tokens into
    2,064 slots, then 8 greedy steps) on one NCCL rank on mesh (1, 1),
    bitwise the single device, and on 4 gloo ranks on (data=2, model=2)
    within 1% of its largest values; the serving-resident layout at all 28
-   layers on the same ranks from an empty cache, 16 forced and 8 greedy
+   layers on the same ranks from an empty cache, 8 forced and 4 greedy
    steps, against the single device; one ``decode_attention`` launch a
    layer a step on every rank (the kernel at a rank's ring block and at
    the tp ring against its plain version and ``sdpa``, and the blocks'
    merge against the whole ring on the card, run with the kernel phases:
    ``sharded_attention_phases``). Prints prefill ms, decode ms/token, the
-   collectives of a step, peak memory a rank.
+   collectives of a step, peak memory a rank;
+21. runs the sharded MoE, encoder-decoder and VLM families
+   (``sharded_family_path``, ``FAMILY_SHARDED``) at full width:
+   mixtral-8x7b cut to 1 of 32 layers, whisper-tiny whole (1,504 frames,
+   752 a model rank), llava-next-mistral-7b cut to 2 of 32 (576 patch
+   rows). Training (bf16, remat, 2 × 2048 tokens, 2 steps) on one device,
+   mixtral's also on one NCCL rank on (1, 1), bitwise; then one spawn of
+   4 gloo ranks on (data=2, model=2) runs each family's training (step 1
+   against the single device's objective, each data rank's rows through
+   the loss on their own: loss, nll, ``lb_loss`` and ``drop_frac`` of
+   every rank, and grad_norm), its fsdp prefill and greedy steps and its
+   tp steps from an empty cache (whisper's cross K/V the single device's
+   prefill's) against the single device (float32 compute, bf16 rings;
+   mixtral served at capacity factor E/k, where no pair drops); one
+   ``fused_ce`` launch a train step a rank, ``decode_attention`` once a
+   layer a decode step a rank (twice for whisper: its block of the cross
+   K/V, merged over ``model``). With the kernel phases
+   (``family_shard_kernel_phases``): ``decode_attention`` on a rank's
+   block of mixtral's window ring and of whisper's cross K/V, the cross
+   blocks' merge against the whole cross cache, and ``fused_ce`` on half
+   of mixtral's and whisper's heads. Prints step and token ms, peak memory
+   a rank, the collectives a step, launches, the gaps and the tokens
+   compared.
 
 Any failure raises (nonzero exit, no result line). The build's ptxas
 registers, shared memory and spills are printed per kernel. The last two
@@ -481,23 +505,55 @@ COMPRESS_LAYERS, COMPRESS_STEPS = 2, 3
 COMPRESS_KW = dict(peak_lr=1e-3)  # tests/test_distributed_training.py's
 SHARDED_TIMEOUT_S = 900
 # The sharded prefill and decode (sharded_serve_path): llama3.2-3b at full
-# width, seed 0. The training layout ("fsdp") at 8
+# width, seed 0. The training layout ("fsdp") at 4
 # of 28 layers: 4 prompts of 2,048 tokens into a 2,064-slot ring (1,032
 # slots a rank on model = 2), then 8 greedy tokens; one NCCL rank on
 # (1, 1), then 4 gloo ranks on (data=2, model=2). The serving-resident
 # layout ("tp", bf16 weights) at all 28 layers on (2, 2) from an empty
-# cache: 16 teacher-forced steps, then 8 greedy ones. Rings in bf16;
+# cache: 8 teacher-forced steps, then 4 greedy ones. Rings in bf16;
 # compute in float32 (SERVE_DTYPE), so that the 4-rank runs can be held to
 # the single device's at SERVE_TOL of the largest reference value: in bf16
 # the ranks' sums in another order drift by ~1 ulp a layer (1.2% of the
 # largest logit at 2 layers in a CPU run), as far as a wrong merge would.
-SERVE_FSDP_LAYERS, SERVE_BATCH = 8, 4
+# (fsdp at 8 layers, tp 16 + 8 steps until the sharded families' path
+# joined the smoke.)
+SERVE_FSDP_LAYERS, SERVE_BATCH = 4, 4
 SERVE_PROMPT, SERVE_SEQ, SERVE_GEN = 2048, 2064, 8
-SERVE_TP_FORCED, SERVE_TP_GREEDY = 16, 8
+SERVE_TP_FORCED, SERVE_TP_GREEDY = 8, 4
 SERVE_DTYPE, SERVE_TOL = torch.float32, 1e-2
 # The new LM heads of fused_ce on the SP path (d_model, padded vocab come
 # from these configs; llava's is mixtral's): T = SP_BATCH × (SP_SEQ − 1).
 SP_HEADS = ("llama3.2-3b", "mixtral-8x7b", "qwen1.5-110b", "whisper-tiny")
+# The sharded MoE, encoder-decoder and VLM families (sharded_family_path),
+# full published widths, seed 0, on one spawn of 4 gloo ranks (data=2,
+# model=2): (arch, layers or None for all, serving prompt, ring, greedy
+# tokens). mixtral-8x7b cut to 1 of 32 layers (1.41 B expert parameters;
+# 27.5 GB of training state over the ranks), its ring its 4,096-slot
+# window (2,048 slots a model rank); whisper-tiny whole (1,504 frames, 752 a
+# model rank), a 64-token prompt; llava-next-mistral-7b cut to 2 of 32
+# layers, 576 patch rows in a 2,048-token prompt. Training as
+# sharded_train_path (bf16 compute, f32 master weights, remat, warmup 1):
+# SP_BATCH × FAMILY_TRAIN_SEQ tokens, FAMILY_TRAIN_STEPS steps; mixtral at
+# its own capacity factor, on one NCCL rank bitwise the single device.
+# Serving as sharded_serve_path (float32 compute, bf16 rings, batch
+# SERVE_BATCH): fsdp prefill and greedy steps, tp FAMILY_TP_FORCED forced
+# then FAMILY_TP_GREEDY greedy steps from an empty cache (whisper's
+# ck/cv from the single device's prefill); mixtral served at capacity
+# factor FAMILY_NO_DROP_CF = E/k, so that no pair drops and the ranks'
+# calls (B/dp rows each) compute what the single device's does.
+FAMILY_SHARDED = (("mixtral-8x7b", 1, 2048, 4160, 4),
+                  ("whisper-tiny", None, 64, 80, 8),
+                  ("llava-next-mistral-7b", 2, 2048, 2064, 4))
+FAMILY_TRAIN_SEQ, FAMILY_TRAIN_STEPS = 2048, 2
+FAMILY_TP_FORCED, FAMILY_TP_GREEDY = 2, 2
+FAMILY_NO_DROP_CF = 4.0
+# A (2, 2) run's step 1 against the single device's objective of the same
+# weights (each data rank's rows through loss_fn on their own, the MoE
+# calls seeing those rows' tokens as the ranks' do): loss, nll and lb_loss
+# relative (bf16 compute, the dense path's bound), drop_frac absolute (a
+# few of 4,096 pairs: a routing decision within bf16 rounding of a tie may
+# go the other way), grad_norm relative.
+FAMILY_LOSS_TOL, FAMILY_DROP_TOL, FAMILY_GNORM_TOL = 2e-3, 2e-3, 1e-2
 
 
 def log(msg: str) -> None:
@@ -4436,10 +4492,11 @@ def _sharded_rank(group, job):
     return out
 
 
-def fused_ce_shard_phase(dev):
-    """``fused_ce`` at a vocabulary shard, the sharded step's call: T =
-    SHARDED_BATCH × SHARDED_SEQ rows (mesh (1, 2)'s), D = 3,072, V/2 =
-    64,128 columns of llama3.2-3b's head, bf16 in the path's rounding mode.
+def fused_ce_shard_phase(dev, cfg=None, t=None, name="vocab-shard"):
+    """``fused_ce`` at a vocabulary shard, the sharded step's call: by
+    default T = SHARDED_BATCH × SHARDED_SEQ rows (mesh (1, 2)'s), D = 3,072,
+    V/2 = 64,128 columns of llama3.2-3b's head (else ``cfg``'s head halved,
+    ``t`` rows), bf16 in the path's rounding mode.
     Both shards against their plain version (labels shifted into each
     block; a label of the other block gives a target of exactly 0), and
     the two shards' merged (lse, target), M + log Σ exp(lse_r − M) and
@@ -4451,8 +4508,9 @@ def fused_ce_shard_phase(dev):
     from repro_torch.kernels.fused_ce import ops
     from repro_torch.kernels.fused_ce.ref import fused_ce_ref
 
-    cfg = _sharded_cfg(1)
-    t, d, v = SHARDED_BATCH * SHARDED_SEQ, cfg.d_model, cfg.padded_vocab()
+    cfg = cfg or _sharded_cfg(1)
+    t = t or SHARDED_BATCH * SHARDED_SEQ
+    d, v = cfg.d_model, cfg.padded_vocab()
     vb = v // 2
     gen = torch.Generator(device=dev).manual_seed(28)
     x = torch.randn(t, d, generator=gen, device=dev).to(torch.bfloat16)
@@ -4502,7 +4560,7 @@ def fused_ce_shard_phase(dev):
                        reps=5, warm=1)
     b_ms, b_by = bound(t * d * 2 + d * vb * 2 + t * 8 + t * 8,
                        2.0 * t * d * vb, BF16_FLOP_PER_S)
-    log(f"fused_ce[shard: T={t} D={d} V/2={vb} bf16, bf16 logits] max|Δ| vs "
+    log(f"fused_ce[{name}: T={t} D={d} V/2={vb} bf16, bf16 logits] max|Δ| vs "
         f"plain {err:.3g} ({flipped:.2g} of the tokens beyond 1e-4), merged "
         f"shards vs the whole head max|Δ| {merge_err:.3g}; call {ms:.4f} ms "
         f"(device {dev_ms:.6f} ms, {2.0 * t * d * vb / dev_ms / 1e9:.1f} "
@@ -4510,7 +4568,7 @@ def fused_ce_shard_phase(dev):
         f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); {card_line()}")
     del x, w0
     torch.cuda.empty_cache()
-    return {"phase": "vocab-shard", "T": t, "D": d, "V": vb,
+    return {"phase": name, "T": t, "D": d, "V": vb,
             "dtype": "bfloat16", "round_logits": True,
             "max_abs_err": max(err, merge_err), "merge_max_abs_err": merge_err,
             "ms": dev_ms, "call_ms": ms, "plain_ms": plain, "bound_ms": b_ms,
@@ -4756,29 +4814,41 @@ def _decode_run(step, model, cache, feed, greedy: int = 0):
 
 
 def _one_device_serve(cfg, dev, prompt=None, forced=(), greedy=None,
-                      param_dtype=torch.float32):
+                      param_dtype=torch.float32, seq=None, gen=None,
+                      frontend=None, cross=None):
     """The single device: ``cfg``'s model of SHARDED_SEED (weights in
-    ``param_dtype``, SERVE_DTYPE compute, bf16 ring). With ``prompt``: its
-    prefill, the first token (the argmax of the last row's logits) and
-    SERVE_GEN steps from it, greedy; else ``forced``'s steps from an empty
-    cache, then ``greedy`` more."""
+    ``param_dtype``, SERVE_DTYPE compute, bf16 ring of ``seq`` positions,
+    by default SERVE_SEQ). With ``prompt`` (and ``frontend``: whisper's
+    frames or llava's patches): its prefill, the first token (the argmax
+    of the last row's logits) and ``gen`` (SERVE_GEN) steps from it,
+    greedy; else ``forced``'s steps from an empty cache (whisper's
+    ``ck``/``cv`` from ``cross``, a (ck, cv) a layer), then ``greedy``
+    more."""
     from repro_torch.models import serving as SV
     from repro_torch.models import transformer as T
 
     dt, bf = SERVE_DTYPE, torch.bfloat16
+    seq, gen = seq or SERVE_SEQ, gen or SERVE_GEN
     torch.cuda.reset_peak_memory_stats(dev)
     model = T.init_model(cfg, SHARDED_SEED, dev, param_dtype)
-    step = lambda m, c, t: SV.decode_step(m, c, t, SERVE_SEQ, dt)
+    step = lambda m, c, t: SV.decode_step(m, c, t, seq, dt)
     out = {}
     if prompt is not None:
         (cache, h), out["prefill_ms"] = _timed(
-            lambda: SV.prefill(model, prompt, SERVE_SEQ, dt, bf))
+            lambda: SV.prefill(model, prompt, seq, dt, bf,
+                               **(frontend or {})))
         out["hidden"] = h
         out["tok0"] = SV.vocab_parallel_argmax(
             (h[:, -1:] @ model.embed.head.to(dt)).float())
-        forced, greedy = [out["tok0"]], SERVE_GEN - 1
+        if cfg.family == "encdec":
+            out["cross"] = [(c["ck"].cpu(), c["cv"].cpu())
+                            for c in cache["layers"]]
+        forced, greedy = [out["tok0"]], gen - 1
     else:
-        cache = SV.init_cache(cfg, forced[0].shape[0], SERVE_SEQ, bf, dev)
+        cache = SV.init_cache(cfg, forced[0].shape[0], seq, bf, dev)
+        for c, (ck, cv) in zip(cache["layers"], cross or ()):
+            c["ck"].copy_(ck)
+            c["cv"].copy_(cv)
     run, cache = _decode_run(step, model, cache, forced, greedy)
     del model
     return out | run | {"cache": cache["layers"],
@@ -4788,10 +4858,14 @@ def _one_device_serve(cfg, dev, prompt=None, forced=(), greedy=None,
 
 def _sharded_serve(job, dev, ref=None):
     """The port's sharded serving on mesh ``job["mesh"]`` (every rank calls
-    it). fsdp: the prefill of ``job["prompt"]`` at ``job["layers"]``
-    layers, the first token from the gathered hidden's last row, then a
-    step for each token of ``job["feed"]``; tp: ``job["feed"]``'s steps
-    from an empty cache. Returns the logical hidden, first token, logits
+    it), of ``job["cfg"]`` (default llama3.2-3b at ``job["layers"]``
+    layers) with a ring of ``job["seq"]`` (default SERVE_SEQ) positions.
+    fsdp: the prefill of ``job["prompt"]`` (with ``job["frontend"]``'s
+    frames or patches), the first token from the gathered hidden's last
+    row, then a step for each token of ``job["feed"]``; tp:
+    ``job["feed"]``'s steps from an empty cache (whisper's ``ck``/``cv``
+    the rank's shards of ``job["cross"]``, a logical (ck, cv) a layer).
+    Returns the logical hidden, first token, logits
     and tokens a step and final cache, with the times, launches,
     collectives and peak memory; with ``ref`` (the single device's run of
     the same weights) the gaps to it on mesh rank 0 instead of the
@@ -4804,21 +4878,30 @@ def _sharded_serve(job, dev, ref=None):
     from repro_torch.models.config import ShapeConfig
 
     dt = SERVE_DTYPE
-    cfg = _sharded_cfg(job["layers"])
+    cfg = job.get("cfg") or _sharded_cfg(job["layers"])
+    seq = job.get("seq", SERVE_SEQ)
     mesh = make_mesh(*job["mesh"])
     par = make_par(mesh)
     step, specs, build = make_sharded_decode(
-        cfg, mesh, ShapeConfig("decode", SERVE_SEQ, SERVE_BATCH, "decode"),
+        cfg, mesh, ShapeConfig("decode", seq, SERVE_BATCH, "decode"),
         dt, job["layout"])
     torch.cuda.reset_peak_memory_stats(dev)
     (model, cache), build_ms = _timed(lambda: build(SHARDED_SEED, dev))
     out = {"rank": mesh.rank, "build_ms": build_ms}
+    for c, sp, (ck, cv) in zip(cache["layers"], specs["cache"]["layers"],
+                               job.get("cross") or ()):
+        c["ck"].copy_(P.local_slice(ck, sp["ck"], par))
+        c["cv"].copy_(P.local_slice(cv, sp["cv"], par))
     if job["layout"] == "fsdp":
         pstep, pspecs, _ = make_sharded_prefill(
-            cfg, mesh, ShapeConfig("prefill", SERVE_SEQ, SERVE_BATCH,
-                                   "prefill"), dt)
+            cfg, mesh, ShapeConfig("prefill", seq, SERVE_BATCH, "prefill"),
+            dt)
         prompt = torch.as_tensor(job["prompt"], device=dev)
-        (cache, h), out["prefill_ms"] = _timed(lambda: pstep(model, prompt))
+        front = {k: torch.as_tensor(v, device=dev)
+                 for k, v in (job.get("frontend") or {}).items()}
+        (cache, h), out["prefill_ms"] = _timed(
+            lambda: pstep(model, prompt, **front))
+        del front
         out["hidden"] = P.gather_logical(h, pspecs["out"], par)
         head = P.gather_param(model.embed.head, model.embed.specs["head"], dt,
                               par)
@@ -4867,7 +4950,7 @@ def _serve_gaps(got, ref) -> dict:
                 for a, b, c in zip(got["tokens"], ref["tokens"], clear)),
             "kv": max(_rel_gap(g[n], w[n]) for g, w in zip(got["cache"],
                                                            ref["cache"])
-                      for n in ("k", "v")),
+                      for n in g if n != "pos"),
             "pos_equal": all(torch.equal(g["pos"], w["pos"])
                              for g, w in zip(got["cache"], ref["cache"]))}
     if "hidden" in ref:
@@ -4992,13 +5075,13 @@ def sharded_serve_path(dev):
 
     card = card_line()
     axes = ("data", "model")
-    cfg8 = _sharded_cfg(SERVE_FSDP_LAYERS)
+    cfg_fsdp = _sharded_cfg(SERVE_FSDP_LAYERS)
     n_all = get_config(SHARDED_ARCH).n_layers
-    prompt, forced = _serve_tokens(cfg8)
+    prompt, forced = _serve_tokens(cfg_fsdp)
 
     # (a) one device, then one NCCL rank on (1, 1)
     torch.cuda.empty_cache()
-    one = _one_device_serve(cfg8, dev, prompt=prompt.to(dev))
+    one = _one_device_serve(cfg_fsdp, dev, prompt=prompt.to(dev))
     fsdp_job = dict(layers=SERVE_FSDP_LAYERS, layout="fsdp",
                     prompt=prompt.numpy(),
                     feed=[t.cpu().numpy()
@@ -5061,11 +5144,11 @@ def sharded_serve_path(dev):
         ref_path.unlink(missing_ok=True)
     ranks_s = time.perf_counter() - t0
     r0 = next(o for o in outs if o["fsdp"]["rank"] == 0)
-    hd = cfg8.resolved_head_dim
-    want_ring = {"fsdp": (SERVE_BATCH // 2, SERVE_SEQ // 2, cfg8.n_kv_heads,
-                          hd),
+    hd = cfg_fsdp.resolved_head_dim
+    want_ring = {"fsdp": (SERVE_BATCH // 2, SERVE_SEQ // 2,
+                          cfg_fsdp.n_kv_heads, hd),
                  "tp": (SERVE_BATCH // 2, SERVE_SEQ,
-                        serve_kv_heads(cfg8, 2), hd)}
+                        serve_kv_heads(cfg_fsdp, 2), hd)}
     for name, layers, label in (("fsdp", SERVE_FSDP_LAYERS, "(b)"),
                                 ("tp", n_all, "(c)")):
         g = r0[name]
@@ -5096,6 +5179,436 @@ def sharded_serve_path(dev):
             f"{[round(statistics.median(o[name]['ms']), 3) for o in outs]}")
     log(f"sharded serve: ranks' wall {ranks_s:.1f} s")
     return launches
+
+
+def _family_cfg(arch: str, layers, no_drop: bool = False):
+    """``arch``'s published config cut to ``layers`` (None: all); with
+    ``no_drop`` an MoE's capacity factor FAMILY_NO_DROP_CF."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if no_drop and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=FAMILY_NO_DROP_CF))
+    return cfg
+
+
+def _family_inputs(cfg, b: int, s: int, seed: int, labels: bool) -> dict:
+    """Token ids (b, s) (and labels), and whisper's frames (b, S_enc, d) or
+    llava's patches (b, P, d) at 0.1·N(0, 1), from a seeded CPU
+    generator, as numpy (the ranks take them so)."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                   generator=gen).numpy()}
+    if labels:
+        out["labels"] = torch.randint(0, cfg.vocab_size, (b, s),
+                                      generator=gen).numpy()
+    rows = {"encdec": ("frames", cfg.encoder_seq),
+            "vlm": ("patches", cfg.patch_positions)}.get(cfg.family)
+    if rows:
+        out[rows[0]] = (0.1 * torch.randn(b, rows[1], cfg.d_model,
+                                          generator=gen)).numpy()
+    return out
+
+
+def _family_rank(group, job):
+    """One of the 4 gloo ranks: for each family, FAMILY_TRAIN_STEPS
+    sharded train steps on (2, 2) from the seed, then the fsdp and tp
+    serving runs against the single device's (the parent's, saved to
+    ``job["ref"]``, read by rank 0 alone). Returns host values."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_sharded_train_step
+    from repro_torch.models.config import ShapeConfig
+
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    refs = (torch.load(job["ref"], map_location="cpu", weights_only=False)
+            if dist.get_rank() == 0 else {})
+    mesh = make_mesh((2, 2), ("data", "model"))
+    out = {}
+    for fam in job["families"]:
+        arch, res = fam["arch"], {}
+        t0 = time.perf_counter()
+        cfg = _family_cfg(arch, fam["layers"])
+        shape = ShapeConfig("family", FAMILY_TRAIN_SEQ, SP_BATCH, "train")
+        step, _, build = make_sharded_train_step(
+            cfg, mesh, shape, torch.bfloat16, remat=True, **SHARDED_KW)
+        torch.cuda.reset_peak_memory_stats(dev)
+        model, opt = build(SHARDED_SEED, dev)
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in fam["batch"].items()}
+        res["train"] = _timed_steps(step, model, opt, batch,
+                                    FAMILY_TRAIN_STEPS)
+        res["train_peak"] = torch.cuda.max_memory_allocated(dev)
+        del model, opt, batch, step, build
+        torch.cuda.empty_cache()
+        res["train_s"] = time.perf_counter() - t0
+        ref = refs.pop(arch, None)
+        for name in ("fsdp", "tp"):
+            t0 = time.perf_counter()
+            res[name] = _sharded_serve(fam[name], dev,
+                                       _to(ref[name], dev) if ref else {})
+            res[name + "_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        if mesh.rank == 0:
+            log(f"  family rank 0: {arch} done ({res['train_s']:.1f} s "
+                f"training, {res['fsdp_s']:.1f} s fsdp, {res['tp_s']:.1f} s "
+                "tp)")
+        out[arch] = res
+    return out
+
+
+def _to(tree, dev):
+    """``tree`` (dicts, lists, tuples of tensors) moved to ``dev``."""
+    if torch.is_tensor(tree):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree
+
+
+def family_shard_kernel_phases(dev):
+    """The kernels at the sharded families' new shapes, run with the
+    kernel phases: ``decode_attention`` on model rank 0's block of
+    mixtral's window ring (B = SERVE_BATCH / 2 rows a data rank, H = 32,
+    Hk = 8, D = 128, 2,048 of 4,096 slots, window 4,096, at the fsdp
+    run's last step) and on a model rank's block of whisper's cross K/V
+    (H = Hk = 6, D = 64, 752 of 1,504 positions, t = 10^9), each beside
+    its plain version and ``sdpa``; the cross blocks' merge on the card
+    against the kernel over the whole cross cache; ``fused_ce`` at a
+    (2, 2) rank's call (T = FAMILY_TRAIN_SEQ rows: one row of the data
+    rank, gathered over ``model``) on half of mixtral's and of whisper's
+    heads, (D, V/2) = (4,096, 16,000) and (384, 25,984)."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.models.serving import CROSS_T
+
+    gen = torch.Generator().manual_seed(30)
+    bf = torch.bfloat16
+    mix = _family_cfg("mixtral-8x7b", 1)
+    whi = _family_cfg("whisper-tiny", None)
+    _, _, prompt, seq, gen_n = FAMILY_SHARDED[0]
+    w = min(mix.swa_window, seq)
+    t = prompt + gen_n - 1
+    b = SERVE_BATCH // 2
+    attn = [decode_attention_phase(
+        "sharded-mixtral-window-block", b, mix.n_heads, mix.n_kv_heads,
+        mix.resolved_head_dim, w // 2, t, mix.swa_window, bf, dev, gen,
+        pos=_ring_pos(w, t, dev)[:w // 2])]
+    loc = whi.encoder_seq // 2
+    attn.append(decode_attention_phase(
+        "sharded-whisper-cross-block", b, whi.n_heads, whi.n_kv_heads,
+        whi.resolved_head_dim, loc, CROSS_T, None, bf, dev, gen,
+        pos=torch.arange(loc, dtype=torch.int32)))
+    h, hk, d = whi.n_heads, whi.n_kv_heads, whi.resolved_head_dim
+    q = torch.randn(b, h, d, generator=gen).to(dev)
+    k = torch.randn(b, 2 * loc, hk, d, generator=gen).to(bf).to(dev)
+    v = torch.randn(b, 2 * loc, hk, d, generator=gen).to(bf).to(dev)
+    pos = torch.arange(loc, dtype=torch.int32, device=dev)
+    parts = [ops.decode_attention(q, k[:, i:i + loc].contiguous(),
+                                  v[:, i:i + loc].contiguous(), pos, CROSS_T)
+             for i in (0, loc)]
+    merged = ops.merge_stacked(*(torch.stack(x) for x in zip(*parts)))
+    whole = ops.decode_attention(q, k, v, torch.arange(
+        2 * loc, dtype=torch.int32, device=dev), CROSS_T)[0]
+    torch.cuda.synchronize()
+    merge_err = float((merged - whole).abs().max())
+    if not merge_err <= 1e-6:
+        raise AssertionError(f"decode_attention: whisper's cross blocks "
+                             f"merged vs the whole cross cache max|Δ| "
+                             f"{merge_err:.3g} (limit 1e-6)")
+    log(f"decode_attention[cross merge: B={b} H={h} Hk={hk} D={d}, 2 blocks "
+        f"of {loc} positions]: merged vs the kernel over the whole cross "
+        f"cache max|Δ| {merge_err:.3g}; {card_line()}")
+    for p in attn:
+        p["merge_max_abs_err"] = merge_err
+    ce = [fused_ce_shard_phase(dev, c, FAMILY_TRAIN_SEQ, f"vocab-shard-{n}")
+          for n, c in (("mixtral", mix), ("whisper", whi))]
+    return attn, ce
+
+
+def _data_rank_objective(model, batch, dp: int):
+    """The (2, 2) train step's objective on one device at ``model``'s
+    weights: each of the ``dp`` data ranks' rows through ``loss_fn`` on
+    their own (bf16, remat), so that an MoE call sees the tokens the
+    ranks' calls see. Returns (each data rank's metrics, the gradient norm
+    of the mean of their losses); the weights are left as they were."""
+    from repro_torch.models import transformer as T
+
+    rows = batch["tokens"].shape[0] // dp
+    params = dict(model.named_parameters())
+    per = []
+    with torch.enable_grad():
+        for d in range(dp):
+            part = {k: v[d * rows:(d + 1) * rows] for k, v in batch.items()}
+            loss, m = T.loss_fn(model, part, torch.bfloat16, remat=True)
+            (loss / dp).backward()
+            per.append({k: float(v.detach()) for k, v in m.items()})
+    gnorm = float(T.global_grad_norm({n: p.grad for n, p in params.items()},
+                                     model.specs, model.par))
+    for p in params.values():
+        p.grad = None
+    return per, gnorm
+
+
+def _train_line(name, steps, card) -> str:
+    return (f"{name} [{card}]: loss {[round(s['loss'], 6) for s in steps]}, "
+            f"nll {[round(s['nll'], 6) for s in steps]}, lb_loss "
+            f"{[round(s['lb_loss'], 6) for s in steps]}, drop_frac "
+            f"{[round(s['drop_frac'], 6) for s in steps]}, grad_norm "
+            f"{[round(s['grad_norm'], 6) for s in steps]}, step ms "
+            f"{[round(s['ms'], 1) for s in steps]}, fused_ce a step "
+            f"{sorted({s['fused_ce'] for s in steps})}, collectives of the "
+            f"last step {steps[-1]['collectives']}")
+
+
+def sharded_family_path(dev):
+    """The sharded MoE, encoder-decoder and VLM families
+    (``launch.steps.make_sharded_train_step``, ``make_sharded_prefill``,
+    ``make_sharded_decode``) at full width (``FAMILY_SHARDED``):
+
+    (a) training, on the single device FAMILY_TRAIN_STEPS steps of each
+        family; mixtral's also on one NCCL rank on mesh (1, 1), loss,
+        lb_loss, drop_frac and grad_norm bitwise and every weight and
+        moment by :func:`_leaf_digest`;
+    (b) serving on the single device: the fsdp prefill and greedy steps
+        (f32 weights), and the tp steps from an empty cache (bf16
+        weights; whisper's ``ck``/``cv`` the fsdp prefill's);
+    (c) one spawn of 4 gloo ranks over CUDA tensors on (data=2, model=2):
+        per family FAMILY_TRAIN_STEPS train steps (step 1's loss within
+        FAMILY_LOSS_TOL and grad_norm within FAMILY_GNORM_TOL of (a)'s:
+        whisper and llava the same objective; mixtral's drops and its
+        ``lb_loss`` of each data rank's rows differ from one device's;
+        one ``fused_ce`` launch a step a rank, on its vocabulary shard);
+        then the fsdp and tp serving runs against (b): the hidden, each
+        step's logits and the first and last layers' K/V (whisper's
+        ``ck``/``cv`` too) within SERVE_TOL of (b)'s largest value, ring
+        positions and the first token equal, every decided token equal;
+        ``decode_attention`` launched once a layer a decode step on every
+        rank, twice for whisper (its cross block, merged over ``model``).
+
+    Prints step and token ms, peak memory a rank, the collectives a step
+    by kind and bytes, kernel launches a step a rank, the gaps and the
+    tokens compared. Returns the launches by run ({"decode_attention":
+    ..., "fused_ce": ...})."""
+    from repro_torch.distributed.launch import run_ranks, single_rank
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_sharded_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.serving import serve_kv_heads
+
+    card = card_line()
+    axes = ("data", "model")
+    attn_launches, ce_launches = {}, {}
+    single, objective, refs, families = {}, {}, {}, []
+    for arch, layers, prompt, seq, gen_n in FAMILY_SHARDED:
+        cfg = _family_cfg(arch, layers)
+        batch_np = _family_inputs(cfg, SP_BATCH, FAMILY_TRAIN_SEQ,
+                                  SHARDED_SEED, labels=True)
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in batch_np.items()}
+        # (a) one device, and mixtral on one NCCL rank on (1, 1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = T.init_model(cfg, SHARDED_SEED, dev)
+        model.requires_grad_(True)
+        objective[arch] = _data_rank_objective(model, batch, 2)
+        opt = T.init_opt(model)
+        step = T.make_train_step(cfg, torch.bfloat16, remat=True,
+                                 **SHARDED_KW)
+        single[arch] = _timed_steps(step, model, opt, batch,
+                                    FAMILY_TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        want = _state_digests(model, opt) if cfg.moe is not None else None
+        del model, opt, step
+        torch.cuda.empty_cache()
+        log(_train_line(f"sharded family train (a) {arch}, "
+                        f"{cfg.n_layers} layers ({n_params / 1e9:.3f} B "
+                        f"params), one device, peak {peak / 1e9:.2f} GB",
+                        single[arch], card))
+        if want is not None:
+            with single_rank("nccl" if dev.type == "cuda" else "gloo",
+                             dev.type):
+                mesh = make_mesh((1, 1), axes)
+                shape = ShapeConfig("family", FAMILY_TRAIN_SEQ, SP_BATCH,
+                                    "train")
+                step, _, build = make_sharded_train_step(
+                    cfg, mesh, shape, torch.bfloat16, remat=True,
+                    **SHARDED_KW)
+                model, opt = build(SHARDED_SEED, dev)
+                one = _timed_steps(step, model, opt, batch,
+                                   FAMILY_TRAIN_STEPS)
+                same = _state_digests(model, opt) == want
+                del model, opt, step, build
+            torch.cuda.empty_cache()
+            keys = ("loss", "nll", "lb_loss", "drop_frac", "grad_norm")
+            if not same or any(a[k] != b[k] for a, b in
+                               zip(single[arch], one) for k in keys):
+                pairs = [(a["loss"], b["loss"])
+                         for a, b in zip(single[arch], one)]
+                raise AssertionError(
+                    f"(a) {arch} on one NCCL rank is not bitwise the single "
+                    f"device: weights equal {same}; losses {pairs}")
+            ce_launches[f"sharded_family_{arch}_nccl"] = sum(
+                s["fused_ce"] for s in one)
+            log(_train_line(f"sharded family train (a) {arch}, 1 NCCL rank "
+                            "on (1, 1): bitwise the single device", one,
+                            card))
+        del batch
+        # (b) serving on one device
+        scfg = _family_cfg(arch, layers, no_drop=True)
+        inputs = _family_inputs(scfg, SERVE_BATCH, prompt + FAMILY_TP_FORCED,
+                                SHARDED_SEED + 30, labels=False)
+        tokens = inputs.pop("tokens")
+        front = {k: torch.as_tensor(v, device=dev) for k, v in inputs.items()}
+        one = _one_device_serve(scfg, dev,
+                                prompt=torch.as_tensor(tokens[:, :prompt],
+                                                       device=dev),
+                                seq=seq, gen=gen_n, frontend=front)
+        del front
+        log(_serve_line(f"sharded family serve (b) {arch} one device, f32 "
+                        "weights", one, scfg.n_layers, card))
+        cross = one.pop("cross", None)
+        forced = torch.as_tensor(tokens[:, prompt:])
+        tp_one = _one_device_serve(
+            scfg, dev, forced=[forced[:, i:i + 1].to(dev)
+                               for i in range(FAMILY_TP_FORCED)],
+            greedy=FAMILY_TP_GREEDY, param_dtype=torch.bfloat16, seq=seq,
+            cross=cross)
+        log(_serve_line(f"sharded family serve (b) {arch} one device, bf16 "
+                        "weights, tp reference", tp_one, scfg.n_layers, card))
+        attn_launches[f"sharded_family_{arch}_one_device"] = sum(
+            one["launches"]) + sum(tp_one["launches"])
+        refs[arch] = {
+            "fsdp": _to({k: one[k] for k in ("hidden", "tok0", "logits",
+                                             "tokens")}
+                        | {"cache": _ends(one["cache"])}, "cpu"),
+            "tp": _to({k: tp_one[k] for k in ("logits", "tokens")}
+                      | {"cache": _ends(tp_one["cache"])}, "cpu")}
+        base = dict(cfg=scfg, seq=seq, mesh=((2, 2), axes))
+        families.append(dict(
+            arch=arch, layers=layers, batch=batch_np,
+            fsdp=dict(base, layout="fsdp", prompt=tokens[:, :prompt],
+                      frontend=inputs,
+                      feed=[t.cpu().numpy() for t in
+                            [one["tok0"]] + one["tokens"][:-1]]),
+            tp=dict(base, layout="tp",
+                    cross=[(ck.float(), cv.float()) for ck, cv in cross]
+                    if cross else None,
+                    feed=[forced[:, i:i + 1].numpy()
+                          for i in range(FAMILY_TP_FORCED)]
+                    + [t.cpu().numpy() for t in
+                       tp_one["tokens"][FAMILY_TP_FORCED - 1:-1]])))
+        del one, tp_one, cross
+        torch.cuda.empty_cache()
+
+    ref_path = ROOT / "build" / "sharded_family_ref.pt"
+    ref_path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(refs, ref_path)
+    del refs
+    t0 = time.perf_counter()
+    try:
+        outs = run_ranks(_family_rank, 4, backend="gloo", device=dev.type,
+                         args=(dict(device=dev.type, ref=str(ref_path),
+                                    families=families),),
+                         timeout_s=SHARDED_TIMEOUT_S)
+    finally:
+        ref_path.unlink(missing_ok=True)
+    ranks_s = time.perf_counter() - t0
+    r0 = next(o for o in outs if o[FAMILY_SHARDED[0][0]]["fsdp"]["rank"] == 0)
+    for fam in families:
+        arch = fam["arch"]
+        cfg = fam["fsdp"]["cfg"]
+        g = r0[arch]
+        # (c) training
+        steps = g["train"]
+        for o in outs:
+            if [(s["nll"], s["grad_norm"]) for s in o[arch]["train"]] != [
+                    (s["nll"], s["grad_norm"]) for s in steps]:
+                raise AssertionError(f"(c) {arch}: the ranks' nll or "
+                                     "grad_norm differ")
+        per, gnorm = objective[arch]
+        nll = sum(m["nll"] for m in per) / len(per)
+        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+        gaps = {"nll": rel(steps[0]["nll"], nll),
+                "grad_norm": rel(steps[0]["grad_norm"], gnorm),
+                "loss": 0.0, "lb_loss": 0.0, "drop_frac": 0.0}
+        for o in outs:  # each rank against its data rank's rows
+            m, want = o[arch]["train"][0], per[o[arch]["fsdp"]["rank"] // 2]
+            lb = want["lb_loss"]
+            gaps["loss"] = max(gaps["loss"], rel(
+                m["loss"], nll + T.LB_COEF * lb if cfg.moe else nll))
+            gaps["lb_loss"] = max(gaps["lb_loss"], rel(m["lb_loss"], lb)
+                                  if lb else abs(m["lb_loss"]))
+            gaps["drop_frac"] = max(gaps["drop_frac"],
+                                    abs(m["drop_frac"] - want["drop_frac"]))
+        limits = {"loss": FAMILY_LOSS_TOL, "nll": FAMILY_LOSS_TOL,
+                  "lb_loss": FAMILY_LOSS_TOL, "drop_frac": FAMILY_DROP_TOL,
+                  "grad_norm": FAMILY_GNORM_TOL}
+        ce_a_step = {s["fused_ce"] for o in outs for s in o[arch]["train"]}
+        finite = all(np.isfinite([s["loss"], s["grad_norm"]]).all()
+                     for o in outs for s in o[arch]["train"])
+        if not (finite and ce_a_step == {1}
+                and all(gaps[k] <= limits[k] for k in limits)):
+            raise AssertionError(
+                f"(c) {arch} training on 4 gloo ranks: step 1 against the "
+                f"single device's objective {gaps} (limits {limits}), "
+                f"fused_ce a step {ce_a_step}, finite {finite}")
+        ce_launches[f"sharded_family_{arch}_rank0"] = sum(
+            s["fused_ce"] for s in steps)
+        log(_train_line(
+            f"sharded family train (c) {arch}, 4 gloo ranks on one card, "
+            f"mesh (data=2, model=2), rank 0 (step 1 against the single "
+            f"device's objective, each data rank's rows on their own: "
+            f"{ {k: float(f'{v:.3g}') for k, v in gaps.items()} }, drop_frac "
+            f"of the data ranks there {[m['drop_frac'] for m in per]}); "
+            f"peak memory a rank "
+            f"{[round(o[arch]['train_peak'] / 1e9, 2) for o in outs]} GB",
+            steps, card))
+        # (c) serving
+        per_layer = 2 if cfg.family == "encdec" else 1
+        hd = cfg.resolved_head_dim
+        w = min(cfg.swa_window or fam["fsdp"]["seq"], fam["fsdp"]["seq"])
+        want_ring = {"fsdp": (SERVE_BATCH // 2, w // 2, cfg.n_kv_heads, hd),
+                     "tp": (SERVE_BATCH // 2, w, serve_kv_heads(cfg, 2),
+                            hd)}
+        for name in ("fsdp", "tp"):
+            r = g[name]
+            per_step = {x for o in outs for x in o[arch][name]["launches"]}
+            rings = {o[arch][name]["ring_local"] for o in outs}
+            gaps = {k: r[k] for k in ("hidden", "logits", "kv", "pos_equal",
+                                      "tok0_equal", "tokens_compared",
+                                      "tokens_equal") if k in r}
+            ok = (all(gaps[k] <= SERVE_TOL for k in ("hidden", "logits", "kv")
+                      if k in gaps)
+                  and gaps["pos_equal"] and gaps.get("tok0_equal", True)
+                  and 0 < gaps["tokens_compared"] == gaps["tokens_equal"]
+                  and per_step == {per_layer * cfg.n_layers}
+                  and rings == {want_ring[name]})
+            if not ok:
+                raise AssertionError(
+                    f"(c) {arch} {name} on 4 gloo ranks against the single "
+                    f"device: {gaps} (limit {SERVE_TOL}), launches a step "
+                    f"{per_step} (want {per_layer * cfg.n_layers}), rings a "
+                    f"rank {rings}")
+            attn_launches[f"sharded_family_{arch}_{name}_ranks"] = sum(
+                sum(o[arch][name]["launches"]) for o in outs)
+            log(_serve_line(
+                f"sharded family serve (c) {arch} 4 gloo ranks on one card, "
+                f"mesh (data=2, model=2), {name}, rank 0", r, cfg.n_layers,
+                card) + f" | against the single device: {gaps} (limit "
+                f"{SERVE_TOL} of the largest value); peak memory a rank "
+                f"{[round(o[arch][name]['peak'] / 1e9, 3) for o in outs]} GB")
+    log(f"sharded family: ranks' wall {ranks_s:.1f} s")
+    return {"decode_attention": attn_launches, "fused_ce": ce_launches}
 
 
 def main() -> int:
@@ -5131,6 +5644,7 @@ def main() -> int:
     bright, z, mnist = kernel_phases(dev)
     attn = lm_kernel_phases(dev)
     sharded_attn = sharded_attention_phases(dev)
+    family_shard_attn, family_shard_ce = family_shard_kernel_phases(dev)
     scan, scan_bwd = rglru_kernel_phases(dev)
     wkv = rwkv_kernel_phases(dev)
     wkv_bwd = rwkv_bwd_phases(dev)
@@ -5209,6 +5723,9 @@ def main() -> int:
     serve_sharded_launches = sharded_serve_path(dev)
     torch.cuda.empty_cache()
     done("sharded serving")
+    family_sharded_launches = sharded_family_path(dev)
+    torch.cuda.empty_cache()
+    done("sharded MoE, encdec and VLM")
 
     for p in bright + z + scan + scan_bwd + wkv_bwd:
         one_kernel_a_call(p, "bright_glm_kernel" if p in bright
@@ -5277,13 +5794,18 @@ def main() -> int:
          **{f"launches_{a}": v for a, v in dense_launches.items()},
          **{f"launches_{a}": v for a, v in family_launches.items()},
          **{f"launches_{k}": v for k, v in serve_sharded_launches.items()},
+         **{f"launches_{k}": v for k, v in
+            family_sharded_launches["decode_attention"].items()},
          "max_abs_err": max(p["max_abs_err"] for p in attn + dense_attn
-                            + family_attn + sharded_attn),
-         "merge_max_abs_err": sharded_attn[0]["merge_max_abs_err"],
+                            + family_attn + sharded_attn
+                            + family_shard_attn),
+         "merge_max_abs_err": max(sharded_attn[0]["merge_max_abs_err"],
+                                  family_shard_attn[0]["merge_max_abs_err"]),
          "ms": attn[0]["ms"], "call_ms": attn[0]["call_ms"],
          "plain_ms": attn[0]["plain_ms"], "bound_ms": attn[0]["bound_ms"],
          "bound_by": attn[0]["bound_by"], "library_ms": attn[0]["library_ms"],
-         "phases": attn + dense_attn + family_attn + sharded_attn},
+         "phases": attn + dense_attn + family_attn + sharded_attn
+         + family_shard_attn},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:61",
@@ -5339,12 +5861,15 @@ def main() -> int:
          "launches_train_rwkv6-7b": rwkv_train_launches["fused_ce"],
          **{f"launches_train_{a}": v for a, v in sp_launches.items()},
          **{f"launches_{k}": v for k, v in sharded_launches.items()},
+         **{f"launches_{k}": v for k, v in
+            family_sharded_launches["fused_ce"].items()},
          "max_abs_err": max(p["max_abs_err"] for p in ce + sp_ce
-                            + [ce_shard]),
+                            + [ce_shard] + family_shard_ce),
          "ms": ce[0]["ms"], "call_ms": ce[0]["call_ms"],
          "plain_ms": ce[0]["plain_ms"], "bound_ms": ce[0]["bound_ms"],
          "bound_by": ce[0]["bound_by"], "library_ms": ce[0]["library_ms"],
-         "phases": ce + ce_grads + sp_ce + sp_ce_grads + [ce_shard]},
+         "phases": ce + ce_grads + sp_ce + sp_ce_grads + [ce_shard]
+         + family_shard_ce},
     ]}
     log(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps(table), flush=True)

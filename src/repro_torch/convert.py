@@ -165,7 +165,9 @@ def lm_params(params_np: dict, cfg: ModelConfig, device="cuda",
 
     With ``mesh`` (this rank's bound mesh) the model is this rank's shards
     (placed as :func:`repro_torch.models.transformer.build_specs` places
-    them, with ``exclude_fsdp``): each global leaf is cut to its slice.
+    them, with ``exclude_fsdp``): each global leaf is cut to its slice (an
+    expert matrix to its ff shard over ``model`` and its fsdp block, an
+    encoder block's weights as a decoder block's).
     ``serve_tp``: the serving-resident layout (``exclude_fsdp`` then the
     mesh's data axes), whose attention has no QKV bias: the tree's
     ``bq``/``bk``/``bv`` are left out, as the reference's layout leaves
@@ -208,10 +210,12 @@ def lm_cache(cache_np: dict, cfg: ModelConfig, seq_len: int, device="cuda",
              mesh=None, serve_tp: bool = False, batch_whole: bool = False,
              dtype=None) -> dict:
     """The reference's serving cache (numpy leaves: ``t``, each slot's
-    rings stacked over layer groups, ``extra{j}``; a sharded run's outputs
-    gathered to their logical arrays) as the port's cache: ``{"t": int,
-    "layers": [...]}`` in layer order. With ``mesh`` (this rank's bound
-    mesh) each leaf is cut to the rank's shard as
+    rings, and whisper's cross K/V ``ck``/``cv``, stacked over layer
+    groups, ``extra{j}``; a sharded run's outputs gathered to their
+    logical arrays) as the port's cache: ``{"t": int, "layers": [...]}``
+    in layer order. With ``mesh`` (this rank's bound mesh) each leaf is
+    cut to the rank's shard (``ck``/``cv``: its rows and its S_enc/mp
+    positions) as
     :func:`~repro_torch.models.serving.cache_pspecs` places it for
     ``seq_len`` and ``serve_tp`` (``batch_whole``: a batch that runs whole
     on every data rank). ``dtype``: the K/V dtype (default the leaves'

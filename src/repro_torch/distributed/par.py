@@ -104,6 +104,24 @@ class _ReduceScatter(torch.autograd.Function):
         return comm.all_gather(g, ctx.dim, ctx.group), None, None
 
 
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def scale_grad(x, s: float):
+    """``x`` itself, whose cotangent is multiplied by ``s`` on its way
+    back: a term that several ranks compute alike enters the sum of their
+    backwards once (``transformer.loss_fn``'s MoE term)."""
+    return _ScaleGrad.apply(x, s) if _tracked(x) else x
+
+
 def _tracked(x) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 

@@ -4,13 +4,15 @@
 Port of :mod:`repro.launch.steps`. The reference wraps each step in
 ``shard_map`` over a device mesh; here every rank is a process that runs
 the same step on its shards (:mod:`repro_torch.distributed.par`) and its
-rows of the global batch, under the axis context of
+part of the global batch, under the axis context of
 :func:`repro_torch.launch.mesh.make_par`. :func:`batch_slice` is the rule
-that cuts a global batch to a rank (rows over the data axes; tokens and
-labels whole over ``model``, where the embedding is vocab-parallel and
-the blocks sequence-parallel). Each function below returns the step,
-the rank's specs and a function that builds the rank's model (and its
-optimizer state or serving cache):
+that cuts a global batch to a rank (the reference's ``batch_pspecs``:
+rows over the data axes; tokens, labels and llava's patches whole over
+``model``, where the embedding is vocab-parallel and the blocks
+sequence-parallel; whisper's frames split over ``model`` along the
+encoder's positions). Each function below returns the step, the rank's
+specs and a function that builds the rank's model (and its optimizer
+state or serving cache):
 
   * :func:`make_sharded_train_step`;
   * :func:`make_sharded_prefill`: the prompt's forward in the training
@@ -21,9 +23,11 @@ optimizer state or serving cache):
     over ``model`` and replicated over the data axes, head-parallel
     attention over whole rings).
 
-Only the SP-mode dense decoders (llama3.2, qwen2, stablelm, qwen1.5) are
-sharded; another config raises ``NotImplementedError`` naming the ROADMAP
-step that brings it (``transformer.check_shardable``).
+The SP-mode archs are sharded: the dense decoders (llama3.2, qwen2,
+stablelm, qwen1.5), the MoE (mixtral, arctic), the encoder-decoder
+(whisper) and the VLM (llava). A TP-mode arch raises
+``NotImplementedError`` naming the ROADMAP step that brings it
+(``transformer.check_shardable``).
 """
 
 from __future__ import annotations
@@ -44,26 +48,36 @@ def batch_sharded(global_batch: int, par: Par) -> bool:
     return global_batch % max(par.dp_size, 1) == 0
 
 
+def _block(v, dim: int, axes, par: Par):
+    """This rank's block of ``v`` along ``dim`` over ``axes``."""
+    n = v.shape[dim] // par.mesh.size_of(axes)
+    return v.narrow(dim, par.mesh.index(axes) * n, n)
+
+
 def batch_slice(batch: dict, par: Par, whole_if_unsplit: bool = False) -> dict:
-    """This rank's rows of a global batch ({"tokens", "labels"}, (B, S)
-    each, or a prompt's or a decode step's tokens): the B / dp_size rows
-    of its index over the data axes (the reference's ``batch_pspecs``:
-    rows over dp, whole over ``model``). With ``whole_if_unsplit`` (the
-    serving steps) a batch that does not split over the data ranks is
-    every rank's whole; the train step refuses it."""
-    if not par.dp:
-        return batch
+    """This rank's part of a global batch ({"tokens", "labels"}, (B, S)
+    each, whisper's "frames" (B, S_enc, d) or llava's "patches" (B, P, d),
+    or a prompt's or a decode step's inputs), as the reference's
+    ``batch_pspecs`` places it: the B / dp_size rows of its index over the
+    data axes, every leaf whole over ``model`` but the frames, which are
+    split there along the encoder's positions (S_enc/mp each: the encoder
+    runs sequence-parallel). With ``whole_if_unsplit`` (the serving steps)
+    a batch whose rows do not split over the data ranks is every rank's
+    whole; the train step refuses it."""
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % par.dp_size:
-            if whole_if_unsplit:
-                out[k] = v
-                continue
-            raise ValueError(f"batch {k}: {v.shape[0]} rows do not split "
-                             f"over {par.dp_size} data ranks")
-        n = v.shape[0] // par.dp_size
-        i = par.mesh.index(par.dp)
-        out[k] = v[i * n:(i + 1) * n]
+        if par.dp and v.shape[0] % par.dp_size:
+            if not whole_if_unsplit:
+                raise ValueError(f"batch {k}: {v.shape[0]} rows do not "
+                                 f"split over {par.dp_size} data ranks")
+        elif par.dp:
+            v = _block(v, 0, par.dp, par)
+        if k == "frames" and par.mp:
+            if v.shape[1] % par.mp_size:
+                raise ValueError(f"frames: {v.shape[1]} positions do not "
+                                 f"split over {par.mp_size} model ranks")
+            v = _block(v, 1, par.mp_axes, par)
+        out[k] = v
     return out
 
 
@@ -85,7 +99,8 @@ def make_sharded_train_step(cfg: ModelConfig, mesh: Mesh, shape: ShapeConfig,
                             compress_axes: tuple[str, ...] = (), **kw):
     """(step, specs, build) for ``cfg`` on ``mesh`` (bound: one process a
     rank). ``step(model, opt, batch[, err]) → metrics`` takes the GLOBAL
-    batch (every rank the same) and runs the rank's rows; ``specs`` is
+    batch (every rank the same; with whisper's frames or llava's patches)
+    and runs the rank's part (:func:`batch_slice`); ``specs`` is
     name → WSpec of the rank's weights; ``build(seed=0, device="cuda",
     param_dtype=torch.float32)`` → (model, opt): the rank's shards of
     ``init_model(cfg, seed)`` with gradients on, and zero AdamW moments in
@@ -138,12 +153,15 @@ def make_sharded_prefill(cfg: ModelConfig, mesh: Mesh, shape: ShapeConfig,
                          dtype=torch.bfloat16):
     """(step, specs, build) of the prompt's prefill for ``cfg`` on
     ``mesh`` (bound: one process a rank), in the training layout: the
-    reference's ``make_sharded_prefill``. ``step(model, tokens) → (cache,
-    hidden)`` takes the GLOBAL prompt (B, S) (every rank the same; S
-    divisible by the model ranks) and runs the rank's rows: the cache is
-    the rank's shard for a ``shape.seq_len`` ring (a sequence-sharded
-    ring holds this model rank's slots; bf16 rings, as the reference's),
-    the hidden its block (B_loc, S/mp, d). ``specs``: :func:`_serve_specs`. ``build(seed=0, device="cuda",
+    reference's ``make_sharded_prefill``. ``step(model, tokens,
+    frames=None, patches=None) → (cache, hidden)`` takes the GLOBAL prompt
+    (B, S) (every rank the same; S divisible by the model ranks) and
+    whisper's frames (B, S_enc, d) or llava's patches (B, P, d), and runs
+    the rank's part (:func:`batch_slice`): the cache is the rank's shard
+    for a ``shape.seq_len`` ring (a sequence-sharded ring holds this model
+    rank's slots, whisper's cross K/V its S_enc/mp positions; bf16 rings,
+    as the reference's), the hidden its block (B_loc, S/mp, d).
+    ``specs``: :func:`_serve_specs`. ``build(seed=0, device="cuda",
     param_dtype=torch.float32)`` → the rank's shards of
     ``init_model(cfg, seed)``."""
     T.check_shardable(cfg)
@@ -151,9 +169,13 @@ def make_sharded_prefill(cfg: ModelConfig, mesh: Mesh, shape: ShapeConfig,
     specs = _serve_specs(cfg, par, shape, T.LM(cfg, "meta", par=par).specs,
                          False)
 
-    def step(model, tokens):
-        rows = batch_slice({"tokens": tokens}, par, True)["tokens"]
-        return SV.prefill(model, rows, shape.seq_len, dtype)
+    def step(model, tokens, frames=None, patches=None):
+        batch = {k: v for k, v in (("tokens", tokens), ("frames", frames),
+                                   ("patches", patches)) if v is not None}
+        mine = batch_slice(batch, par, True)
+        return SV.prefill(model, mine["tokens"], shape.seq_len, dtype,
+                          frames=mine.get("frames"),
+                          patches=mine.get("patches"))
 
     def build(seed: int = 0, device="cuda", param_dtype=torch.float32):
         return T.init_model(cfg, seed, device, param_dtype, par=par)

@@ -12,17 +12,19 @@ time and channel mixes and the embedding. Each function keeps the reference's na
 where the reference takes a weight dict. On one device (the trivial
 ``Par()``, the default ``par``) every gather, psum and reduce-scatter of the
 reference is the identity, so SP attention is the plain computation over
-the whole sequence. The SP-mode dense path also runs on a mesh (``par``
+the whole sequence. The SP-mode path also runs on a mesh (``par``
 from :func:`repro_torch.launch.mesh.make_par`): the residual stream is
 (B/dp, S/mp, d), each weight is this rank's shard and is gathered over its
 fsdp axes where it is used; ``embed_tokens`` is vocab-parallel with a
 reduce-scatter into the sequence blocks, ``attn_tp`` (``attn_sp``)
-all-gathers K and V over ``model``, ``mlp_sp`` all-gathers a sequence
-chunk for its column/row-parallel product and reduce-scatters it back, and
-``ce_loss_sp`` is vocab-parallel over ``model``. A decode step's token is
-replicated over ``model`` instead: ``embed_tokens(sp=False)`` psums the
-vocabulary blocks' rows and ``mlp_tp`` psums its column/row-parallel
-product.
+all-gathers K and V over ``model`` (a cross-attention's, projected from
+the rank's block of the encoder's positions, too), ``mlp_sp`` and
+``moe_sp`` all-gather a sequence chunk for their column/row-parallel
+products (the MoE's on each expert's ff shard) and reduce-scatter it
+back, and ``ce_loss_sp`` is vocab-parallel over ``model``. A decode
+step's token is replicated over ``model`` instead:
+``embed_tokens(sp=False)`` psums the vocabulary blocks' rows and
+``mlp_tp`` psums its column/row-parallel product.
 
 Weights are cast to the compute ``dtype`` where the reference's
 ``gather_param`` casts them (a no-op when the model is stored in ``dtype``),
@@ -416,10 +418,21 @@ def moe_route(tokens, router, cfg: ModelConfig):
             "ok": ok, "slot": slot, "cap": cap}
 
 
-def moe_tokens(tokens, w: Params, cfg: ModelConfig):
+def moe_weights(w: Params, dtype, par: Par = ONE) -> tuple:
+    """The MoE layer's (router, w1, w2, w3) cast to ``dtype`` and gathered
+    over their fsdp axes (the reference's ``gathered``): on a mesh each
+    expert's ff dimension stays this rank's ``model`` shard (w1, w3 on
+    dimension 2, w2 on 1), so an expert's output is a partial sum over
+    ``model``."""
+    return tuple(P.gather_param(getattr(w, n), w.specs[n], dtype, par)
+                 for n in ("router", "w1", "w2", "w3"))
+
+
+def moe_tokens(tokens, weights: tuple, cfg: ModelConfig):
     """The reference's ``_moe_tokens``: (T, d) tokens through their top-k
-    experts at a fixed capacity. Returns (y (T, d), aux {lb_loss,
-    drop_frac}).
+    experts at a fixed capacity, on ``weights`` = (router, w1, w2, w3) in
+    the tokens' dtype (:func:`moe_weights`). Returns (y (T, d), aux
+    {lb_loss, drop_frac}).
 
     The kept pairs are scattered into an (E·cap + 1, d) buffer whose last
     row takes the dropped ones and is discarded; every expert runs its
@@ -428,18 +441,19 @@ def moe_tokens(tokens, w: Params, cfg: ModelConfig):
     gathered back to the pairs (zero for a dropped one), put back in
     token-major order and summed over k with the gates, in the tokens'
     dtype. ``lb_loss`` is the Switch balance term E·Σ_e f_e·p̄_e / k,
-    ``drop_frac`` the share of pairs dropped."""
+    ``drop_frac`` the share of pairs dropped. With ff-sharded experts y is
+    this rank's partial sum; routing and aux are whole."""
     dtype = tokens.dtype
     t, d = tokens.shape
     e, k = cfg.moe.n_experts, cfg.moe.top_k
-    r = moe_route(tokens, w.router, cfg)
+    router, w1, w2, w3 = weights
+    r = moe_route(tokens, router, cfg)
     cap, order, ok, slot = r["cap"], r["order"], r["ok"], r["slot"]
     buf = torch.zeros(e * cap + 1, d, dtype=dtype, device=tokens.device)
     buf.index_copy_(0, slot, tokens.index_select(0, order // k))
     buf = buf[:e * cap].view(e, cap, d)
-    h = F.silu(torch.bmm(buf, w.w1.to(dtype))) * torch.bmm(buf,
-                                                            w.w3.to(dtype))
-    yb = torch.bmm(h, w.w2.to(dtype)).view(e * cap, d)
+    h = F.silu(torch.bmm(buf, w1)) * torch.bmm(buf, w3)
+    yb = torch.bmm(h, w2).view(e * cap, d)
     y_sorted = torch.where(ok[:, None],
                            yb.index_select(0, slot.clamp(max=e * cap - 1)), 0)
     y_assign = torch.empty_like(y_sorted).index_copy_(0, order, y_sorted)
@@ -451,27 +465,38 @@ def moe_tokens(tokens, w: Params, cfg: ModelConfig):
     return y, aux
 
 
-def moe_sp(x, w: Params, cfg: ModelConfig, chunk: int | None = None):
-    """The reference's SP-mode MoE on one device: (B, S, d) in sequence
-    chunks of ``chunk`` (default :func:`_auto_chunk`'s), each chunk's B·chunk
-    tokens one :func:`moe_tokens` call, plus the dense residual FFN
-    (swiglu) where the layer has one. Returns (y, aux), aux the mean over
-    chunks."""
+def moe_sp(x, w: Params, cfg: ModelConfig, chunk: int | None = None,
+           par: Par = ONE):
+    """The reference's SP-mode MoE: (B, S_loc, d) in sequence chunks of
+    ``chunk`` local positions (default :func:`_auto_chunk`'s for the
+    chunk gathered over ``model``), each chunk all-gathered over ``model``
+    and its B·chunk·mp tokens one :func:`moe_tokens` call on the experts
+    of :func:`moe_weights` (ff-sharded over ``model``), plus the dense
+    residual FFN (swiglu, column/row-parallel) where the layer has one;
+    the partial output is reduce-scattered back over the sequence. Returns
+    (y, aux), aux the mean over chunks. Every model rank routes the same
+    gathered tokens, so its aux is the same. On one device every
+    collective is the identity. On a mesh several chunks each run under a
+    checkpoint, as :func:`mlp_sp`'s do."""
     b, s, d = x.shape
-    chunk = chunk or _auto_chunk(b, s, d)
+    chunk = chunk or _auto_chunk(b, s, d, par.mp_size)
     assert s <= chunk or s % chunk == 0, (s, chunk)
+    weights = moe_weights(w, x.dtype, par)
     dense = getattr(w, "dense", None)
-    ys, auxes = [], []
-    for c0 in range(0, s, chunk):
-        xc = x[:, c0:c0 + chunk]
-        y, aux = moe_tokens(xc.reshape(-1, d), w, cfg)
-        y = y.view(xc.shape)
+
+    def one_chunk(xc):
+        xg = P.all_gather(xc, par.mp_axes, 1, par)
+        y, aux = moe_tokens(xg.reshape(-1, d), weights, cfg)
+        y = y.view(xg.shape)
         if dense is not None:
-            y = y + mlp_tp(xc, dense, "swiglu")
-        ys.append(y)
-        auxes.append(aux)
-    if len(ys) == 1:
-        return ys[0], auxes[0]
+            y = y + _mlp_core(xg, dense, "swiglu", par)
+        return P.reduce_scatter(y, par.mp_axes, 1, par), aux
+
+    if s <= chunk:
+        return one_chunk(x)
+    run = (one_chunk if par.mesh is None else
+           functools.partial(checkpoint, one_chunk, use_reentrant=False))
+    ys, auxes = zip(*(run(x[:, c0:c0 + chunk]) for c0 in range(0, s, chunk)))
     return torch.cat(ys, 1), {n: torch.stack([a[n] for a in auxes]).mean()
                               for n in auxes[0]}
 

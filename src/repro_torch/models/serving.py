@@ -29,19 +29,24 @@ The cache is ``{"t": int, "layers": [per-layer dict, ...]}`` in layer order;
 reference, which returns new cache arrays, :func:`decode_step` writes the
 ring slots and the recurrent state in place and returns the same dict.
 
-On a mesh (a model built under ``par``, the SP-mode dense decoders only)
-every rank holds its rows of the batch (over the data axes) and, in the
-training layout (``fsdp``), its block of W/mp ring slots over ``model``
-where mp divides W: :func:`_ring_write` writes a slot on its owner rank
-alone, and each rank's decode-attention kernel attends its block, whose
-(out, m, l) are merged over ``model`` (``decode_attention.ops.
-merge_across``). Else every model rank holds the whole ring. In the
-serving-resident layout (``model.serve_tp``) the attention heads are
-split over ``model`` and each rank's ring holds its heads' K/V heads,
-whole. :func:`cache_pspecs` says which cache dimensions are split over
-which axes. The token is replicated over ``model``; the head is
-vocab-parallel, so a step's logits are this rank's vocabulary block and
-:func:`vocab_parallel_argmax` picks the global greedy token.
+On a mesh (a model built under ``par``: the SP-mode archs) every rank
+holds its rows of the batch (over the data axes) and, in the training
+layout (``fsdp``), its block of W/mp ring slots over ``model`` where mp
+divides W: :func:`_ring_write` writes a slot on its owner rank alone, and
+each rank's decode-attention kernel attends its block, whose (out, m, l)
+are merged over ``model`` (``decode_attention.ops.merge_across``). Else
+every model rank holds the whole ring. In the serving-resident layout
+(``model.serve_tp``) the attention heads are split over ``model`` and
+each rank's ring holds its heads' K/V heads, whole. In both layouts
+whisper's cross K/V hold this rank's S_enc/mp block of the encoder's
+positions, attended by the kernel and merged over ``model`` as a
+sequence-sharded ring is; an MoE step computes its partial output on the
+rank's ff shard of every expert (and of arctic's dense residual) and
+takes one psum over ``model``. :func:`cache_pspecs` says which cache
+dimensions are split over which axes. The token is replicated over
+``model``; the head is vocab-parallel, so a step's logits are this rank's
+vocabulary block and :func:`vocab_parallel_argmax` picks the global greedy
+token.
 """
 
 from __future__ import annotations
@@ -119,14 +124,15 @@ def init_cache(cfg: ModelConfig, b: int, seq_len: int,
     encoder-decoder's layers also hold the cross-attention's K/V over the
     encoder's positions (``ck``, ``cv``: (B, S_enc, Hk, D)), which prefill
     computes once. On a mesh (``par``, ``serve_tp`` the layout) it is this
-    rank's shard: ``b`` is its rows, and each ring is its block of slots
-    or its K/V heads (:func:`cache_pspecs`)."""
+    rank's shard: ``b`` is its rows, each ring is its block of slots or
+    its K/V heads, and ``ck``/``cv`` its S_enc/mp block of positions in
+    either layout (:func:`cache_pspecs`)."""
     layers = []
     for kind in layer_kinds(cfg):
         shapes = _slot_cache_shapes(cfg, kind, b, seq_len, kv_dtype, par,
                                     serve_tp)
         if cfg.family == "encdec":
-            cross = (b, cfg.encoder_seq, cfg.n_kv_heads,
+            cross = (b, cfg.encoder_seq // par.mp_size, cfg.n_kv_heads,
                      cfg.resolved_head_dim)
             shapes.update(ck=(cross, kv_dtype), cv=(cross, kv_dtype))
         out = {}
@@ -146,9 +152,10 @@ def cache_pspecs(cfg: ModelConfig, seq_len: int, par: Par,
     sequence-sharded (:func:`ring_sharded`) or along Hk in the
     serving-resident layout (where the logical Hk is ``serve_kv_heads``
     times mp: heads a GQA group shares are held once a rank); ``pos``
-    follows W. A batch that does not split over the data ranks runs whole
-    on each (``launch.steps.strip_dp``). On one device every leaf is
-    whole."""
+    follows W. Whisper's ``ck``/``cv`` (B, S_enc, Hk, D) are split over
+    the data axes along B and over ``model`` along S_enc, in both layouts.
+    A batch that does not split over the data ranks runs whole on each
+    (``launch.steps.strip_dp``). On one device every leaf is whole."""
     if par.all_axes:
         T.check_shardable(cfg)
     mp = par.mp_axes
@@ -157,13 +164,16 @@ def cache_pspecs(cfg: ModelConfig, seq_len: int, par: Par,
         shapes = _slot_cache_shapes(cfg, kind, 1, seq_len, par=par,
                                     serve_tp=serve_tp)
         if kind != "attn" or not par.all_axes:
-            layers.append({n: PSpec(((),) * len(shape))
-                           for n, (shape, _) in shapes.items()})
-            continue
-        w = attn_cache_len(cfg, kind, seq_len)
-        seq = mp if ring_sharded(cfg, w, par, serve_tp) else ()
-        kv = PSpec((par.dp, seq, mp if serve_tp else (), ()))
-        layers.append({"k": kv, "v": kv, "pos": PSpec((seq,))})
+            spec = {n: PSpec(((),) * len(shape))
+                    for n, (shape, _) in shapes.items()}
+        else:
+            w = attn_cache_len(cfg, kind, seq_len)
+            seq = mp if ring_sharded(cfg, w, par, serve_tp) else ()
+            kv = PSpec((par.dp, seq, mp if serve_tp else (), ()))
+            spec = {"k": kv, "v": kv, "pos": PSpec((seq,))}
+        if cfg.family == "encdec":
+            spec["ck"] = spec["cv"] = PSpec((par.dp, mp, (), ()))
+        layers.append(spec)
     return {"t": None, "layers": layers}
 
 
@@ -251,32 +261,38 @@ def _attn_decode(x, w, cache, cfg: ModelConfig, t: int, seq_len: int,
 CROSS_T = 10**9
 
 
-def _cross_decode(x, w, cache, cfg: ModelConfig):
+def _cross_decode(x, w, cache, cfg: ModelConfig, par: Par = L.ONE):
     """Whisper's cross-attention at decode: the token's query against the
-    encoder's K/V that prefill stored (``ck``, ``cv``), at positions
-    0..S_enc-1 with no window and no RoPE. x: (B, 1, d); returns y
-    (B, 1, d)."""
+    encoder's K/V that prefill stored (``ck``, ``cv``), every position
+    valid, no window and no RoPE. x: (B, 1, d), replicated over
+    ``model``; returns y (B, 1, d). On a mesh (either layout) every model
+    rank projects all the heads and attends its S_enc/mp block of
+    ``ck``/``cv``, merged over ``model`` as a sequence-sharded ring is."""
     dtype = x.dtype
     b = x.shape[0]
-    q = L.qkv_proj(x, w, "q").reshape(b, 1, cfg.n_heads,
-                                      cfg.resolved_head_dim)
+    q = L.qkv_proj(x, w, "q", par).reshape(b, 1, cfg.n_heads,
+                                           cfg.resolved_head_dim)
     ck, cv = cache["ck"], cache["cv"]
     pos = torch.arange(ck.shape[1], dtype=torch.int32, device=ck.device)
-    out = _decode_attend(q, ck, cv, pos, CROSS_T, None)
-    return out.to(dtype).reshape(b, 1, cfg.q_dim) @ w.wo.to(dtype)
+    out = _decode_attend(q, ck, cv, pos, CROSS_T, None, par, par.mp_axes)
+    return out.to(dtype).reshape(b, 1, cfg.q_dim) @ P.gather_param(
+        w.wo, w.specs["wo"], dtype, par)
 
 
-def _moe_decode(h, w, cfg: ModelConfig):
+def _moe_decode(h, w, cfg: ModelConfig, par: Par = L.ONE):
     """The MoE of one decode step: the (B, d) tokens are one
     :func:`~repro_torch.models.layers.moe_tokens` call (T = B, so the
     capacity is the batch's), plus the dense residual FFN (swiglu) where
-    the layer has one. h: (B, 1, d)."""
+    the layer has one. h: (B, 1, d), replicated over ``model``. On a mesh
+    each rank's experts (and dense FFN) hold its ff shard, so both
+    outputs are partial sums: one psum over ``model`` completes them."""
     b, _, d = h.shape
-    y, _ = L.moe_tokens(h.reshape(b, d), w, cfg)
+    y, _ = L.moe_tokens(h.reshape(b, d), L.moe_weights(w, h.dtype, par),
+                        cfg)
     y = y.reshape(b, 1, d)
     if hasattr(w, "dense"):
-        y = y + L.mlp_tp(h, w.dense, "swiglu")
-    return y
+        y = y + L._mlp_core(h, w.dense, "swiglu", par)
+    return P.psum(y, par.mp_axes, par)
 
 
 def _rglru_decode(x, w, cache, cfg: ModelConfig):
@@ -344,8 +360,8 @@ def _rwkv_cm_decode(x, w, cache):
 
 def _decode_block(x, blk, cache, cfg: ModelConfig, t: int, seq_len: int,
                   par: Par = L.ONE, serve_tp: bool = False):
-    """One layer's decode step; on a mesh (``par``, a dense attention block
-    only) in the layout ``serve_tp`` names."""
+    """One layer's decode step; on a mesh (``par``, an SP-mode attention
+    block) in the layout ``serve_tp`` names."""
     dtype = x.dtype
     h = L.apply_norm(x, blk.ln1, dtype, cfg.norm, par)
     if blk.kind == "rwkv":
@@ -362,11 +378,11 @@ def _decode_block(x, blk, cache, cfg: ModelConfig, t: int, seq_len: int,
         raise ValueError(blk.kind)
     x = x + a
     if hasattr(blk, "cross"):
-        h = L.apply_norm(x, blk.ln_cross, dtype, cfg.norm)
-        x = x + _cross_decode(h, blk.cross, cache, cfg)
+        h = L.apply_norm(x, blk.ln_cross, dtype, cfg.norm, par)
+        x = x + _cross_decode(h, blk.cross, cache, cfg, par)
     h = L.apply_norm(x, blk.ln2, dtype, cfg.norm, par)
     if blk.kind == "attn" and cfg.moe is not None:
-        return x + _moe_decode(h, blk.ffn, cfg)
+        return x + _moe_decode(h, blk.ffn, cfg, par)
     # one token: the MLP of either mode, column/row parallel over `model`
     return x + L.mlp_tp(h, blk.ffn, cfg.mlp, par)
 
@@ -453,10 +469,11 @@ def prefill(model: T.LM, tokens, seq_len: int, dtype=torch.bfloat16,
     """Process a full prompt (B, S) (with whisper's ``frames`` or llava's
     ``patches``, the stub frontends' inputs); returns (cache, hidden
     (B, S, d)), and with ``aux`` also the MoE's {lb_loss, drop_frac}
-    (means over layers). On a mesh (``model.par``: a dense decoder)
-    ``tokens`` is this rank's rows, the hidden its sequence block
-    (B, S/mp, d) and the cache its shard in the training layout
-    (:func:`cache_pspecs`).
+    (means over layers). On a mesh (``model.par``) ``tokens`` and
+    ``patches`` are this rank's rows, ``frames`` its rows' S_enc/mp block
+    of positions, the hidden its sequence block (B, S/mp, d) and the cache
+    its shard in the training layout (:func:`cache_pspecs`; the cross K/V
+    this rank's block of the K/V gathered over ``model``).
 
     The forward is the prefill forward (chunked attention, the MoE's
     sequence chunks, the RG-LRU and WKV scan kernels); capture collects
@@ -482,7 +499,10 @@ def prefill(model: T.LM, tokens, seq_len: int, dtype=torch.bfloat16,
             out = {"k": k.to(kv_dtype), "v": v.to(kv_dtype), "pos": pos}
             if "cross_kv_full" in cap:
                 ckf, cvf = cap["cross_kv_full"]
-                out.update(ck=ckf.to(kv_dtype), cv=cvf.to(kv_dtype))
+                loc = ckf.shape[1] // par.mp_size
+                c0 = P.axis_index(par.mp, par) * loc
+                out.update(ck=ckf[:, c0:c0 + loc].to(kv_dtype).contiguous(),
+                           cv=cvf[:, c0:c0 + loc].to(kv_dtype).contiguous())
             layers.append(out)
         elif kind in ("rglru", "rwkv"):
             layers.append(cap)

@@ -18,13 +18,16 @@ maps the reference's tree onto it).
 On a mesh (``par``, :func:`repro_torch.launch.mesh.make_par`) a model
 holds this rank's shards: every weight at its
 :class:`~repro_torch.distributed.par.WSpec`'s local shape
-(:func:`build_specs`, the reference's placement). The SP-mode dense
-decoders (llama3.2, qwen2, stablelm, qwen1.5) run sharded: ZeRO-3 weight
-gathers over the data axes (and ``model`` where a weight has no model
-dimension), sequence-parallel blocks and a vocab-parallel embedding and
-loss over ``model`` (:mod:`repro_torch.models.layers`). The same code runs
-on one device under the trivial ``Par()``, where every collective is the
-identity.
+(:func:`build_specs`, the reference's placement). The SP-mode archs run
+sharded: the dense decoders (llama3.2, qwen2, stablelm, qwen1.5), the MoE
+(mixtral, arctic: the experts' ff dimension over ``model``), the
+encoder-decoder (whisper: the encoder's frames sequence-sharded over
+``model``) and the VLM (llava: the patch rows at their global positions).
+ZeRO-3 weight gathers over the data axes (and ``model`` where a weight has
+no model dimension), sequence-parallel blocks and a vocab-parallel
+embedding and loss over ``model`` (:mod:`repro_torch.models.layers`). The
+same code runs on one device under the trivial ``Par()``, where every
+collective is the identity.
 """
 
 from __future__ import annotations
@@ -132,19 +135,13 @@ class Block(nn.Module):
 
 def check_shardable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config whose sharded paths are
-    not ported: only the SP-mode dense decoders run on a mesh (training,
-    prefill and decode)."""
+    not ported: the SP-mode archs (dense, MoE, encoder-decoder, VLM) run on
+    a mesh (training, prefill and decode); the TP-mode ones do not yet."""
     if cfg.parallel_mode == "tp":
         raise NotImplementedError(
             f"{cfg.name}: the TP-mode sharded paths (attn_tp, mlp_tp, the "
             "RG-LRU and RWKV heads over 'model', their training and "
             "serving) are ROADMAP queue 1 item 9f, step 3")
-    if cfg.family != "dense" or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: sharded {cfg.family} training and serving "
-            "(moe_sp's expert-ff TP, the encoder's frames over 'model', the "
-            "VLM's patches; the sharded prefill needs that forward) are "
-            "ROADMAP queue 1 item 9f, step 2")
 
 
 class LM(nn.Module):
@@ -247,15 +244,17 @@ def _block_fwd(x, blk: Block, cfg: ModelConfig, capture: bool = False,
         raise ValueError(blk.kind)
     x = x + a
     if hasattr(blk, "cross") and enc is not None:
-        h = L.apply_norm(x, blk.ln_cross, dtype, cfg.norm)
+        # under a mesh ``enc`` is this rank's block of the encoder's
+        # positions; attn_sp gathers its K/V over ``model``
+        h = L.apply_norm(x, blk.ln_cross, dtype, cfg.norm, par)
         c = L.attn_sp(h, blk.cross, cfg, causal=False, kv_source=enc,
-                      use_rope=False, return_kv=capture)
+                      use_rope=False, return_kv=capture, par=par)
         if capture:
             c, cache["cross_kv_full"] = c
         x = x + c
     h = L.apply_norm(x, blk.ln2, dtype, cfg.norm, par)
     if blk.kind == "attn" and cfg.moe is not None:
-        y, moe_aux = L.moe_sp(h, blk.ffn, cfg)
+        y, moe_aux = L.moe_sp(h, blk.ffn, cfg, par=par)
         if aux is not None:
             aux.append(moe_aux)
     else:
@@ -263,14 +262,16 @@ def _block_fwd(x, blk: Block, cfg: ModelConfig, capture: bool = False,
     return x + y, cache
 
 
-def _encoder_block_fwd(x, blk: Block, cfg: ModelConfig):
+def _encoder_block_fwd(x, blk: Block, cfg: ModelConfig, par: Par = L.ONE):
     """One encoder block (whisper): non-causal self-attention with RoPE,
-    then the dense MLP."""
+    then the dense MLP. Under a mesh x is this rank's (B, S_enc/mp, d)
+    block of the encoder's positions (RoPE at shard·S_enc_loc + i, K/V
+    gathered over ``model``)."""
     dtype = x.dtype
-    h = L.apply_norm(x, blk.ln1, dtype, cfg.norm)
-    x = x + L.attn_sp(h, blk.mix, cfg, causal=False)
-    h = L.apply_norm(x, blk.ln2, dtype, cfg.norm)
-    return x + L.mlp_sp(h, blk.ffn, cfg)
+    h = L.apply_norm(x, blk.ln1, dtype, cfg.norm, par)
+    x = x + L.attn_sp(h, blk.mix, cfg, causal=False, par=par)
+    h = L.apply_norm(x, blk.ln2, dtype, cfg.norm, par)
+    return x + L.mlp_sp(h, blk.ffn, cfg, par)
 
 
 def _checkpoint(fn, *args):
@@ -284,15 +285,17 @@ def _checkpoint(fn, *args):
 
 def encode(model: LM, frames, dtype=torch.bfloat16, remat: bool = False):
     """The encoder over stub frame embeddings (B, S_enc, d): its blocks
-    (with ``remat``, each under its own checkpoint), then ``enc_norm``."""
-    cfg = model.cfg
+    (with ``remat``, each under its own checkpoint), then ``enc_norm``. On
+    a mesh ``frames`` and the output are this rank's (B, S_enc/mp, d)
+    block (``launch.steps.batch_slice`` cuts the frames so)."""
+    cfg, par = model.cfg, model.par
     enc = frames.to(dtype)
     for blk in model.enc_blocks:
         if remat:
-            enc = _checkpoint(_encoder_block_fwd, enc, blk, cfg)
+            enc = _checkpoint(_encoder_block_fwd, enc, blk, cfg, par)
         else:
-            enc = _encoder_block_fwd(enc, blk, cfg)
-    return L.apply_norm(enc, model.enc_norm, dtype, cfg.norm)
+            enc = _encoder_block_fwd(enc, blk, cfg, par)
+    return L.apply_norm(enc, model.enc_norm, dtype, cfg.norm, par)
 
 
 def _group_fwd(x, blocks, cfg: ModelConfig, enc, capture: bool = False,
@@ -350,9 +353,11 @@ def forward_hidden(model: LM, tokens, dtype=torch.bfloat16,
     layers' are not counted).
 
     VLM (llava): ``patches`` (B, P, d) overwrite the token embeddings at
-    positions [0, P) (``cfg.patch_positions``). Encoder-decoder (whisper):
-    ``frames`` (B, S_enc, d) run through the encoder, and every decoder
-    block cross-attends to its output.
+    positions [0, P) (``cfg.patch_positions``); on a mesh each rank's
+    sequence block takes the patch rows at its global positions
+    shard·S_loc + i < P. Encoder-decoder (whisper): ``frames`` (B, S_enc,
+    d; on a mesh this rank's S_enc/mp block) run through the encoder, and
+    every decoder block cross-attends to its output.
 
     ``remat`` (training only): the reference's activation checkpointing.
     Each group of ``len(cfg.block_pattern)`` blocks runs under a
@@ -368,8 +373,13 @@ def forward_hidden(model: LM, tokens, dtype=torch.bfloat16,
                          "cache without it")
     x = L.embed_tokens(tokens, model.embed, dtype, par)
     if cfg.family == "vlm":
-        n = min(cfg.patch_positions, x.shape[1])
-        x = torch.cat([patches[:, :n].to(dtype), x[:, n:]], 1)
+        s_loc = x.shape[1]
+        gpos = P.axis_index(par.mp, par) * s_loc + torch.arange(
+            s_loc, device=x.device)
+        rows = patches.to(dtype).index_select(
+            1, gpos.clamp(max=cfg.patch_positions - 1))
+        x = torch.where((gpos < cfg.patch_positions)[None, :, None], rows,
+                        x)
     enc = (encode(model, frames, dtype, remat)
            if cfg.family == "encdec" else None)
     p = len(cfg.block_pattern)
@@ -421,7 +431,16 @@ def loss_fn(model: LM, batch, dtype=torch.bfloat16, remat: bool = False):
     the NLL total is psummed over the data axes (one all-reduce; its
     gradient passes through), and the count is the local count times the
     data ranks, every rank's rows being the same in number (the
-    reference psums it). Every rank returns the global loss."""
+    reference psums it). Every rank returns the global NLL. The MoE term
+    is the reference's: ``lb_loss`` of the rank's own tokens (the same on
+    every model rank, which routes the same gathered chunk), not reduced
+    over the data axes, so a rank's loss is the reference's loss on the
+    same device. The objective the step descends is the mean of the
+    ranks' losses over the data ranks (the single-device loss when there
+    is one): each of the dp·mp ranks repeats its row block's term once
+    for each model rank, and the backward sums every rank's term, so the
+    term enters the backward scaled by 1/(dp·mp)
+    (:func:`~repro_torch.distributed.par.scale_grad`)."""
     cfg, par = model.cfg, model.par
     h, aux = forward_hidden(model, batch["tokens"], dtype,
                             frames=batch.get("frames"),
@@ -434,7 +453,13 @@ def loss_fn(model: LM, batch, dtype=torch.bfloat16, remat: bool = False):
         nll_sum = P.psum(nll_sum, par.dp, par)
         count *= par.dp_size
     nll = nll_sum / count
-    loss = nll + LB_COEF * aux["lb_loss"] if cfg.moe is not None else nll
+    if cfg.moe is None:
+        loss = nll
+    else:
+        repeats = par.dp_size * par.mp_size
+        lb = (aux["lb_loss"] if repeats == 1
+              else P.scale_grad(aux["lb_loss"], 1.0 / repeats))
+        loss = nll + LB_COEF * lb
     return loss, {"loss": loss, "nll": nll, **aux}
 
 

@@ -3,11 +3,12 @@
 Each function runs on every rank of a group started by
 :func:`repro_torch.distributed.launch.run_ranks` (or on the one rank of
 :func:`~repro_torch.distributed.launch.single_rank`) and returns host
-values. ``tests/test_torch_train_sharded.py`` and ``tests/test_torch_par.py``
+values. ``tests/test_torch_train_sharded*.py`` and ``tests/test_torch_par.py``
 run them with gloo on the CPU, ``tests/test_torch_cuda.py`` on the card.
-A job is a dict: ``arch`` (a reduced config's id), ``device``, ``batch``
-({"tokens", "labels"}: (B, S) numpy), ``steps``, and per function its
-mesh and options.
+A job is a dict: ``arch`` (a reduced config's id) or ``cfg`` (a
+ModelConfig), ``device``, ``batch`` ({"tokens", "labels"}: (B, S) numpy,
+and whisper's "frames" or llava's "patches"), ``steps``, and per function
+its mesh and options.
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ def load_state(model, restored) -> AdamWState:
 
 
 def _setup(job, mesh, **kw):
-    cfg = get_reduced(job["arch"])
+    cfg = job.get("cfg") or get_reduced(job["arch"])
     step, _, build = make_sharded_train_step(
         cfg, mesh, SHAPE, job.get("dtype", torch.float32),
         remat=job.get("remat", False), **kw)
@@ -87,19 +88,51 @@ def _setup(job, mesh, **kw):
     return step, model, opt
 
 
+def _route_margins(margins: list):
+    """Wrap ``layers.moe_route`` so that each call appends its least gap
+    between a token's k-th and (k+1)-th router probability to
+    ``margins``; returns the function that undoes the wrap."""
+    from repro_torch.models import layers as L
+
+    route = L.moe_route
+
+    def held(tokens, router, cfg):
+        r = route(tokens, router, cfg)
+        p = r["probs"].detach().sort(-1, descending=True).values
+        k = cfg.moe.top_k
+        margins.append(float((p[:, k - 1] - p[:, k]).min()))
+        return r
+
+    L.moe_route = held
+    return lambda: setattr(L, "moe_route", route)
+
+
 def train(group, job):
     """``job["steps"]`` sharded steps on mesh ``job["mesh"]`` (shape,
     axes) from ``job["params"]`` (the reference's global numpy tree) or
     the seed: each step's metrics, the collectives of the last step by
-    kind (calls, bytes) and, on rank 0, the final logical weights."""
+    kind (calls, bytes), the least routing margin of every MoE call
+    (``margin``, None without one) and, on rank 0, the logical weights
+    after each step in ``job["keep"]`` (default: the last) by step and the
+    final ones. A rank past the mesh returns None."""
     mesh = make_mesh(*job["mesh"])
-    step, model, opt = _setup(job, mesh, **job.get("kw", {}))
-    batch, out = batch_of(job), []
-    for _ in range(job["steps"]):
-        comm.reset_counts()
-        out.append(metrics_of(step(model, opt, batch)))
-    tally = comm.tally()
-    return {"metrics": out, "tally": tally, "params": logical(model)}
+    if mesh.rank is None:
+        return None
+    margins = []
+    undo = _route_margins(margins)
+    try:
+        step, model, opt = _setup(job, mesh, **job.get("kw", {}))
+        batch, out, kept = batch_of(job), [], {}
+        for i in range(job["steps"]):
+            comm.reset_counts()
+            out.append(metrics_of(step(model, opt, batch)))
+            if i + 1 in job.get("keep", ()):
+                kept[i + 1] = logical(model)
+        tally = comm.tally()
+    finally:
+        undo()
+    return {"metrics": out, "tally": tally, "params": logical(model),
+            "kept": kept, "margin": min(margins, default=None)}
 
 
 def resume(group, job):

@@ -10,9 +10,10 @@ CPU, ``tests/test_torch_cuda.py`` on the card. A job is a dict:
   * ``mesh``: (shape, axis names); ``layout``: "fsdp" (default) or "tp";
   * ``seq_len``, ``batch`` (the global B);
   * ``params``: the reference's global numpy tree (else ``seed``);
-  * ``prompt``: (B, S) numpy token ids to prefill (fsdp), or ``cache``: a
-    reference cache tree (numpy, logical) to start from, else the empty
-    cache of ``init_cache``;
+  * ``prompt``: (B, S) numpy token ids to prefill (fsdp), with whisper's
+    ``frames`` (B, S_enc, d) or llava's ``patches`` (B, P, d), or
+    ``cache``: a reference cache tree (numpy, logical) to start from,
+    else the empty cache of ``init_cache``;
   * ``feed``: the global (B, 1) tokens of the decode steps, in order.
 
 Compute is float32; the rings are bfloat16, as the reference's.
@@ -55,8 +56,21 @@ def serve(group, job):
     ``job["feed"]`` on mesh ``job["mesh"]``. Returns (every rank) the
     logical hidden and cache after the prefill, each step's logical
     logits and next tokens, the final logical cache, the decode-attention
-    kernel's launches a step and the collectives of the last step by kind
-    (this rank's)."""
+    kernel's launches a step, the collectives of the last step by kind
+    (this rank's), the rank's first layer's cache shapes and the least
+    routing margin of its MoE calls (``margin``)."""
+    from _torch_lm_ranks import _route_margins
+
+    margins = []
+    undo = _route_margins(margins)
+    try:
+        out = _serve(job)
+    finally:
+        undo()
+    return out | {"margin": min(margins, default=None)}
+
+
+def _serve(job):
     cfg = job.get("cfg") or get_reduced(job["arch"])
     dev = job["device"]
     if torch.device(dev).type == "cuda":
@@ -82,7 +96,10 @@ def serve(group, job):
     if job.get("prompt") is not None:
         pstep, pspecs, _ = make_sharded_prefill(
             cfg, mesh, ShapeConfig("prefill", seq, b, "prefill"), f32)
-        cache, h = pstep(model, torch.as_tensor(job["prompt"], device=dev))
+        extra = {k: torch.as_tensor(job[k], device=dev)
+                 for k in ("frames", "patches") if job.get(k) is not None}
+        cache, h = pstep(model, torch.as_tensor(job["prompt"], device=dev),
+                         **extra)
         out["hidden"] = gathered(h, pspecs["out"], par)
         out["prefill_cache"] = gathered_cache(cache, pspecs["cache"], par)
     elif job.get("cache") is not None:
@@ -101,6 +118,8 @@ def serve(group, job):
             P.gather_logical(nxt, specs["tokens"], par).cpu().numpy())
     out["cache"] = gathered_cache(cache, specs["cache"], par)
     out["ring_local"] = tuple(cache["layers"][0]["k"].shape)
+    out["shapes_local"] = {n: tuple(v.shape)
+                           for n, v in cache["layers"][0].items()}
     return out
 
 

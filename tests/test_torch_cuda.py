@@ -1669,9 +1669,9 @@ def test_moe_tokens_on_card_matches_cpu(dev, arch, t):
     r_cpu = L.moe_route(x, ffn.router, cfg)
     p = r_cpu["probs"].sort(-1, descending=True).values
     assert float((p[:, 1] - p[:, 2]).min()) >= 1e-4
-    y_cpu, aux_cpu = L.moe_tokens(x, ffn, cfg)
+    y_cpu, aux_cpu = L.moe_tokens(x, L.moe_weights(ffn, x.dtype), cfg)
     ffn_dev = T.init_model(cfg, 0, "cpu", torch.float32).to(dev).blocks[0].ffn
-    y, aux = L.moe_tokens(x.to(dev), ffn_dev, cfg)
+    y, aux = L.moe_tokens(x.to(dev), L.moe_weights(ffn_dev, x.dtype), cfg)
     r = L.moe_route(x.to(dev), ffn_dev.router, cfg)
     for name in ("expert", "order", "ok", "slot"):
         assert torch.equal(r[name].cpu(), r_cpu[name]), name
@@ -2017,11 +2017,12 @@ def test_decode_attention_merge_of_blocks_on_card(dev, t):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
-def _serve_single(cfg, dev, prompt, feed_len, seq):
-    """The single-device prefill of ``prompt`` and ``feed_len`` greedy
-    steps (float32, bf16 ring): hidden, logits, tokens, final cache."""
+def _serve_single(cfg, dev, prompt, feed_len, seq, **frontend):
+    """The single-device prefill of ``prompt`` (with whisper's ``frames``
+    or llava's ``patches``) and ``feed_len`` greedy steps (float32, bf16
+    ring): hidden, logits, tokens, final cache."""
     model = T.init_model(cfg, 0, dev)
-    cache, h = SV.prefill(model, prompt, seq, torch.float32)
+    cache, h = SV.prefill(model, prompt, seq, torch.float32, **frontend)
     tok = torch.as_tensor(prompt[:, -1:])  # any token: fed to both runs
     feed, logits, toks = [], [], []
     for _ in range(feed_len):
@@ -2093,3 +2094,104 @@ def test_four_gloo_ranks_sharded_serve_on_card(dev):
             for a, b in zip(got["logits"], want):
                 np.testing.assert_allclose(a, b.cpu().numpy(), rtol=0,
                                            atol=5e-4)
+
+
+# ---------------------------------------------------------------------------
+# The sharded MoE, encoder-decoder and VLM families: one NCCL rank, and the
+# merge of whisper's cross K/V blocks on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "arctic-480b",
+                                  "whisper-tiny", "llava-next-mistral-7b"])
+def test_one_nccl_rank_sharded_family_serve_is_bitwise_single_device(dev,
+                                                                      arch):
+    """A family twin on a (1, 1) mesh of one NCCL rank: the sharded
+    prefill (frames or patches through ``batch_slice``) and 5 decode steps
+    (the MoE's expert-ff partial and its psum, whisper's cross blocks and
+    their merge) bit for bit the single device's; one decode-attention
+    launch a layer a step, two for whisper."""
+    import _torch_serve_ranks as ranks
+    from repro_torch.distributed.launch import single_rank
+
+    cfg = get_reduced(arch)
+    prompt = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (4, 28)), device=dev)
+    front = _frontend(cfg, 4, dev,
+                      torch.Generator(device=dev).manual_seed(11))
+    h, logits, toks, cache, feed = _serve_single(cfg, dev, prompt, 5, 32,
+                                                 **front)
+    with single_rank("nccl", "cuda"):
+        got = ranks.serve(None, dict(
+            arch=arch, device="cuda", mesh=((1, 1), ("data", "model")),
+            seq_len=32, batch=4, prompt=prompt.cpu().numpy(), feed=feed,
+            **{k: v.cpu().numpy() for k, v in front.items()}))
+    per_layer = 2 if cfg.family == "encdec" else 1
+    assert got["launches"] == [per_layer * cfg.n_layers] * 5
+    assert np.array_equal(got["hidden"], h.float().cpu().numpy())
+    for a, b in zip(got["logits"], logits):
+        assert np.array_equal(a, b.cpu().numpy())
+    for a, b in zip(got["tokens"], toks):
+        assert np.array_equal(a, b.cpu().numpy())
+    for g_, w_ in zip(got["cache"]["layers"], cache["layers"]):
+        assert set(g_) == set(w_)
+        for n in g_:
+            assert np.array_equal(g_[n], w_[n].float().cpu().numpy()), n
+
+
+def test_one_nccl_rank_sharded_moe_step_is_bitwise_single_device(dev):
+    """The reduced mixtral twin in bf16 with remat, at its own capacity
+    factor: 2 steps of the sharded step on a (1, 1) mesh of one NCCL rank
+    are bitwise the single-device step's (loss, lb_loss, drop_frac,
+    grad_norm, every weight)."""
+    import _torch_lm_ranks as ranks
+    from repro_torch.distributed.launch import single_rank
+
+    cfg = get_reduced("mixtral-8x7b")
+    gen = np.random.default_rng(3)
+    toks = gen.integers(0, cfg.vocab_size, (8, 65), dtype=np.int64)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    model = T.init_model(cfg, 0, dev).requires_grad_(True)
+    opt = T.init_opt(model)
+    step = T.make_train_step(cfg, torch.bfloat16, remat=True, warmup_steps=1)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    single = [ranks.metrics_of(step(model, opt, b)) for _ in range(2)]
+    with single_rank("nccl", "cuda") as group:
+        got = ranks.train(group, dict(arch="mixtral-8x7b", device="cuda",
+                                      batch=batch, steps=2, remat=True,
+                                      dtype=torch.bfloat16,
+                                      kw=dict(warmup_steps=1),
+                                      mesh=((1, 1), ("data", "model"))))
+    assert got["metrics"] == single
+    for n, p in model.named_parameters():
+        assert np.array_equal(got["params"][n], p.detach().float().cpu()
+                              .numpy()), n
+
+
+@pytest.mark.parametrize("blocks", [2, 4])
+def test_decode_attention_cross_blocks_merge_on_card(dev, blocks):
+    """Whisper-tiny's cross K/V (H = Hk = 6, D = 64, 1,504 encoder
+    positions, bf16) cut into ``blocks`` blocks of positions, as the model
+    ranks hold them: the kernel on each block at the cross query position
+    (every position valid, no window), merged by the ranks' formula,
+    within 1e-6 of the kernel and of the plain version over the whole
+    cross cache."""
+    g = torch.Generator().manual_seed(30)
+    b, h, hk, d, s_enc = 2, 6, 6, 64, 1504
+    loc = s_enc // blocks
+    q = torch.randn(b, h, d, generator=g).to(dev)
+    k = torch.randn(b, s_enc, hk, d, generator=g).to(torch.bfloat16).to(dev)
+    v = torch.randn(b, s_enc, hk, d, generator=g).to(torch.bfloat16).to(dev)
+    pos = torch.arange(loc, dtype=torch.int32, device=dev)
+    before = aops.launch_count
+    parts = [aops.decode_attention(q, k[:, i:i + loc].contiguous(),
+                                   v[:, i:i + loc].contiguous(), pos,
+                                   SV.CROSS_T)
+             for i in range(0, s_enc, loc)]
+    assert aops.launch_count == before + blocks
+    got = aops.merge_stacked(*(torch.stack(x) for x in zip(*parts)))
+    whole_pos = torch.arange(s_enc, dtype=torch.int32, device=dev)
+    whole = aops.decode_attention(q, k, v, whole_pos, SV.CROSS_T)[0]
+    plain = decode_attention_ref(q, k, v, whole_pos, SV.CROSS_T)[0]
+    assert float((got - whole).abs().max()) <= 1e-6
+    assert float((got - plain).abs().max()) <= 1e-6

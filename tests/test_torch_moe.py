@@ -118,7 +118,7 @@ def _check_moe_tokens(twin, x, layer=0):
     _hold_from_ties(probs, cfg.moe.top_k)
     y_ref, aux_ref = twin.jax_moe_tokens(x, layer)
     xt = torch.from_numpy(x)
-    y, aux = L.moe_tokens(xt, ffn, cfg)
+    y, aux = L.moe_tokens(xt, L.moe_weights(ffn, xt.dtype), cfg)
     np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), **TOL)
     route = L.moe_route(xt, ffn.router, cfg)
     assert _port_kept(route, cfg.moe.top_k) == kept
@@ -193,7 +193,8 @@ def test_arctic_dense_residual_is_the_swiglu_beside_the_experts():
     x = torch.from_numpy(np.random.default_rng(6).normal(
         0, 1, (2, 16, twin.cfg.d_model)).astype(np.float32))
     y, _ = L.moe_sp(x, ffn, twin.cfg)
-    experts, _ = L.moe_tokens(x.reshape(-1, x.shape[-1]), ffn, twin.cfg)
+    experts, _ = L.moe_tokens(x.reshape(-1, x.shape[-1]),
+                              L.moe_weights(ffn, x.dtype), twin.cfg)
     dense = L.mlp_tp(x, ffn.dense, "swiglu")
     torch.testing.assert_close(y, experts.view(x.shape) + dense)
     assert float(dense.abs().max()) > 0.1

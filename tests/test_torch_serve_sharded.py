@@ -45,8 +45,10 @@ and with every block empty (``MERGE_ATOL``, measured ≤ 2.4e-7);
 across shards; the serving-resident placement and ``cache_pspecs`` equal
 the reference's; a decode started from the reference's own prefill cache
 (``convert.lm_cache``) matches it as one from the port's prefill; the
-step functions refuse the archs whose sharded paths are later ROADMAP steps,
-naming the step.
+step functions refuse the TP-mode archs, whose sharded paths are a later
+ROADMAP step, naming the step, and build the MoE, encoder-decoder and VLM
+archs' steps, whose rank caches make up the single-device cache (their
+runs against the reference: ``tests/test_torch_serve_sharded_families.py``).
 """
 
 import dataclasses
@@ -545,12 +547,33 @@ def test_cache_pspecs_match_reference(mesh, seq, serve_tp):
     ("llava-next-mistral-7b", "step 2"), ("recurrentgemma-9b", "step 3"),
     ("rwkv6-7b", "step 3")])
 def test_serving_steps_refuse_later_steps(arch, step):
+    """The TP-mode archs (ROADMAP item 9f step 3) are refused, naming the
+    step. Step 2's (MoE, encoder-decoder, VLM) build both steps, and each
+    rank's cache shard in either layout, times the mesh axes its specs
+    split it over, is the single-device cache (whisper's ``ck``/``cv``
+    included)."""
     cfg = get_reduced(arch)
     mesh = Mesh(AXES, (2, 2))
-    for build, kind in ((make_sharded_prefill, "prefill"),
-                        (make_sharded_decode, "decode")):
-        with pytest.raises(NotImplementedError, match=step):
-            build(cfg, mesh, ShapeConfig("s", 32, 4, kind))
+    if step == "step 3":
+        for build, kind in ((make_sharded_prefill, "prefill"),
+                            (make_sharded_decode, "decode")):
+            with pytest.raises(NotImplementedError, match=step):
+                build(cfg, mesh, ShapeConfig("s", 32, 4, kind))
+        return
+    make_sharded_prefill(cfg, mesh, ShapeConfig("s", 32, 4, "prefill"))
+    par = make_par(mesh)
+    whole = SV.init_cache(cfg, 4, 32, torch.bfloat16, "meta")["layers"]
+    for layout in ("fsdp", "tp"):
+        _, specs, _ = make_sharded_decode(
+            cfg, mesh, ShapeConfig("s", 32, 4, "decode"), layout=layout)
+        mine = SV.init_cache(cfg, 2, 32, torch.bfloat16, "meta", par,
+                             layout == "tp")["layers"]
+        for c, sp, w in zip(mine, specs["cache"]["layers"], whole):
+            assert set(c) == set(sp) == set(w)
+            for n, t in c.items():
+                logical = tuple(d * mesh.size_of(a)
+                                for d, a in zip(t.shape, sp[n].dims))
+                assert logical == tuple(w[n].shape), (layout, n)
 
 
 def test_tp_layout_needs_divisible_heads():
