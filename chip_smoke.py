@@ -272,7 +272,7 @@ a register and a wide softmax kernel):
    one NCCL rank on mesh (1, 1) bitwise the single-device step; 4 gloo
    ranks over CUDA tensors on (data=2, model=2), their loss and gradient
    norm against the single device's, one ``fused_ce`` launch a step a
-   rank (on its vocabulary shard); the state saved after step 2 (logical
+   rank (on its vocabulary shard); the state saved after step 1 (logical
    arrays) and restored onto (2, 2), (1, 2) and one device, every leaf
    the same and the resumed steps bitwise; compressed pod gradients on
    (pod=2, data=1, model=2) at 2 layers within 5% of exact; then
@@ -287,7 +287,7 @@ a register and a wide softmax kernel):
    2,064 slots, then 8 greedy steps) on one NCCL rank on mesh (1, 1),
    bitwise the single device, and on 4 gloo ranks on (data=2, model=2)
    within 1% of its largest values; the serving-resident layout at all 28
-   layers on the same ranks from an empty cache, 8 forced and 4 greedy
+   layers on the same ranks from an empty cache, 4 forced and 2 greedy
    steps, against the single device; one ``decode_attention`` launch a
    layer a step on every rank (the kernel at a rank's ring block and at
    the tp ring against its plain version and ``sdpa``, and the blocks'
@@ -315,7 +315,23 @@ a register and a wide softmax kernel):
    blocks' merge against the whole cross cache, and ``fused_ce`` on half
    of mixtral's and whisper's heads. Prints step and token ms, peak memory
    a rank, the collectives a step, launches, the gaps and the tokens
-   compared.
+   compared;
+22. runs the TP-mode archs' sharded paths (``sharded_tp_path``,
+   ``TP_SHARDED``) at full width: recurrentgemma-9b cut to 3 of 38 layers
+   and rwkv6-7b to 2 of 32. Training (bf16, remat, 2 × 2048 tokens, 2
+   steps) and serving (float32 compute, bf16 rings, batch 4: the fsdp
+   prefill of a 2,048-token prompt and 4 greedy steps, then 4 steps of
+   the tp layout from the same prefill's cache) on one device and on one
+   NCCL rank on (1, 1), bitwise; then one spawn of 4 gloo ranks on
+   (data=2, model=2) runs both archs' training (step 1's loss and
+   grad_norm against the single device's; rwkv6's grad_norm on a float32
+   step, ``TP_F32_GRAD``) and serving against the single device, every
+   decided token equal. The scans run at r/mp channels and H/mp heads,
+   ``fused_ce`` on V/mp columns, ``decode_attention`` on 8 query heads a
+   rank against the whole MQA ring; each at those shapes against its
+   plain version with the kernel phases (``tp_shard_kernel_phases``).
+   Prints step and token ms, peak memory a rank, the collectives a step,
+   launches and the gaps.
 
 Any failure raises (nonzero exit, no result line). The build's ptxas
 registers, shared memory and spills are printed per kernel. The last two
@@ -493,13 +509,14 @@ RWKV_TRAIN_LAYERS, RWKV_TRAIN_STEPS = 12, 4
 # cut to 2 of 28 layers (0.990 B params, 15.8 GB of f32 weights, gradients
 # and moments summed over the ranks), remat, bf16 compute, 2 × 2048 tokens,
 # seed 0; warmup 1 so that the steps move the weights. Mesh (1, 1) on one
-# NCCL rank; (data=2, model=2) on 4 gloo ranks sharing the card, 3 steps,
-# the state saved after step 2; (pod=2, data=1, model=2) at 2 layers, 3
+# NCCL rank; (data=2, model=2) on 4 gloo ranks sharing the card, 2 steps,
+# the state saved after step 1; (pod=2, data=1, model=2) at 2 layers, 3
 # steps with and without the compressed pod gradients (peak lr 1e-3 and
 # warmup 200, the reference test's schedule). (8 layers and 4 steps until
-# the sharded serving path joined the smoke.)
+# the sharded serving path joined the smoke; 3 steps, saved after 2,
+# until the TP-mode archs' path did.)
 SHARDED_ARCH, SHARDED_LAYERS, SHARDED_SEED = "llama3.2-3b", 2, 0
-SHARDED_BATCH, SHARDED_SEQ, SHARDED_STEPS, SHARDED_SAVE_AT = 2, 2048, 3, 2
+SHARDED_BATCH, SHARDED_SEQ, SHARDED_STEPS, SHARDED_SAVE_AT = 2, 2048, 2, 1
 SHARDED_KW = dict(warmup_steps=1)
 COMPRESS_LAYERS, COMPRESS_STEPS = 2, 3
 COMPRESS_KW = dict(peak_lr=1e-3)  # tests/test_distributed_training.py's
@@ -510,16 +527,16 @@ SHARDED_TIMEOUT_S = 900
 # slots a rank on model = 2), then 8 greedy tokens; one NCCL rank on
 # (1, 1), then 4 gloo ranks on (data=2, model=2). The serving-resident
 # layout ("tp", bf16 weights) at all 28 layers on (2, 2) from an empty
-# cache: 8 teacher-forced steps, then 4 greedy ones. Rings in bf16;
+# cache: 4 teacher-forced steps, then 2 greedy ones. Rings in bf16;
 # compute in float32 (SERVE_DTYPE), so that the 4-rank runs can be held to
 # the single device's at SERVE_TOL of the largest reference value: in bf16
 # the ranks' sums in another order drift by ~1 ulp a layer (1.2% of the
 # largest logit at 2 layers in a CPU run), as far as a wrong merge would.
 # (fsdp at 8 layers, tp 16 + 8 steps until the sharded families' path
-# joined the smoke.)
+# joined the smoke; tp 8 + 4 until the TP-mode archs' path did.)
 SERVE_FSDP_LAYERS, SERVE_BATCH = 4, 4
 SERVE_PROMPT, SERVE_SEQ, SERVE_GEN = 2048, 2064, 8
-SERVE_TP_FORCED, SERVE_TP_GREEDY = 8, 4
+SERVE_TP_FORCED, SERVE_TP_GREEDY = 4, 2
 SERVE_DTYPE, SERVE_TOL = torch.float32, 1e-2
 # The new LM heads of fused_ce on the SP path (d_model, padded vocab come
 # from these configs; llava's is mixtral's): T = SP_BATCH × (SP_SEQ − 1).
@@ -554,6 +571,37 @@ FAMILY_NO_DROP_CF = 4.0
 # few of 4,096 pairs: a routing decision within bf16 rounding of a tie may
 # go the other way), grad_norm relative.
 FAMILY_LOSS_TOL, FAMILY_DROP_TOL, FAMILY_GNORM_TOL = 2e-3, 2e-3, 1e-2
+# The TP-mode archs' sharded paths (sharded_tp_path): (arch, layers) at
+# the published widths, seed 0: recurrentgemma-9b cut to 3 of 38 layers
+# (one rglru, rglru, attn group; 2.61 B parameters, 2.10 B of them in the
+# 256,000-row table and head: 41.8 GB of f32 weights, gradients and
+# moments, 10.4 GB a rank on (2, 2)) and rwkv6-7b cut to 2 of 32 (0.97 B).
+# One spawn of 4 gloo ranks on (data=2, model=2), and one NCCL rank on
+# (1, 1) bitwise the single device. Training as sharded_train_path (bf16
+# compute, f32 master weights, remat, warmup 1): SHARDED_BATCH ×
+# TP_TRAIN_SEQ tokens, TP_TRAIN_STEPS steps, step 1 against the single
+# device's within TP_LOSS_TOL (loss) and TP_GNORM_TOL (grad_norm),
+# relative. Serving (SERVE_DTYPE compute, bf16 rings, batch SERVE_BATCH):
+# the fsdp prefill of a TP_PROMPT-token prompt into a TP_SEQ ring (the
+# local-attention window: 2,048 slots, wrapped by the greedy steps), the
+# first token from the hidden's last row, TP_GEN greedy steps; then the tp
+# layout (bf16 weights, the data axes excluded) TP_GEN greedy steps from
+# the same prefill's cache: a TP-mode arch's rank holds the same cache in
+# both layouts (its MQA head, its RG-LRU channels, its WKV heads).
+TP_SHARDED = (("recurrentgemma-9b", 3), ("rwkv6-7b", 2))
+TP_TRAIN_SEQ, TP_TRAIN_STEPS = 2048, 2
+TP_PROMPT, TP_SEQ, TP_GEN = 2048, 2064, 4
+TP_LOSS_TOL, TP_GNORM_TOL = 2e-3, 1e-2
+# rwkv6-7b's bf16 gradient is not a reference at its init: u = 0 leaves
+# the first token's WKV output exactly 0, where the group norm's rsqrt(0 +
+# 1e-6) multiplies its cotangent by 1e3, and a bf16 rounding anywhere
+# upstream moves the gradient by percents (the reduced twin on the CPU:
+# grad_norm 1,844.63 in f32, 1,739.74 in bf16 on one device, 2,078.48 in
+# bf16 on (2, 2); at full width on an H100 80GB HBM3, 700 W: 56% between
+# one device and the 4 ranks). Its grad_norm is held to one device's on a
+# float32 step from the same seed instead (loss and grad_norm within
+# TP_LOSS_TOL and TP_GNORM_TOL); the bf16 steps' gap is printed.
+TP_F32_GRAD = ("rwkv6-7b",)
 
 
 def log(msg: str) -> None:
@@ -5611,6 +5659,513 @@ def sharded_family_path(dev):
     return {"decode_attention": attn_launches, "fused_ce": ce_launches}
 
 
+def _tp_cfg(arch: str, layers: int):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=layers)
+
+
+def _kernel_counts() -> dict:
+    """Every LM kernel wrapper's launch count (a snapshot)."""
+    from repro_torch.kernels.decode_attention import ops as aops
+    from repro_torch.kernels.fused_ce import ops as cops
+    from repro_torch.kernels.rglru_scan import ops as gops
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+
+    return {"rglru_scan": gops.launch_count,
+            "rglru_scan_bwd": gops.bwd_launch_count,
+            "rwkv6_scan": wops.launch_count,
+            "rwkv6_scan_bwd_ds": wops.bwd_ds_launch_count,
+            "rwkv6_scan_bwd_chunk": wops.bwd_chunk_launch_count,
+            "fused_ce": cops.launch_count,
+            "decode_attention": aops.launch_count}
+
+
+def _counted(fn):
+    """(fn(), the kernel launches it made, by wrapper)."""
+    before = _kernel_counts()
+    out = fn()
+    after = _kernel_counts()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def _tp_serve_run(cfg, dev, prompt, mesh=None, feed=None):
+    """The TP-mode serving run of ``cfg``'s model of SHARDED_SEED, on one
+    device (``mesh`` None) or as this rank of ``mesh`` (shape, axes): the
+    fsdp prefill of ``prompt`` (SERVE_BATCH, TP_PROMPT) into a TP_SEQ
+    ring (f32 weights), the first token from the hidden's last row,
+    TP_GEN − 1 more greedy steps; then, from a copy of the prefill's
+    cache, the same TP_GEN steps with the tp layout's bf16 weights. With
+    ``feed`` ({layout: the TP_GEN global (B, 1) tokens}, a single device's
+    run's) each step is fed its token instead of the last step's. Returns
+    per layout the logical hidden (fsdp), first token, logits and tokens a
+    step, the logical final cache, times, kernel launches and collectives
+    a step, peak memory and this rank's cache shapes."""
+    from repro_torch.distributed import par as P
+    from repro_torch.launch.mesh import make_mesh, make_par
+    from repro_torch.launch.steps import (make_sharded_decode,
+                                          make_sharded_prefill)
+    from repro_torch.models import serving as SV
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+
+    dt, bf = SERVE_DTYPE, torch.bfloat16
+    out = {}
+    if mesh is None:
+        par = P.Par()
+        gather = lambda t, spec: t
+        models = {"fsdp": lambda: T.init_model(cfg, SHARDED_SEED, dev),
+                  "tp": lambda: T.init_model(cfg, SHARDED_SEED, dev, bf)}
+        step = lambda m, c, t: SV.decode_step(m, c, t, TP_SEQ, dt)
+        steps = {"fsdp": step, "tp": step}
+        prefill = lambda m, p: SV.prefill(m, p, TP_SEQ, dt, bf)
+        specs = {"fsdp": None, "tp": None}
+        pspec = None
+    else:
+        mesh = make_mesh(*mesh)
+        par = make_par(mesh)
+        gather = lambda t, spec: P.gather_logical(t, spec, par)
+        steps, models, specs = {}, {}, {}
+        for layout in ("fsdp", "tp"):
+            st, sp, build = make_sharded_decode(
+                cfg, mesh, ShapeConfig("decode", TP_SEQ, SERVE_BATCH,
+                                       "decode"), dt, layout)
+            steps[layout], specs[layout] = st, sp
+            models[layout] = (lambda b: lambda: b(SHARDED_SEED, dev)[0])(
+                build)
+        pstep, pspecs, _ = make_sharded_prefill(
+            cfg, mesh, ShapeConfig("prefill", TP_SEQ, SERVE_BATCH,
+                                   "prefill"), dt)
+        prefill = pstep
+        pspec = pspecs["out"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = models["fsdp"]()
+    prompt = torch.as_tensor(prompt, device=dev)
+    ((cache, h), out["prefill_ms"]), out["prefill_launches"] = _counted(
+        lambda: _timed(lambda: prefill(model, prompt)))
+    out["hidden"] = gather(h, pspec) if pspec is not None else h
+    head = P.gather_param(model.embed.head, model.embed.specs["head"], dt,
+                          par)
+    rows = h[:, -1:]  # the TP-mode hidden is whole over `model`
+    tok0 = SV.vocab_parallel_argmax((rows @ head).float(), par)
+    out["tok0"] = (gather(tok0, specs["fsdp"]["tokens"])
+                   if mesh is not None else tok0)
+    del h, head, rows
+    saved = [{n: v.clone() for n, v in c.items()} for c in cache["layers"]]
+    t_saved = cache["t"]
+    out["shapes"] = [{n: tuple(v.shape) for n, v in c.items()}
+                     for c in cache["layers"]]
+    for layout in ("fsdp", "tp"):
+        if layout == "tp":
+            del model
+            torch.cuda.empty_cache()
+            model = models["tp"]()
+            cache = {"t": t_saved, "layers": saved}
+        forced = ([out["tok0"]] if feed is None
+                  else [t.to(dev) for t in feed[layout]])
+        (run, cache), launches = _counted(
+            lambda: _decode_run(steps[layout], model, cache, forced,
+                                TP_GEN - len(forced)))
+        sp = specs[layout]
+        res = {"ms": run["ms"], "collectives": run["collectives"],
+               "launches": run["launches"], "kernel_launches": launches}
+        if mesh is None:
+            res.update(logits=run["logits"], tokens=run["tokens"],
+                       cache=cache["layers"])
+        else:
+            res.update(
+                logits=[gather(x, sp["out"]) for x in run["logits"]],
+                tokens=[gather(x, sp["tokens"]) for x in run["tokens"]],
+                cache=[{n: gather(c[n], s[n]) for n in c}
+                       for c, s in zip(cache["layers"],
+                                       sp["cache"]["layers"])])
+        out[layout] = res
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    del model, cache, saved
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_serve_gaps(got, ref) -> dict:
+    """A sharded TP-mode serving run's gaps to the single device's: the
+    hidden, and per layout each step's logits and the final cache's
+    float leaves (K/V, states, histories, shifts) as max|Δ| over the
+    reference's max; ring positions and the first token equal; the greedy
+    tokens of the rows whose reference top-2 gap clears SERVE_TOL (rows
+    compared, rows equal)."""
+    gaps = {"hidden": _rel_gap(got["hidden"].cpu(), ref["hidden"]),
+            "tok0_equal": bool(torch.equal(got["tok0"].cpu(),
+                                           ref["tok0"].cpu()))}
+    for layout in ("fsdp", "tp"):
+        g, r = got[layout], ref[layout]
+        clear = [_clear_rows(b, SERVE_TOL) for b in r["logits"]]
+        gaps[layout] = {
+            "logits": max(_rel_gap(a.cpu(), b.cpu())
+                          for a, b in zip(g["logits"], r["logits"])),
+            "cache": max(_rel_gap(a[n].cpu(), b[n].cpu())
+                         for a, b in zip(g["cache"], r["cache"])
+                         for n in a if n != "pos"),
+            "pos_equal": all(torch.equal(a["pos"].cpu(), b["pos"].cpu())
+                             for a, b in zip(g["cache"], r["cache"])
+                             if "pos" in a),
+            "tokens_compared": sum(int(c.sum()) for c in clear),
+            "tokens_equal": sum(
+                int((a.view(-1).cpu()[c.cpu()]
+                     == b.view(-1).cpu()[c.cpu()]).sum())
+                for a, b, c in zip(g["tokens"], r["tokens"], clear))}
+    return gaps
+
+
+def _tp_bitwise(got, ref) -> bool:
+    """Whether two TP-mode serving runs are the same bits: hidden, first
+    token, and per layout every step's logits and tokens and the final
+    cache."""
+    same = lambda a, b: torch.equal(a.cpu(), b.cpu())
+    return (same(got["hidden"], ref["hidden"])
+            and same(got["tok0"], ref["tok0"])
+            and all(same(a, b) for layout in ("fsdp", "tp")
+                    for k in ("logits", "tokens")
+                    for a, b in zip(got[layout][k], ref[layout][k]))
+            and all(same(a[n], b[n]) for layout in ("fsdp", "tp")
+                    for a, b in zip(got[layout]["cache"],
+                                    ref[layout]["cache"]) for n in a))
+
+
+def _tp_rank(group, job):
+    """One of the 4 gloo ranks on (data=2, model=2): per TP-mode arch,
+    TP_TRAIN_STEPS sharded train steps from the seed (the kernels'
+    launches counted), then :func:`_tp_serve_run`, whose gaps to the
+    single device's run (the parent's, saved to ``job["ref"]``) rank 0
+    computes. Returns host values."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_sharded_train_step
+    from repro_torch.models.config import ShapeConfig
+
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    refs = (torch.load(job["ref"], map_location="cpu", weights_only=False)
+            if dist.get_rank() == 0 else {})
+    axes = ("data", "model")
+    mesh = make_mesh((2, 2), axes)
+    out = {"rank": mesh.rank}
+    for arch, layers in TP_SHARDED:
+        cfg, res = _tp_cfg(arch, layers), {}
+        t0 = time.perf_counter()
+        shape = ShapeConfig("tp", TP_TRAIN_SEQ, SHARDED_BATCH, "train")
+        step, _, build = make_sharded_train_step(
+            cfg, mesh, shape, torch.bfloat16, remat=True, **SHARDED_KW)
+        torch.cuda.reset_peak_memory_stats(dev)
+        model, opt = build(SHARDED_SEED, dev)
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in job["batch"][arch].items()}
+        res["train"], res["train_launches"] = _counted(
+            lambda: _timed_steps(step, model, opt, batch, TP_TRAIN_STEPS))
+        res["train_peak"] = torch.cuda.max_memory_allocated(dev)
+        del model, opt, step, build
+        torch.cuda.empty_cache()
+        if arch in TP_F32_GRAD:
+            step, _, build = make_sharded_train_step(
+                cfg, mesh, shape, torch.float32, remat=True, **SHARDED_KW)
+            model, opt = build(SHARDED_SEED, dev)
+            res["train_f32"] = _timed_steps(step, model, opt, batch, 1)[0]
+            del model, opt, step, build
+            torch.cuda.empty_cache()
+        del batch
+        res["train_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run = _tp_serve_run(cfg, dev, job["prompt"][arch], ((2, 2), axes),
+                            job["feed"][arch])
+        res["serve_s"] = time.perf_counter() - t0
+        ref = refs.pop(arch, None)
+        if ref is not None:
+            res["gaps"] = _tp_serve_gaps(run, ref)
+        res["serve"] = {k: run[k] for k in ("prefill_ms", "prefill_launches",
+                                            "peak", "shapes")}
+        for layout in ("fsdp", "tp"):
+            res["serve"][layout] = {k: run[layout][k] for k in (
+                "ms", "collectives", "launches", "kernel_launches")}
+        del run, ref
+        torch.cuda.empty_cache()
+        if mesh.rank == 0:
+            log(f"  tp rank 0: {arch} done ({res['train_s']:.1f} s training, "
+                f"{res['serve_s']:.1f} s serving)")
+        out[arch] = res
+    return out
+
+
+def tp_shard_kernel_phases(dev):
+    """The four kernels at the shapes a (2, 2) rank of the TP-mode archs'
+    sharded paths gives them, each against its plain version: the RG-LRU
+    scan forward and backward at r/mp = 2,048 channels (a data rank's
+    training row, B = 1 × S = TP_TRAIN_SEQ, and the prefill's B =
+    SERVE_BATCH / 2 × TP_PROMPT); the WKV6 forward and the two-pass
+    backward at H/mp = 32 heads over one 512-step time chunk of a data
+    rank's row; ``fused_ce`` on a model rank's vocabulary block, V/mp =
+    128,000 (recurrentgemma) and 32,768 (rwkv6), at a data rank's
+    TP_TRAIN_SEQ rows; ``decode_attention`` on recurrentgemma's 8 query
+    heads a model rank against its whole MQA ring (Hk = 1, W = 2,048, D =
+    256, window 2,048) at the last greedy step. Returns (rglru forwards,
+    rglru backwards, WKV forwards, WKV backwards, fused_ce, attention)."""
+    from repro_torch.models.layers import RWKV_TIME_CHUNK
+
+    g_cfg = _tp_cfg("recurrentgemma-9b", 3)
+    w_cfg = _tp_cfg("rwkv6-7b", 2)
+    r_loc = g_cfg.rnn_dim // 2
+    h_loc, d = w_cfg.n_heads // 2, w_cfg.resolved_head_dim
+    gen = torch.Generator().manual_seed(31)
+    scan = [rglru_phase("sharded-tp-train-rank", SHARDED_BATCH // 2,
+                        TP_TRAIN_SEQ, r_loc, -5.0, False, dev, gen),
+            rglru_phase("sharded-tp-prefill-rank", SERVE_BATCH // 2,
+                        TP_PROMPT, r_loc, -5.0, False, dev, gen)]
+    scan_bwd = [rglru_grad_phase("sharded-tp-backward-rank",
+                                 SHARDED_BATCH // 2, TP_TRAIN_SEQ, r_loc,
+                                 -5.0, False, dev, gen)]
+    wkv = [rwkv_phase("sharded-tp-rank", SHARDED_BATCH // 2, h_loc,
+                      RWKV_TIME_CHUNK, d, None, dev, gen)]
+    wkv_bwd = [rwkv_grad_phase("sharded-tp-rank", SHARDED_BATCH // 2, h_loc,
+                               RWKV_TIME_CHUNK, d, None, dev, gen)]
+    ce = [fused_ce_shard_phase(dev, c, TP_TRAIN_SEQ, f"vocab-shard-{n}")
+          for n, c in (("recurrentgemma", g_cfg), ("rwkv6", w_cfg))]
+    w = min(g_cfg.local_attn_window, TP_SEQ)
+    attn = [decode_attention_phase(
+        "sharded-tp-mqa", SERVE_BATCH // 2, g_cfg.n_heads // 2,
+        g_cfg.n_kv_heads, g_cfg.resolved_head_dim, w,
+        TP_PROMPT + TP_GEN - 1, g_cfg.local_attn_window, torch.bfloat16,
+        dev, gen)]
+    torch.cuda.empty_cache()
+    return scan, scan_bwd, wkv, wkv_bwd, ce, attn
+
+
+def sharded_tp_path(dev):
+    """The TP-mode archs' sharded training, prefill and decode
+    (``launch.steps.make_sharded_train_step``, ``make_sharded_prefill``,
+    ``make_sharded_decode`` in both layouts) at full width (TP_SHARDED):
+
+    (a) per arch on the single device: TP_TRAIN_STEPS training steps,
+        then on one NCCL rank on mesh (1, 1) the same steps (metrics
+        bitwise, every weight and moment by :func:`_leaf_digest`), and
+        the serving run (:func:`_tp_serve_run`) on the single device and
+        on the NCCL rank, bit for bit;
+    (b) one spawn of 4 gloo ranks over CUDA tensors on (data=2, model=2):
+        per arch the training steps (step 1's loss within TP_LOSS_TOL and
+        grad_norm within TP_GNORM_TOL of (a)'s; the scans' forward and
+        backward kernels and ``fused_ce`` launched on every rank; the
+        RG-LRU scan at r/mp channels, the WKV at H/mp heads, ``fused_ce``
+        on the rank's vocabulary block), then the serving run against
+        (a)'s: the hidden, each step's logits and the final cache within
+        SERVE_TOL of (a)'s largest value, ring positions and the first
+        token equal, every decided token equal; ``decode_attention``
+        launched once a step an attention layer on every rank, in both
+        layouts.
+
+    Prints step and token ms, peak memory a rank, the collectives by kind
+    and bytes, launches, gaps and the tokens compared. Returns the
+    launches by kernel and run."""
+    from repro_torch.distributed.launch import run_ranks, single_rank
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_sharded_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig, layer_kinds
+
+    card = card_line()
+    axes = ("data", "model")
+    launches = {}
+    single, refs, batches, prompts, feeds = {}, {}, {}, {}, {}
+    single_f32 = {}
+    for arch, layers in TP_SHARDED:
+        cfg = _tp_cfg(arch, layers)
+        gen = torch.Generator().manual_seed(SHARDED_SEED + 31)
+        batches[arch] = {k: torch.randint(
+            0, cfg.vocab_size, (SHARDED_BATCH, TP_TRAIN_SEQ),
+            generator=gen).numpy() for k in ("tokens", "labels")}
+        prompts[arch] = torch.randint(0, cfg.vocab_size,
+                                      (SERVE_BATCH, TP_PROMPT),
+                                      generator=gen).numpy()
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in batches[arch].items()}
+        # (a) one device, then one NCCL rank on (1, 1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = T.init_model(cfg, SHARDED_SEED, dev)
+        model.requires_grad_(True)
+        opt = T.init_opt(model)
+        step = T.make_train_step(cfg, torch.bfloat16, remat=True,
+                                 **SHARDED_KW)
+        single[arch], launches[f"sharded_tp_{arch}_one_device_train"] = (
+            _counted(lambda: _timed_steps(step, model, opt, batch,
+                                          TP_TRAIN_STEPS)))
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        want = _state_digests(model, opt)
+        del model, opt, step
+        torch.cuda.empty_cache()
+        if arch in TP_F32_GRAD:
+            model = T.init_model(cfg, SHARDED_SEED, dev)
+            model.requires_grad_(True)
+            step = T.make_train_step(cfg, torch.float32, remat=True,
+                                     **SHARDED_KW)
+            single_f32[arch] = _timed_steps(step, model, T.init_opt(model),
+                                            batch, 1)[0]
+            del model, step
+            torch.cuda.empty_cache()
+        log(_train_line(f"sharded tp train (a) {arch}, {layers} layers "
+                        f"({n_params / 1e9:.3f} B params), one device, peak "
+                        f"{peak / 1e9:.2f} GB", single[arch], card))
+        one_serve = _tp_serve_run(cfg, dev, prompts[arch])
+        with single_rank("nccl" if dev.type == "cuda" else "gloo", dev.type):
+            mesh = make_mesh((1, 1), axes)
+            shape = ShapeConfig("tp", TP_TRAIN_SEQ, SHARDED_BATCH, "train")
+            step, _, build = make_sharded_train_step(
+                cfg, mesh, shape, torch.bfloat16, remat=True, **SHARDED_KW)
+            model, opt = build(SHARDED_SEED, dev)
+            one = _timed_steps(step, model, opt, batch, TP_TRAIN_STEPS)
+            same = _state_digests(model, opt) == want
+            del model, opt, step, build
+            torch.cuda.empty_cache()
+            nccl_serve = _tp_serve_run(cfg, dev, prompts[arch],
+                                       ((1, 1), axes))
+        keys = ("loss", "nll", "grad_norm")
+        if not same or any(a[k] != b[k] for a, b in zip(single[arch], one)
+                           for k in keys):
+            raise AssertionError(
+                f"(a) {arch} training on one NCCL rank is not bitwise the "
+                f"single device: weights equal {same}; losses "
+                f"{[(a['loss'], b['loss']) for a, b in zip(single[arch], one)]}")
+        if not _tp_bitwise(nccl_serve, one_serve):
+            raise AssertionError(f"(a) {arch} serving on one NCCL rank is not "
+                                 "bitwise the single device")
+        log(_train_line(f"sharded tp train (a) {arch}, 1 NCCL rank on (1, 1): "
+                        "bitwise the single device", one, card))
+        for layout in ("fsdp", "tp"):
+            r = one_serve[layout]
+            log(f"sharded tp serve (a) {arch} {layout}, one device "
+                f"[{layers} layers; {card}]: prefill "
+                f"{one_serve['prefill_ms']:.3f} ms, decode "
+                f"{statistics.median(r['ms']):.3f} ms/token (steps "
+                f"{[round(x, 3) for x in r['ms']]}), kernel launches "
+                f"{r['kernel_launches']}; 1 NCCL rank on (1, 1) bitwise")
+        launches[f"sharded_tp_{arch}_one_device_prefill"] = one_serve[
+            "prefill_launches"]
+        for layout in ("fsdp", "tp"):
+            launches[f"sharded_tp_{arch}_one_device_{layout}"] = one_serve[
+                layout]["kernel_launches"]
+        feeds[arch] = {layout: [one_serve["tok0"].cpu()] + [
+            t.cpu() for t in one_serve[layout]["tokens"][:-1]]
+            for layout in ("fsdp", "tp")}
+        refs[arch] = _to({k: one_serve[k] for k in ("hidden", "tok0")}
+                         | {layout: {k: one_serve[layout][k] for k in
+                                     ("logits", "tokens", "cache")}
+                            for layout in ("fsdp", "tp")}, "cpu")
+        del one_serve, nccl_serve, batch
+        torch.cuda.empty_cache()
+
+    ref_path = ROOT / "build" / "sharded_tp_ref.pt"
+    ref_path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(refs, ref_path)
+    del refs
+    t0 = time.perf_counter()
+    try:
+        outs = run_ranks(_tp_rank, 4, backend="gloo", device=dev.type,
+                         args=(dict(device=dev.type, ref=str(ref_path),
+                                    batch=batches, prompt=prompts,
+                                    feed=feeds),),
+                         timeout_s=SHARDED_TIMEOUT_S)
+    finally:
+        ref_path.unlink(missing_ok=True)
+    ranks_s = time.perf_counter() - t0
+    r0 = next(o for o in outs if o["rank"] == 0)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    for arch, layers in TP_SHARDED:
+        cfg = _tp_cfg(arch, layers)
+        g = r0[arch]
+        steps = g["train"]
+        for o in outs:
+            if [(s["nll"], s["grad_norm"]) for s in o[arch]["train"]] != [
+                    (s["nll"], s["grad_norm"]) for s in steps]:
+                raise AssertionError(f"(b) {arch}: the ranks' nll or "
+                                     "grad_norm differ")
+        want = single[arch][0]
+        gaps = {"loss": rel(steps[0]["loss"], want["loss"]),
+                "grad_norm": rel(steps[0]["grad_norm"], want["grad_norm"])}
+        if arch in TP_F32_GRAD:  # the bf16 grad_norm is printed, not held
+            f32 = g["train_f32"]
+            gaps["bf16 grad_norm, not held"] = gaps.pop("grad_norm")
+            gaps["f32 loss"] = rel(f32["loss"], single_f32[arch]["loss"])
+            gaps["grad_norm"] = rel(f32["grad_norm"],
+                                    single_f32[arch]["grad_norm"])
+        kinds = (("rglru_scan", "rglru_scan_bwd") if "rglru" in
+                 cfg.block_pattern else ("rwkv6_scan", "rwkv6_scan_bwd_ds",
+                                         "rwkv6_scan_bwd_chunk"))
+        counts = {k: {o[arch]["train_launches"][k] for o in outs}
+                  for k in kinds + ("fused_ce",)}
+        ok = (gaps["loss"] <= TP_LOSS_TOL and gaps["grad_norm"] <= TP_GNORM_TOL
+              and gaps.get("f32 loss", 0.0) <= TP_LOSS_TOL
+              and all(np.isfinite([s["loss"], s["grad_norm"]]).all()
+                      for o in outs for s in o[arch]["train"])
+              and counts["fused_ce"] == {TP_TRAIN_STEPS}
+              and all(min(v) > 0 for v in counts.values()))
+        if not ok:
+            raise AssertionError(
+                f"(b) {arch} training on 4 gloo ranks: step 1 against the "
+                f"single device {gaps} (limits {TP_LOSS_TOL}, "
+                f"{TP_GNORM_TOL}), kernel launches a rank {counts}")
+        launches[f"sharded_tp_{arch}_rank0_train"] = g["train_launches"]
+        log(_train_line(
+            f"sharded tp train (b) {arch}, 4 gloo ranks on one card, mesh "
+            f"(data=2, model=2), rank 0 (step 1 against the single device: "
+            f"{ {k: float(f'{v:.3g}') for k, v in gaps.items()} }); kernel "
+            f"launches a rank over the {TP_TRAIN_STEPS} steps {counts}; peak "
+            f"memory a rank "
+            f"{[round(o[arch]['train_peak'] / 1e9, 2) for o in outs]} GB",
+            steps, card))
+        sg = g["gaps"]
+        n_attn = sum(k == "attn" for k in layer_kinds(cfg))
+        prefill = {o[arch]["serve"]["prefill_launches"][kinds[0]]
+                   for o in outs}
+        if min(prefill) != len(layer_kinds(cfg)) - n_attn and kinds[0] == (
+                "rglru_scan"):
+            raise AssertionError(f"(b) {arch}: prefill scan launches a rank "
+                                 f"{prefill}")
+        if min(prefill) == 0:
+            raise AssertionError(f"(b) {arch}: a rank's prefill launched no "
+                                 f"{kinds[0]}")
+        for layout in ("fsdp", "tp"):
+            lg = sg[layout]
+            per_step = {x for o in outs
+                        for x in o[arch]["serve"][layout]["launches"]}
+            ok = (sg["hidden"] <= SERVE_TOL and sg["tok0_equal"]
+                  and lg["logits"] <= SERVE_TOL and lg["cache"] <= SERVE_TOL
+                  and lg["pos_equal"]
+                  and 0 < lg["tokens_compared"] == lg["tokens_equal"]
+                  and per_step == {n_attn})
+            if not ok:
+                raise AssertionError(
+                    f"(b) {arch} {layout} on 4 gloo ranks against the single "
+                    f"device: hidden {sg['hidden']:.3g}, first token equal "
+                    f"{sg['tok0_equal']}, {lg} (limit {SERVE_TOL}), "
+                    f"decode_attention a step {per_step} (want {n_attn})")
+            s = g["serve"][layout]
+            launches[f"sharded_tp_{arch}_rank0_{layout}"] = s[
+                "kernel_launches"]
+            log(f"sharded tp serve (b) {arch} {layout}, 4 gloo ranks on one "
+                f"card, mesh (data=2, model=2), rank 0 [{layers} layers; "
+                f"{card}]: prefill {g['serve']['prefill_ms']:.3f} ms, decode "
+                f"{statistics.median(s['ms']):.3f} ms/token (steps "
+                f"{[round(x, 3) for x in s['ms']]}), kernel launches "
+                f"{s['kernel_launches']}, collectives of the last step "
+                f"{s['collectives'][-1]}; against the single device: hidden "
+                f"{sg['hidden']:.3g}, {lg} (limit {SERVE_TOL} of the largest "
+                f"value); cache a rank {g['serve']['shapes'][0]}; peak memory "
+                f"a rank {[round(o[arch]['serve']['peak'] / 1e9, 3) for o in outs]} GB")
+        launches[f"sharded_tp_{arch}_rank0_prefill"] = g["serve"][
+            "prefill_launches"]
+    log(f"sharded tp: ranks' wall {ranks_s:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5648,6 +6203,10 @@ def main() -> int:
     scan, scan_bwd = rglru_kernel_phases(dev)
     wkv = rwkv_kernel_phases(dev)
     wkv_bwd = rwkv_bwd_phases(dev)
+    tp_scan, tp_scan_bwd, tp_wkv, tp_wkv_bwd, tp_ce, tp_attn = (
+        tp_shard_kernel_phases(dev))
+    scan, scan_bwd = scan + tp_scan, scan_bwd + tp_scan_bwd
+    wkv, wkv_bwd = wkv + tp_wkv, wkv_bwd + tp_wkv_bwd
     ce, ce_grads = train_kernel_phases(dev)
     sp_ce, sp_ce_grads = sp_ce_phases(dev)
     wide = wide_kernel_phases(dev)
@@ -5726,6 +6285,15 @@ def main() -> int:
     family_sharded_launches = sharded_family_path(dev)
     torch.cuda.empty_cache()
     done("sharded MoE, encdec and VLM")
+    tp_launches = sharded_tp_path(dev)
+    torch.cuda.empty_cache()
+    done("sharded TP-mode archs")
+
+    def tp_runs(kernel, arch, part=""):
+        """The sharded TP-mode path's launches of ``kernel`` in each run of
+        ``arch`` (whose name holds ``part``)."""
+        return {f"launches_{run}": c[kernel] for run, c in tp_launches.items()
+                if arch in run and part in run}
 
     for p in bright + z + scan + scan_bwd + wkv_bwd:
         one_kernel_a_call(p, "bright_glm_kernel" if p in bright
@@ -5796,16 +6364,18 @@ def main() -> int:
          **{f"launches_{k}": v for k, v in serve_sharded_launches.items()},
          **{f"launches_{k}": v for k, v in
             family_sharded_launches["decode_attention"].items()},
+         **{k: v for layout in ("_fsdp", "_tp") for k, v in
+            tp_runs("decode_attention", "recurrentgemma", layout).items()},
          "max_abs_err": max(p["max_abs_err"] for p in attn + dense_attn
                             + family_attn + sharded_attn
-                            + family_shard_attn),
+                            + family_shard_attn + tp_attn),
          "merge_max_abs_err": max(sharded_attn[0]["merge_max_abs_err"],
                                   family_shard_attn[0]["merge_max_abs_err"]),
          "ms": attn[0]["ms"], "call_ms": attn[0]["call_ms"],
          "plain_ms": attn[0]["plain_ms"], "bound_ms": attn[0]["bound_ms"],
          "bound_by": attn[0]["bound_by"], "library_ms": attn[0]["library_ms"],
          "phases": attn + dense_attn + family_attn + sharded_attn
-         + family_shard_attn},
+         + family_shard_attn + tp_attn},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:61",
@@ -5814,6 +6384,9 @@ def main() -> int:
          "launches_bwd_train": train_launches["rglru_scan_bwd"],
          "launches_resumed": resumed_launches["rglru_scan"],
          "launches_bwd_resumed": resumed_launches["rglru_scan_bwd"],
+         **tp_runs("rglru_scan", "recurrentgemma"),
+         **{k.replace("launches_", "launches_bwd_"): v for k, v in
+            tp_runs("rglru_scan_bwd", "recurrentgemma", "_train").items()},
          "max_abs_err": max(p["max_abs_err"] for p in scan + scan_bwd),
          "ms": scan[0]["ms"], "call_ms": scan[0]["call_ms"],
          "plain_ms": scan[0]["plain_ms"], "bound_ms": scan[0]["bound_ms"],
@@ -5829,6 +6402,7 @@ def main() -> int:
          "launches": rwkv_launches["rwkv6_scan"],
          "launches_train": rwkv_train_launches["rwkv6_scan"],
          "launches_bwd_train": rwkv_train_launches["rwkv6_scan_bwd"],
+         **tp_runs("rwkv6_scan", "rwkv6"),
          "max_abs_err": max(p["max_abs_err"] for p in wkv + wkv_bwd),
          "ms": wkv[0]["ms"], "call_ms": wkv[0]["call_ms"],
          "plain_ms": wkv[0]["plain_ms"], "bound_ms": wkv[0]["bound_ms"],
@@ -5844,6 +6418,7 @@ def main() -> int:
                        "from _wkv_chunk; the backward of "
                        "src/repro/kernels/rwkv6_scan/kernel.py:91)",
            "launches": rwkv_train_launches[f"rwkv6_scan_bwd_{part}"],
+           **tp_runs(f"rwkv6_scan_bwd_{part}", "rwkv6", "_train"),
            "max_abs_err": max(p[f"max_abs_err_{part}"] for p in wkv_bwd),
            "ms": wkv_bwd[0][f"{part}_ms"],
            "plain_ms": wkv_bwd[0][f"{part}_plain_ms"],
@@ -5863,13 +6438,15 @@ def main() -> int:
          **{f"launches_{k}": v for k, v in sharded_launches.items()},
          **{f"launches_{k}": v for k, v in
             family_sharded_launches["fused_ce"].items()},
+         **{k: v for arch in ("recurrentgemma", "rwkv6") for k, v in
+            tp_runs("fused_ce", arch, "_train").items()},
          "max_abs_err": max(p["max_abs_err"] for p in ce + sp_ce
-                            + [ce_shard] + family_shard_ce),
+                            + [ce_shard] + family_shard_ce + tp_ce),
          "ms": ce[0]["ms"], "call_ms": ce[0]["call_ms"],
          "plain_ms": ce[0]["plain_ms"], "bound_ms": ce[0]["bound_ms"],
          "bound_by": ce[0]["bound_by"], "library_ms": ce[0]["library_ms"],
          "phases": ce + ce_grads + sp_ce + sp_ce_grads + [ce_shard]
-         + family_shard_ce},
+         + family_shard_ce + tp_ce},
     ]}
     log(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps(table), flush=True)

@@ -219,7 +219,10 @@ def lm_cache(cache_np: dict, cfg: ModelConfig, seq_len: int, device="cuda",
     :func:`~repro_torch.models.serving.cache_pspecs` places it for
     ``seq_len`` and ``serve_tp`` (``batch_whole``: a batch that runs whole
     on every data rank). ``dtype``: the K/V dtype (default the leaves'
-    own; bfloat16 leaves come as float32 arrays, exact)."""
+    own; bfloat16 leaves come as float32 arrays, exact); the recurrent
+    states (RG-LRU, WKV) and shifts keep their own, float32.
+    A TP-mode arch's RG-LRU state and history are cut to the rank's r/mp
+    channels and its WKV state to its H/mp heads."""
     from repro_torch.launch.steps import strip_dp
     from repro_torch.models.serving import cache_pspecs
 
@@ -235,7 +238,8 @@ def lm_cache(cache_np: dict, cfg: ModelConfig, seq_len: int, device="cuda",
             a = np.asarray(a)
             if par.mesh is not None:
                 a = local_slice(a, spec[name], par)
-            dt = torch.int32 if name == "pos" else dtype
+            dt = (torch.int32 if name == "pos"
+                  else dtype if name in ("k", "v", "ck", "cv") else None)
             out[name] = _t(a, dev, dt)
         layers.append(out)
     return {"t": int(np.asarray(cache_np["t"])), "layers": layers}

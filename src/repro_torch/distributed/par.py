@@ -21,7 +21,17 @@ gradient the gradient of the one global loss:
     The reference's ``psum`` (inside ``shard_map(check_vma=False)``)
     transposes to another ``psum``, which multiplies its gradients by the
     device count (ROADMAP queue 3 item 3); the port does not copy that;
-  * ``pmax`` carries no gradient (the reference stops it, layers.py:804).
+  * ``pmax`` carries no gradient (the reference stops it, layers.py:804);
+  * :func:`tp_entry`, the Megatron counterpart of ``psum``, is the
+    identity whose cotangent is summed over ``model``. A TP-mode branch
+    (head-, channel- or column-parallel over ``model``) takes its input
+    through it: the input is replicated over ``model``, and each rank's
+    branch returns only its part of the input's cotangent;
+  * :func:`replicated_grad` scales a gathered weight's cotangent by 1/mp
+    where every model rank computes the whole of its gradient (a TP-mode
+    norm scale on the replicated stream): the reduce-scatter (or
+    ``sync_grads``'s psum) over ``model`` then adds mp equal copies into
+    one.
 
 Parameter placement is described per leaf by :class:`WSpec`, resolved
 from a :class:`~repro_torch.models.params.WDef` per mesh by :func:`resolve`
@@ -132,6 +142,25 @@ def psum(x, axes, par: Par):
     if not axes:
         return x
     return comm.sum_across(x, par.mesh.group(axes))
+
+
+def tp_entry(x, par: Par):
+    """``x`` itself (replicated over ``model``); under autograd its
+    cotangent is summed over ``model`` (Megatron's f; :func:`psum` is its
+    g). Without ``model`` ranks, or with one, nothing is added."""
+    if par.mp_size <= 1 or not _tracked(x):
+        return x
+    return comm.grad_sum_across(x, par.mesh.group(par.mp_axes))
+
+
+def replicated_grad(w, par: Par):
+    """``w`` itself; under autograd its cotangent is divided by the
+    ``model`` ranks, so that the sum over them of mp equal gradients (a
+    weight every model rank uses alike on replicated activations) is one
+    gradient. The identity with one model rank."""
+    if par.mp_size <= 1:
+        return w
+    return scale_grad(w, 1.0 / par.mp_size)
 
 
 def pmax(x, axes, par: Par):

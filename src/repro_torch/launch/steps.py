@@ -23,11 +23,13 @@ state or serving cache):
     over ``model`` and replicated over the data axes, head-parallel
     attention over whole rings).
 
-The SP-mode archs are sharded: the dense decoders (llama3.2, qwen2,
-stablelm, qwen1.5), the MoE (mixtral, arctic), the encoder-decoder
-(whisper) and the VLM (llava). A TP-mode arch raises
-``NotImplementedError`` naming the ROADMAP step that brings it
-(``transformer.check_shardable``).
+Every arch is sharded: the SP-mode ones (the dense decoders llama3.2,
+qwen2, stablelm and qwen1.5, the MoE mixtral and arctic, the
+encoder-decoder whisper, the VLM llava), whose blocks run on a sequence
+block over ``model``, and the TP-mode ones (recurrentgemma, rwkv6), whose
+stream is replicated over ``model`` and whose heads, RG-LRU channels, WKV
+heads and ff columns are split over it. Tokens are whole over ``model``
+in both modes.
 """
 
 from __future__ import annotations
@@ -107,7 +109,6 @@ def make_sharded_train_step(cfg: ModelConfig, mesh: Mesh, shape: ShapeConfig,
     the config's ``opt_dtype``. ``kw`` goes to
     :func:`~repro_torch.models.transformer.make_train_step` (``peak_lr``,
     ``warmup_steps``, ``clip_norm``)."""
-    T.check_shardable(cfg)
     if shape.kind != "train":
         raise ValueError(f"{shape.name}: a {shape.kind} shape; its step is "
                          "make_sharded_prefill or make_sharded_decode")
@@ -137,13 +138,14 @@ def _serve_specs(cfg, par, shape, model_specs, serve_tp: bool) -> dict:
     ``cache`` (:func:`~repro_torch.models.serving.cache_pspecs`, the data
     axes stripped for a batch that does not split), ``tokens`` and the
     step's ``out`` (prefill: the hidden (B, S, d), sequence-sharded over
-    ``model``; decode: the logits (B, 1, V), vocab-parallel), as
-    PSpecs."""
+    ``model`` in SP mode, whole over it in TP mode; decode: the logits
+    (B, 1, V), vocab-parallel), as PSpecs."""
     dp = par.dp if batch_sharded(shape.global_batch, par) else ()
     cache = SV.cache_pspecs(cfg, shape.seq_len, par, serve_tp)
     if not dp:
         cache = strip_dp(cache, par)
-    out = PSpec((dp, par.mp_axes, ()) if shape.kind == "prefill"
+    seq = par.mp_axes if cfg.parallel_mode == "sp" else ()
+    out = PSpec((dp, seq, ()) if shape.kind == "prefill"
                 else (dp, (), par.mp_axes))
     return {"params": model_specs, "cache": cache,
             "tokens": PSpec((dp, ())), "out": out}
@@ -159,12 +161,13 @@ def make_sharded_prefill(cfg: ModelConfig, mesh: Mesh, shape: ShapeConfig,
     whisper's frames (B, S_enc, d) or llava's patches (B, P, d), and runs
     the rank's part (:func:`batch_slice`): the cache is the rank's shard
     for a ``shape.seq_len`` ring (a sequence-sharded ring holds this model
-    rank's slots, whisper's cross K/V its S_enc/mp positions; bf16 rings,
-    as the reference's), the hidden its block (B_loc, S/mp, d).
+    rank's slots, whisper's cross K/V its S_enc/mp positions, a TP-mode
+    arch's recurrent states its channels or heads; bf16 rings, as the
+    reference's), the hidden its block (B_loc, S/mp, d) in SP mode and
+    its rows' whole (B_loc, S, d) in TP mode.
     ``specs``: :func:`_serve_specs`. ``build(seed=0, device="cuda",
     param_dtype=torch.float32)`` → the rank's shards of
     ``init_model(cfg, seed)``."""
-    T.check_shardable(cfg)
     par = make_par(mesh)
     specs = _serve_specs(cfg, par, shape, T.LM(cfg, "meta", par=par).specs,
                          False)
@@ -210,7 +213,6 @@ def make_sharded_decode(cfg: ModelConfig, mesh: Mesh, shape: ShapeConfig,
     float32 for ``fsdp``, bfloat16 for ``tp``: serving weights live in
     bf16 there) and its empty cache shard (:func:`~repro_torch.models.
     serving.init_cache`, bf16 rings)."""
-    T.check_shardable(cfg)
     if layout not in ("fsdp", "tp"):
         raise ValueError(f"layout {layout!r}: 'fsdp' or 'tp'")
     par = make_par(mesh)

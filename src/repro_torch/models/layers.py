@@ -26,6 +26,20 @@ step's token is replicated over ``model`` instead:
 ``embed_tokens(sp=False)`` psums the vocabulary blocks' rows and
 ``mlp_tp`` psums its column/row-parallel product.
 
+The TP-mode path (recurrentgemma, rwkv6) runs on a mesh too: the residual
+stream (B/dp, S, d) is replicated over ``model``, the embedding psums its
+vocabulary blocks' rows, and each mixer and MLP splits its heads, RG-LRU
+channels, WKV heads or ff columns over ``model``, one psum after its
+row-parallel output (the reference's ``attn_tp``, ``rglru_mix``,
+``rwkv_mix``, ``rwkv_channel_mix``, ``mlp_tp``); ``ce_loss_tp`` is
+vocab-parallel. Each such branch takes its input through
+:func:`~repro_torch.distributed.par.tp_entry`, whose backward sums the
+ranks' parts of the input's cotangent, and a norm scale (and RWKV's
+``cm_r``) through :func:`~repro_torch.distributed.par.replicated_grad`,
+as every model rank computes its whole gradient: so each rank's gradient
+is the single device's (the reference's is that times the device count,
+ROADMAP queue 3 item 3).
+
 Weights are cast to the compute ``dtype`` where the reference's
 ``gather_param`` casts them (a no-op when the model is stored in ``dtype``),
 before their gather.
@@ -107,10 +121,14 @@ def norm_defs(d: int) -> dict[str, WDef]:
     return {"scale": WDef((d,), init="ones")}
 
 
-def apply_norm(x, w: Params, dtype, kind: str = "rmsnorm", par: Par = ONE):
+def apply_norm(x, w: Params, dtype, kind: str = "rmsnorm", par: Par = ONE,
+               replicated: bool = False):
     """RMSNorm, or the bias-free layernorm (``kind="layernorm"``:
     stablelm), in float32, times the scale cast to ``dtype`` (gathered
-    under ``par``). Rows are independent: no collective on activations."""
+    under ``par``). Rows are independent: no collective on activations.
+    ``replicated``: ``x`` is the same on every model rank (TP mode), so
+    each computes the scale's whole gradient
+    (:func:`~repro_torch.distributed.par.replicated_grad`)."""
     xf = x.float()
     if kind == "rmsnorm":
         xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
@@ -121,6 +139,8 @@ def apply_norm(x, w: Params, dtype, kind: str = "rmsnorm", par: Par = ONE):
     else:
         raise ValueError(f"unknown norm {kind!r}")
     scale = P.gather_param(w.scale, w.specs["scale"], dtype, par)
+    if replicated:
+        scale = P.replicated_grad(scale, par)
     return (xf * scale.float()).to(dtype)
 
 
@@ -229,6 +249,12 @@ def attn_defs(cfg: ModelConfig, cross: bool = False,
     return defs
 
 
+def gathered(w: Params, dtype, par: Par = ONE):
+    """``name → w.name`` cast to ``dtype`` and gathered over its fsdp axes
+    (its ``model`` shard stays), as a function."""
+    return lambda n: P.gather_param(getattr(w, n), w.specs[n], dtype, par)
+
+
 def qkv_proj(x, w: Params, name: str, par: Par = ONE):
     """``x @ w{name}`` (+ ``b{name}`` where the layer has biases), both in
     x's dtype (gathered under ``par``), as the reference's ``proj``."""
@@ -253,34 +279,44 @@ def attn_tp(x, w: Params, cfg: ModelConfig, *, causal: bool = True,
     ``use_rope=False``). With ``return_kv`` also returns the (roped) (k, v)
     for the decode cache.
 
-    Under a sharded ``par`` (SP mode, the reference's ``attn_sp``) x is
+    Under a sharded ``par`` in SP mode (the reference's ``attn_sp``) x is
     this rank's (B, S/mp, d) sequence block: its rows sit at positions
     shard·S_loc + i, and K and V, projected and roped on the local rows,
     are all-gathered over ``model`` (small for GQA), so every rank attends
-    its queries to the whole sequence."""
+    its queries to the whole sequence. In TP mode (the reference's
+    ``attn_tp``) x is the whole (B, S, d), replicated over ``model``: Q and
+    O are this rank's H/mp heads (``wq``'s column and ``wo``'s row shard),
+    the MQA K and V are computed whole on every rank, and one psum over
+    ``model`` follows O."""
     dtype = x.dtype
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
+    tp = cfg.parallel_mode == "tp"
+    if tp:
+        x = P.tp_entry(x, par)
     kv_in = x if kv_source is None else kv_source
     s_kv = kv_in.shape[1]
-    q = qkv_proj(x, w, "q", par).reshape(b, s, cfg.n_heads, hd)
+    h_loc = cfg.n_heads // par.mp_size if tp else cfg.n_heads
+    q = qkv_proj(x, w, "q", par).reshape(b, s, h_loc, hd)
     k = qkv_proj(kv_in, w, "k", par).reshape(b, s_kv, cfg.n_kv_heads, hd)
     v = qkv_proj(kv_in, w, "v", par).reshape(b, s_kv, cfg.n_kv_heads, hd)
-    shard = P.axis_index(par.mp, par)
+    shard = 0 if tp else P.axis_index(par.mp, par)
     q_pos = shard * s + torch.arange(s, dtype=torch.int32, device=x.device)
     k_pos = shard * s_kv + torch.arange(s_kv, dtype=torch.int32,
                                         device=x.device)
     if use_rope:
         q = rope(q, q_pos, cfg.rope_theta)
         k = rope(k, k_pos, cfg.rope_theta)
-    if par.mp:
+    if par.mp and not tp:
         k = P.all_gather(k, par.mp_axes, 1, par)
         v = P.all_gather(v, par.mp_axes, 1, par)
         k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
     out = chunked_attention(q, k, v, q_pos, k_pos, causal=causal,
                             window=window, chunk=chunk)
-    y = out.reshape(b, s, cfg.q_dim) @ P.gather_param(w.wo, w.specs["wo"],
-                                                      dtype, par)
+    y = out.reshape(b, s, h_loc * hd) @ P.gather_param(w.wo, w.specs["wo"],
+                                                       dtype, par)
+    if tp:
+        y = P.psum(y, par.mp_axes, par)
     if return_kv:
         return y, (k, v)
     return y
@@ -324,8 +360,10 @@ def mlp_tp(x, w: Params, kind: str = "gelu", par: Par = ONE):
     ``model``. On one device it is the MLP of either mode (SP's all-gather
     and reduce-scatter are identities too; SP's sequence chunks only bound
     the reference's transients, as rows are independent). A decode step
-    takes it in both serving layouts."""
-    return P.psum(_mlp_core(x, w, kind, par), par.mp_axes, par)
+    takes it in both serving layouts. Under autograd x's cotangent is
+    summed over ``model`` (:func:`~repro_torch.distributed.par.tp_entry`)."""
+    return P.psum(_mlp_core(P.tp_entry(x, par), w, kind, par), par.mp_axes,
+                  par)
 
 
 def mlp_sp(x, w: Params, cfg: ModelConfig, par: Par = ONE):
@@ -544,19 +582,28 @@ def rglru_gates(x_a, x_i, lam):
     return log_a, beta, i_gate
 
 
-def rglru_mix(x, w: Params, cfg: ModelConfig, return_state: bool = False):
+def rglru_mix(x, w: Params, cfg: ModelConfig, return_state: bool = False,
+              par: Par = ONE):
     """RG-LRU mixer over the whole sequence. x: (B, S, d). With
     ``return_state`` also returns (final h (B, r) f32, last 3 pre-conv
-    inputs (B, 3, r) f32), the decode cache."""
+    inputs (B, 3, r) f32), the decode cache.
+
+    Under a sharded ``par`` x is replicated over ``model`` and the r
+    channels are split over it (the reference's ``rglru_mix``): the
+    projections, the conv, Λ and the scan run on this rank's r/mp channels
+    (so do the returned state and history), and one psum over ``model``
+    follows ``wo``."""
     dtype = x.dtype
-    bx_pre = x @ w.wx.to(dtype)
-    bx = _depthwise_conv(bx_pre, w.conv.to(dtype))
-    log_a, beta, i_gate = rglru_gates(x @ w.wa.to(dtype), x @ w.wi.to(dtype),
-                                      w.lam)
+    x = P.tp_entry(x, par)
+    g = gathered(w, dtype, par)
+    bx_pre = x @ g("wx")
+    bx = _depthwise_conv(bx_pre, g("conv"))
+    log_a, beta, i_gate = rglru_gates(x @ g("wa"), x @ g("wi"),
+                                      gathered(w, torch.float32, par)("lam"))
     bterm = beta * (i_gate * bx.float())
     h32, h_last = rglru_ops.rglru_scan(log_a, bterm)
-    gate = _gelu(x @ w.wgate.to(dtype))
-    y = (h32.to(dtype) * gate) @ w.wo.to(dtype)
+    gate = _gelu(x @ g("wgate"))
+    y = P.psum((h32.to(dtype) * gate) @ g("wo"), par.mp_axes, par)
     if return_state:
         # a copy, so the decode cache holds no view of the whole sequence
         return y, (h_last, bx_pre[:, -3:].to(torch.float32, copy=True))
@@ -617,60 +664,95 @@ def rwkv_group_norm(y, ln_x, h: int, hd: int):
     return y * torch.rsqrt((y * y).mean(-1, keepdim=True) + 1e-6) * ln
 
 
-def rwkv_mix(x, w: Params, cfg: ModelConfig, state0, shift0):
-    """RWKV6 time mix over one time chunk (prefill or training). x: (B, s, d) normed
-    input; ``state0`` (B, H, D, D) and ``shift0`` (B, d) float32 continue
-    the recurrence from the previous time chunk. Returns (out (B, s, d),
-    final WKV state, last input (B, d) float32 for the next shift).
+_RWKV_COMPUTE = ("mu", "wr", "wk", "wv", "wg", "wa", "wb", "wo", "cm_r",
+                 "cm_k", "cm_v")  # gathered in the compute dtype
+_RWKV_F32 = ("w0", "u", "ln_x")  # gathered in float32
+
+
+def rwkv_weights(w: Params, dtype, par: Par = ONE) -> dict:
+    """An RWKV block's mix weights (``blk.mix``), each cast and gathered
+    over its fsdp axes once a block, outside the time-chunk loop (the
+    reference's ``_pre``: a gather a time chunk would repeat each FSDP
+    gather S/512 times). Under a sharded ``par`` the r, k, v, g, decay and
+    ``cm_k`` columns, ``w0``, ``u``, ``ln_x`` and the rows of ``wo`` and
+    ``cm_v`` stay this rank's ``model`` shards (its H/mp heads and
+    d_ff/mp channels); ``cm_r``, whose product every model rank computes
+    whole, takes :func:`~repro_torch.distributed.par.replicated_grad`."""
+    g, f32 = gathered(w, dtype, par), gathered(w, torch.float32, par)
+    out = {n: g(n) for n in _RWKV_COMPUTE} | {n: f32(n) for n in _RWKV_F32}
+    out["cm_r"] = P.replicated_grad(out["cm_r"], par)
+    return out
+
+
+def rwkv_mix(x, wts: dict, cfg: ModelConfig, state0, shift0,
+             par: Par = ONE):
+    """RWKV6 time mix over one time chunk (prefill or training). x: (B, s,
+    d) normed input; ``wts`` the block's :func:`rwkv_weights`; ``state0``
+    (B, H, D, D) and ``shift0`` (B, d) float32 continue the recurrence
+    from the previous time chunk. Returns (out (B, s, d), final WKV state,
+    last input (B, d) float32 for the next shift).
 
     The mixes are formed in the compute dtype; r, k, v and the log decay
     go to the WKV kernel in float32 with WKV chunks of min(64, s). Under
     autograd the final state is differentiable: its cotangent, from the
-    next time chunk, enters the WKV backward (``RWKV6Scan``) with y's."""
+    next time chunk, enters the WKV backward (``RWKV6Scan``) with y's.
+    Under a sharded ``par`` x is replicated over ``model`` and this rank
+    runs its H/mp heads (state (B, H/mp, D, D)), with one psum over
+    ``model`` after ``wo``; x enters through
+    :func:`~repro_torch.distributed.par.tp_entry`, shift included."""
     dtype = x.dtype
     b, s, d = x.shape
-    h, hd = cfg.n_heads, cfg.resolved_head_dim
-    mu = w.mu.to(dtype)
+    h, hd = cfg.n_heads // par.mp_size, cfg.resolved_head_dim
+    x = P.tp_entry(x, par)
+    mu = wts["mu"]
     xprev = _shifted(x, shift0)
     mix = lambda i: x + mu[i] * (xprev - x)
-    r = mix(0) @ w.wr.to(dtype)
-    k = mix(1) @ w.wk.to(dtype)
-    v = mix(2) @ w.wv.to(dtype)
-    g = mix(3) @ w.wg.to(dtype)
-    lora = torch.tanh(mix(4) @ w.wa.to(dtype)) @ w.wb.to(dtype)
-    logw = rwkv_log_decay(w.w0, lora)
+    r = mix(0) @ wts["wr"]
+    k = mix(1) @ wts["wk"]
+    v = mix(2) @ wts["wv"]
+    g = mix(3) @ wts["wg"]
+    lora = torch.tanh(mix(4) @ wts["wa"]) @ wts["wb"]
+    logw = rwkv_log_decay(wts["w0"], lora)
 
-    def heads(t):  # (B, s, d) → (B, H, s, D) float32
+    def heads(t):  # (B, s, H·D) → (B, H, s, D) float32
         return t.reshape(b, s, h, hd).transpose(1, 2).float().contiguous()
 
     y, state = rwkv_ops.rwkv6_scan(heads(r), heads(k), heads(v), heads(logw),
-                                   w.u.float().contiguous(), state0,
+                                   wts["u"].contiguous(), state0,
                                    chunk=_WKV_CHUNK)
     # each WKV chunk's y passes through the compute dtype, as the
     # reference's scan stacks it (repro/models/layers.py:582)
     y = y.to(dtype).float().transpose(1, 2)  # (B, s, H, D)
-    yn = rwkv_group_norm(y, w.ln_x, h, hd).reshape(b, s, d).to(dtype)
-    out = (yn * F.silu(g)) @ w.wo.to(dtype)
-    return out, state, x[:, -1].float()
+    yn = rwkv_group_norm(y, wts["ln_x"], h, hd).reshape(b, s, h * hd)
+    out = (yn.to(dtype) * F.silu(g)) @ wts["wo"]
+    return P.psum(out, par.mp_axes, par), state, x[:, -1].float()
 
 
-def rwkv_channel_mix(x, w: Params, shift0):
-    """sigmoid(xk·cm_r) · (relu(xk·cm_k)²·cm_v) with xk = ½(x + x_prev).
-    Returns (out, last input (B, d) float32 for the next shift)."""
-    dtype = x.dtype
+def rwkv_channel_mix(x, wts: dict, shift0, par: Par = ONE):
+    """sigmoid(xk·cm_r) · (relu(xk·cm_k)²·cm_v) with xk = ½(x + x_prev), on
+    the block's :func:`rwkv_weights`. Returns (out, last input (B, d)
+    float32 for the next shift). Under a sharded ``par`` the r gate is
+    whole on every model rank and the ff branch is this rank's d_ff/mp
+    channels (only its input goes through
+    :func:`~repro_torch.distributed.par.tp_entry`), psummed over
+    ``model`` before the gate."""
     xk = 0.5 * (x + _shifted(x, shift0))
-    r = torch.sigmoid(xk @ w.cm_r.to(dtype))
-    hh = torch.square(torch.relu(xk @ w.cm_k.to(dtype)))
-    return r * (hh @ w.cm_v.to(dtype)), x[:, -1].float()
+    r = torch.sigmoid(xk @ wts["cm_r"])
+    hh = torch.square(torch.relu(P.tp_entry(xk, par) @ wts["cm_k"]))
+    return r * P.psum(hh @ wts["cm_v"], par.mp_axes, par), x[:, -1].float()
 
 
-def rwkv_block_chunked(x, blk, cfg: ModelConfig, capture: bool = False):
+def rwkv_block_chunked(x, blk, cfg: ModelConfig, capture: bool = False,
+                       par: Par = ONE):
     """A whole RWKV block (norm → time mix → norm → channel mix) over time
     chunks of ``min(512, S)`` steps, halved until they divide S, with the
     WKV state and both token shifts carried from chunk to chunk (the
     reference's rule, which bounds the live activations to one chunk).
-    Returns (x, cache): with ``capture`` the decode cache {state, shift_tm,
-    shift_cm}, else {}.
+    The mix weights are gathered once, before the first chunk
+    (:func:`rwkv_weights`). Returns (x, cache): with ``capture`` the
+    decode cache {state, shift_tm, shift_cm}, else {}. Under a sharded
+    ``par`` x (B, S, d) is replicated over ``model`` and the state is this
+    rank's H/mp heads.
 
     Under autograd the state and shifts carry gradients back from each time
     chunk to the one before. The reference also checkpoints each time
@@ -682,21 +764,23 @@ def rwkv_block_chunked(x, blk, cfg: ModelConfig, capture: bool = False):
     way."""
     dtype = x.dtype
     b, s, d = x.shape
-    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    h, hd = cfg.n_heads // par.mp_size, cfg.resolved_head_dim
     chunk = min(RWKV_TIME_CHUNK, s)
     while s % chunk:
         chunk //= 2
+    wts = rwkv_weights(blk.mix, dtype, par)
+    norm = functools.partial(apply_norm, dtype=dtype, kind=cfg.norm, par=par,
+                             replicated=True)
     state = torch.zeros(b, h, hd, hd, dtype=torch.float32, device=x.device)
     sh_tm = torch.zeros(b, d, dtype=torch.float32, device=x.device)
     sh_cm = torch.zeros(b, d, dtype=torch.float32, device=x.device)
     ys = []
     for t0 in range(0, s, chunk):
         xc = x[:, t0:t0 + chunk]
-        m, state, sh_tm = rwkv_mix(apply_norm(xc, blk.ln1, dtype, cfg.norm),
-                                   blk.mix, cfg, state, sh_tm)
+        m, state, sh_tm = rwkv_mix(norm(xc, blk.ln1), wts, cfg, state, sh_tm,
+                                   par)
         xc = xc + m
-        cm, sh_cm = rwkv_channel_mix(apply_norm(xc, blk.ln2, dtype, cfg.norm),
-                                     blk.mix, sh_cm)
+        cm, sh_cm = rwkv_channel_mix(norm(xc, blk.ln2), wts, sh_cm, par)
         ys.append(xc + cm)
     y = torch.cat(ys, dim=1)
     if capture:
@@ -731,8 +815,8 @@ def embed_tokens(ids, w: Params, dtype, par: Par = ONE, sp: bool = True):
     are cast after the lookup as on one device), zeroes the ids outside
     the block, and a reduce-scatter over the sequence sums the blocks'
     rows and enters sequence parallelism: (B, S/mp, d). With ``sp=False``
-    (a decode step's token) a psum over ``model`` sums them instead, and
-    every model rank holds the whole (B, S, d)."""
+    (a decode step's token, or the TP-mode stream) a psum over ``model``
+    sums them instead, and every model rank holds the whole (B, S, d)."""
     if par.mesh is None:
         return F.embedding(ids, w.table).to(dtype)
     table = P.gather_param(w.table, w.specs["table"], w.table.dtype, par)
@@ -752,18 +836,44 @@ def embed_tokens(ids, w: Params, dtype, par: Par = ONE, sp: bool = True):
 # ---------------------------------------------------------------------------
 
 
-def ce_loss_tp(x, labels, w: Params, cfg: ModelConfig):
+def ce_loss_tp(x, labels, w: Params, cfg: ModelConfig, par: Par = ONE):
     """TP-mode cross-entropy: x (B, S, d) final-norm hidden, labels (B, S).
     Returns (Σ per-token NLL (float32 scalar), token count), the
     reference's pair. One :func:`~repro_torch.kernels.fused_ce.ops.fused_ce`
     call over the flattened (B·S, d) hidden against the head cast to the
     compute dtype; its backward takes the reference's 256-token chunks. In
     bfloat16 the logits are rounded to bfloat16 before the softmax, as the
-    reference's ``(xi @ head).astype(float32)`` of a bf16 dot does."""
+    reference's ``(xi @ head).astype(float32)`` of a bf16 dot does.
+
+    Under a sharded ``par`` with mp > 1 model shards x is replicated over
+    ``model`` (no gather: the reference's ``ce_loss_tp``) and the head is
+    this rank's (d, V/mp) vocabulary block: the rows laid out in the
+    reference's chunks of c = min(S, 256) positions (chunk j: every batch
+    row's c tokens), then one
+    :func:`~repro_torch.kernels.fused_ce.ops.fused_ce_shard` call, whose
+    (lse, target) are merged over ``model`` and whose backward takes one
+    chunk's B·c rows at a time; x enters through
+    :func:`~repro_torch.distributed.par.tp_entry`. With one model shard it
+    is the single-device loss on the head gathered over its fsdp axes."""
     b, s, d = x.shape
-    head = w.head.to(x.dtype)
-    nll = ce_ops.fused_ce(x.reshape(b * s, d), head, labels.reshape(b * s),
-                          round_logits=x.dtype == torch.bfloat16)
+    head = (w.head.to(x.dtype) if par.mesh is None
+            else P.gather_param(w.head, w.specs["head"], x.dtype, par))
+    round_logits = x.dtype == torch.bfloat16
+    if par.mp_size == 1:
+        nll = ce_ops.fused_ce(x.reshape(b * s, d), head, labels.reshape(b * s),
+                              round_logits=round_logits)
+        return nll.sum(), b * s
+    c = min(s, ce_ops.BWD_CHUNK)
+    while s % c:
+        c //= 2
+    n = s // c
+    rows = (P.tp_entry(x, par).reshape(b, n, c, d).transpose(0, 1)
+            .reshape(n * b * c, d))
+    lab = labels.reshape(b, n, c).transpose(0, 1).reshape(n * b * c)
+    v0 = P.axis_index(par.mp, par) * head.shape[1]
+    nll = ce_ops.fused_ce_shard(rows, head, lab - v0,
+                                par.mesh.group(par.mp_axes),
+                                round_logits=round_logits, chunk=b * c)
     return nll.sum(), b * s
 
 

@@ -29,11 +29,11 @@ The cache is ``{"t": int, "layers": [per-layer dict, ...]}`` in layer order;
 reference, which returns new cache arrays, :func:`decode_step` writes the
 ring slots and the recurrent state in place and returns the same dict.
 
-On a mesh (a model built under ``par``: the SP-mode archs) every rank
-holds its rows of the batch (over the data axes) and, in the training
-layout (``fsdp``), its block of W/mp ring slots over ``model`` where mp
-divides W: :func:`_ring_write` writes a slot on its owner rank alone, and
-each rank's decode-attention kernel attends its block, whose (out, m, l)
+On a mesh (a model built under ``par``) every rank holds its rows of the
+batch (over the data axes) and, for an SP arch in the training layout
+(``fsdp``), its block of W/mp ring slots over ``model`` where mp divides
+W: :func:`_ring_write` writes a slot on its owner rank alone, and each
+rank's decode-attention kernel attends its block, whose (out, m, l)
 are merged over ``model`` (``decode_attention.ops.merge_across``). Else
 every model rank holds the whole ring. In the serving-resident layout
 (``model.serve_tp``) the attention heads are split over ``model`` and
@@ -42,8 +42,14 @@ whisper's cross K/V hold this rank's S_enc/mp block of the encoder's
 positions, attended by the kernel and merged over ``model`` as a
 sequence-sharded ring is; an MoE step computes its partial output on the
 rank's ff shard of every expert (and of arctic's dense residual) and
-takes one psum over ``model``. :func:`cache_pspecs` says which cache
-dimensions are split over which axes. The token is replicated over
+takes one psum over ``model``. A TP-mode arch (recurrentgemma, rwkv6)
+splits its heads, RG-LRU channels and WKV heads over ``model`` in both
+layouts: its rank holds the RG-LRU state and conv history of its r/mp
+channels and the WKV state of its H/mp heads (the token shifts whole),
+and its local attention's MQA ring whole (``fsdp``) or its K/V head
+(``tp``); each mixer's row-parallel output takes one psum over
+``model``. :func:`cache_pspecs` says which cache dimensions are split
+over which axes. The token is replicated over
 ``model``; the head is vocab-parallel, so a step's logits are this rank's
 vocabulary block and :func:`vocab_parallel_argmax` picks the global greedy
 token.
@@ -106,12 +112,13 @@ def _slot_cache_shapes(cfg: ModelConfig, kind: str, b: int, seq_len: int,
             "pos": ((w_loc,), torch.int32),
         }
     if kind == "rglru":
-        r = cfg.rnn_dim
+        r = cfg.rnn_dim // par.mp_size  # the rank's channels
         return {"state": ((b, r), torch.float32),
                 "conv": ((b, 3, r), torch.float32)}
     if kind == "rwkv":
         d = cfg.d_model
-        return {"state": ((b, cfg.n_heads, hd, hd), torch.float32),
+        return {"state": ((b, cfg.n_heads // par.mp_size, hd, hd),
+                          torch.float32),
                 "shift_tm": ((b, d), torch.float32),
                 "shift_cm": ((b, d), torch.float32)}
     raise ValueError(kind)
@@ -154,18 +161,27 @@ def cache_pspecs(cfg: ModelConfig, seq_len: int, par: Par,
     times mp: heads a GQA group shares are held once a rank); ``pos``
     follows W. Whisper's ``ck``/``cv`` (B, S_enc, Hk, D) are split over
     the data axes along B and over ``model`` along S_enc, in both layouts.
+    In either layout an RWKV layer's WKV state (B, H, D, D) is split over
+    the data axes and ``model`` (its heads), its shifts over the data axes,
+    and an RG-LRU layer's state (B, r) and conv history (B, 3, r) over the
+    data axes and ``model`` (its channels, as its weights).
     A batch that does not split over the data ranks runs whole on each
     (``launch.steps.strip_dp``). On one device every leaf is whole."""
-    if par.all_axes:
-        T.check_shardable(cfg)
     mp = par.mp_axes
     layers = []
     for kind in layer_kinds(cfg):
         shapes = _slot_cache_shapes(cfg, kind, 1, seq_len, par=par,
                                     serve_tp=serve_tp)
-        if kind != "attn" or not par.all_axes:
+        if not par.all_axes:
             spec = {n: PSpec(((),) * len(shape))
                     for n, (shape, _) in shapes.items()}
+        elif kind == "rwkv":
+            shift = PSpec((par.dp, ()))
+            spec = {"state": PSpec((par.dp, mp, (), ())), "shift_tm": shift,
+                    "shift_cm": shift}
+        elif kind == "rglru":
+            spec = {"state": PSpec((par.dp, mp)),
+                    "conv": PSpec((par.dp, (), mp))}
         else:
             w = attn_cache_len(cfg, kind, seq_len)
             seq = mp if ring_sharded(cfg, w, par, serve_tp) else ()
@@ -295,62 +311,70 @@ def _moe_decode(h, w, cfg: ModelConfig, par: Par = L.ONE):
     return P.psum(y, par.mp_axes, par)
 
 
-def _rglru_decode(x, w, cache, cfg: ModelConfig):
-    """One RG-LRU step. x: (B, 1, d). Returns y (B, 1, d); updates the
-    state and the conv history in place."""
+def _rglru_decode(x, w, cache, cfg: ModelConfig, par: Par = L.ONE):
+    """One RG-LRU step. x: (B, 1, d), replicated over ``model``. Returns y
+    (B, 1, d); updates the state and the conv history in place. On a mesh
+    the rank's r/mp channels, then one psum over ``model`` after ``wo``."""
     dtype = x.dtype
+    g = L.gathered(w, dtype, par)
     xt = x[:, 0]
-    bx = xt @ w.wx.to(dtype)  # (B, r)
+    bx = xt @ g("wx")  # (B, r)
     hist = cache["conv"]  # (B, 3, r) f32
     seq = torch.cat([hist, bx[:, None].float()], dim=1)  # (B, 4, r)
-    bconv = torch.einsum("bkr,kr->br", seq, w.conv.to(dtype).float())
-    log_a, beta, i_gate = L.rglru_gates(xt @ w.wa.to(dtype),
-                                        xt @ w.wi.to(dtype), w.lam)
+    bconv = torch.einsum("bkr,kr->br", seq, g("conv").float())
+    log_a, beta, i_gate = L.rglru_gates(
+        xt @ g("wa"), xt @ g("wi"), L.gathered(w, torch.float32, par)("lam"))
     h = torch.exp(log_a) * cache["state"] + beta * (i_gate * bconv)
-    gate = L._gelu(xt @ w.wgate.to(dtype))
-    y = ((h.to(dtype) * gate) @ w.wo.to(dtype))[:, None]
+    gate = L._gelu(xt @ g("wgate"))
+    y = ((h.to(dtype) * gate) @ g("wo"))[:, None]
     cache["state"].copy_(h)
     cache["conv"].copy_(seq[:, 1:])
-    return y
+    return P.psum(y, par.mp_axes, par)
 
 
-def _rwkv_decode(x, w, cache, cfg: ModelConfig):
-    """One RWKV6 time-mix step. x: (B, 1, d) normed. The mixes are formed in
-    float32 and cast to the compute dtype, as in the reference
-    (repro/models/serving.py:342). Returns y
-    (B, 1, d); updates the WKV state and ``shift_tm`` in place."""
+def _rwkv_decode(x, w, cache, cfg: ModelConfig, par: Par = L.ONE):
+    """One RWKV6 time-mix step. x: (B, 1, d) normed, replicated over
+    ``model``. The mixes are formed in float32 and cast to the compute
+    dtype, as in the reference (repro/models/serving.py:342). Returns y
+    (B, 1, d); updates the WKV state and ``shift_tm`` in place. On a mesh
+    the rank's H/mp heads, then one psum over ``model`` after ``wo``."""
     dtype = x.dtype
-    b, _, d = x.shape
-    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    b = x.shape[0]
+    h, hd = cfg.n_heads // par.mp_size, cfg.resolved_head_dim
+    g = L.gathered(w, dtype, par)
+    f32 = L.gathered(w, torch.float32, par)
     xt = x[:, 0].float()
-    mu = w.mu.float()
+    mu = f32("mu")
     xprev = cache["shift_tm"]
     mix = lambda i: (xt + mu[i] * (xprev - xt)).to(dtype)
-    r = (mix(0) @ w.wr.to(dtype)).float().reshape(b, h, hd)
-    k = (mix(1) @ w.wk.to(dtype)).float().reshape(b, h, hd)
-    v = (mix(2) @ w.wv.to(dtype)).float().reshape(b, h, hd)
-    gate = mix(3) @ w.wg.to(dtype)
-    lora = torch.tanh(mix(4) @ w.wa.to(dtype)) @ w.wb.to(dtype)
-    wdec = torch.exp(L.rwkv_log_decay(w.w0, lora)).reshape(b, h, hd)
-    u = w.u.float()
+    r = (mix(0) @ g("wr")).float().reshape(b, h, hd)
+    k = (mix(1) @ g("wk")).float().reshape(b, h, hd)
+    v = (mix(2) @ g("wv")).float().reshape(b, h, hd)
+    gate = mix(3) @ g("wg")
+    lora = torch.tanh(mix(4) @ g("wa")) @ g("wb")
+    wdec = torch.exp(L.rwkv_log_decay(f32("w0"), lora)).reshape(b, h, hd)
+    u = f32("u")
     st = cache["state"]  # (B, H, D, D) f32, key × value
     y = (torch.einsum("bhd,bhde->bhe", r, st)
          + (r * u * k).sum(-1, keepdim=True) * v)
     st.mul_(wdec[..., None]).add_(k[..., :, None] * v[..., None, :])
-    yn = L.rwkv_group_norm(y, w.ln_x, h, hd).reshape(b, 1, d).to(dtype)
+    yn = L.rwkv_group_norm(y, f32("ln_x"), h, hd).reshape(b, 1, h * hd)
     cache["shift_tm"].copy_(xt)
-    return (yn * F.silu(gate[:, None])) @ w.wo.to(dtype)
+    out = (yn.to(dtype) * F.silu(gate[:, None])) @ g("wo")
+    return P.psum(out, par.mp_axes, par)
 
 
-def _rwkv_cm_decode(x, w, cache):
-    """One channel-mix step; updates ``shift_cm`` in place."""
+def _rwkv_cm_decode(x, w, cache, par: Par = L.ONE):
+    """One channel-mix step; updates ``shift_cm`` in place. On a mesh the
+    rank's d_ff/mp channels, psummed over ``model`` after ``cm_v``."""
     dtype = x.dtype
+    g = L.gathered(w, dtype, par)
     xt = x[:, 0].float()
     xk = (0.5 * (xt + cache["shift_cm"])).to(dtype)
-    r = torch.sigmoid(xk @ w.cm_r.to(dtype))
-    hh = torch.square(torch.relu(xk @ w.cm_k.to(dtype)))
+    r = torch.sigmoid(xk @ g("cm_r"))
+    hh = torch.square(torch.relu(xk @ g("cm_k")))
     cache["shift_cm"].copy_(xt)
-    return (r * (hh @ w.cm_v.to(dtype)))[:, None]
+    return (r * P.psum(hh @ g("cm_v"), par.mp_axes, par))[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -360,20 +384,20 @@ def _rwkv_cm_decode(x, w, cache):
 
 def _decode_block(x, blk, cache, cfg: ModelConfig, t: int, seq_len: int,
                   par: Par = L.ONE, serve_tp: bool = False):
-    """One layer's decode step; on a mesh (``par``, an SP-mode attention
-    block) in the layout ``serve_tp`` names."""
+    """One layer's decode step; on a mesh (``par``) in the layout
+    ``serve_tp`` names."""
     dtype = x.dtype
     h = L.apply_norm(x, blk.ln1, dtype, cfg.norm, par)
     if blk.kind == "rwkv":
-        x = x + _rwkv_decode(h, blk.mix, cache, cfg)
-        h = L.apply_norm(x, blk.ln2, dtype, cfg.norm)
-        return x + _rwkv_cm_decode(h, blk.mix, cache)
+        x = x + _rwkv_decode(h, blk.mix, cache, cfg, par)
+        h = L.apply_norm(x, blk.ln2, dtype, cfg.norm, par)
+        return x + _rwkv_cm_decode(h, blk.mix, cache, par)
     if blk.kind == "attn":
         win = cfg.swa_window or cfg.local_attn_window
         a = _attn_decode(h, blk.mix, cache, cfg, t, seq_len, win, par,
                          serve_tp)
     elif blk.kind == "rglru":
-        a = _rglru_decode(h, blk.mix, cache, cfg)
+        a = _rglru_decode(h, blk.mix, cache, cfg, par)
     else:
         raise ValueError(blk.kind)
     x = x + a
@@ -471,7 +495,8 @@ def prefill(model: T.LM, tokens, seq_len: int, dtype=torch.bfloat16,
     (B, S, d)), and with ``aux`` also the MoE's {lb_loss, drop_frac}
     (means over layers). On a mesh (``model.par``) ``tokens`` and
     ``patches`` are this rank's rows, ``frames`` its rows' S_enc/mp block
-    of positions, the hidden its sequence block (B, S/mp, d) and the cache
+    of positions, the hidden its sequence block (B, S/mp, d) (a TP-mode
+    arch's: the whole (B, S, d), replicated over ``model``) and the cache
     its shard in the training layout (:func:`cache_pspecs`; the cross K/V
     this rank's block of the K/V gathered over ``model``).
 

@@ -18,16 +18,18 @@ maps the reference's tree onto it).
 On a mesh (``par``, :func:`repro_torch.launch.mesh.make_par`) a model
 holds this rank's shards: every weight at its
 :class:`~repro_torch.distributed.par.WSpec`'s local shape
-(:func:`build_specs`, the reference's placement). The SP-mode archs run
-sharded: the dense decoders (llama3.2, qwen2, stablelm, qwen1.5), the MoE
-(mixtral, arctic: the experts' ff dimension over ``model``), the
-encoder-decoder (whisper: the encoder's frames sequence-sharded over
-``model``) and the VLM (llava: the patch rows at their global positions).
-ZeRO-3 weight gathers over the data axes (and ``model`` where a weight has
-no model dimension), sequence-parallel blocks and a vocab-parallel
-embedding and loss over ``model`` (:mod:`repro_torch.models.layers`). The
-same code runs on one device under the trivial ``Par()``, where every
-collective is the identity.
+(:func:`build_specs`, the reference's placement). Every arch runs
+sharded. The SP-mode ones: the dense decoders (llama3.2, qwen2, stablelm,
+qwen1.5), the MoE (mixtral, arctic: the experts' ff dimension over
+``model``), the encoder-decoder (whisper: the encoder's frames
+sequence-sharded over ``model``) and the VLM (llava: the patch rows at
+their global positions), with sequence-parallel blocks. The TP-mode ones
+(recurrentgemma, rwkv6): the stream replicated over ``model``, the heads,
+RG-LRU channels, WKV heads and ff columns split over it. Both take ZeRO-3
+weight gathers over the data axes (and ``model`` where a weight has no
+model dimension) and a vocab-parallel embedding and loss over ``model``
+(:mod:`repro_torch.models.layers`). The same code runs on one device
+under the trivial ``Par()``, where every collective is the identity.
 """
 
 from __future__ import annotations
@@ -133,17 +135,6 @@ class Block(nn.Module):
                                          else specs[name]))
 
 
-def check_shardable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config whose sharded paths are
-    not ported: the SP-mode archs (dense, MoE, encoder-decoder, VLM) run on
-    a mesh (training, prefill and decode); the TP-mode ones do not yet."""
-    if cfg.parallel_mode == "tp":
-        raise NotImplementedError(
-            f"{cfg.name}: the TP-mode sharded paths (attn_tp, mlp_tp, the "
-            "RG-LRU and RWKV heads over 'model', their training and "
-            "serving) are ROADMAP queue 1 item 9f, step 3")
-
-
 class LM(nn.Module):
     """An LM of any family: TP-mode blocks (recurrentgemma's and rwkv6's
     kinds) or SP-mode attention blocks (dense, MoE, VLM), and for the
@@ -165,8 +156,6 @@ class LM(nn.Module):
         super().__init__()
         check_supported(cfg)
         par = par or Par()
-        if par.mesh is not None:
-            check_shardable(cfg)
         dev = resolve_device(device)
         self.cfg, self.par, self.exclude_fsdp = cfg, par, tuple(exclude_fsdp)
         self.serve_tp = serve_tp
@@ -222,13 +211,19 @@ def _block_fwd(x, blk: Block, cfg: ModelConfig, capture: bool = False,
     cross-attention block attends. Returns (x, cache): the layer's
     contribution to the serving cache when ``capture`` (prefill), else {}.
     An MoE block appends its {lb_loss, drop_frac} to ``aux``, a list the
-    caller makes afresh for each run (see :func:`_group_fwd`)."""
+    caller makes afresh for each run (see :func:`_group_fwd`). In TP mode
+    x is replicated over ``model`` (its norms take
+    ``replicated=True``) and the MLP is ``mlp_tp``; in SP mode it is the
+    rank's sequence block and the MLP ``mlp_sp``."""
     if blk.kind == "rwkv":
         # Time-chunked whole block; the state and shifts carry across chunks.
-        return L.rwkv_block_chunked(x, blk, cfg, capture=capture)
+        return L.rwkv_block_chunked(x, blk, cfg, capture=capture, par=par)
     dtype = x.dtype
     cache = {}
-    h = L.apply_norm(x, blk.ln1, dtype, cfg.norm, par)
+    tp = cfg.parallel_mode == "tp"
+    norm = functools.partial(L.apply_norm, dtype=dtype, kind=cfg.norm,
+                             par=par, replicated=tp)
+    h = norm(x, blk.ln1)
     if blk.kind == "attn":
         a = L.attn_tp(h, blk.mix, cfg,
                       window=cfg.swa_window or cfg.local_attn_window,
@@ -237,7 +232,7 @@ def _block_fwd(x, blk: Block, cfg: ModelConfig, capture: bool = False,
         if capture:
             a, cache["kv_full"] = a
     elif blk.kind == "rglru":
-        a = L.rglru_mix(h, blk.mix, cfg, return_state=capture)
+        a = L.rglru_mix(h, blk.mix, cfg, return_state=capture, par=par)
         if capture:
             a, (cache["state"], cache["conv"]) = a
     else:
@@ -246,17 +241,19 @@ def _block_fwd(x, blk: Block, cfg: ModelConfig, capture: bool = False,
     if hasattr(blk, "cross") and enc is not None:
         # under a mesh ``enc`` is this rank's block of the encoder's
         # positions; attn_sp gathers its K/V over ``model``
-        h = L.apply_norm(x, blk.ln_cross, dtype, cfg.norm, par)
+        h = norm(x, blk.ln_cross)
         c = L.attn_sp(h, blk.cross, cfg, causal=False, kv_source=enc,
                       use_rope=False, return_kv=capture, par=par)
         if capture:
             c, cache["cross_kv_full"] = c
         x = x + c
-    h = L.apply_norm(x, blk.ln2, dtype, cfg.norm, par)
+    h = norm(x, blk.ln2)
     if blk.kind == "attn" and cfg.moe is not None:
         y, moe_aux = L.moe_sp(h, blk.ffn, cfg, par=par)
         if aux is not None:
             aux.append(moe_aux)
+    elif tp:
+        y = L.mlp_tp(h, blk.ffn, cfg.mlp, par)
     else:
         y = L.mlp_sp(h, blk.ffn, cfg, par)
     return x + y, cache
@@ -371,7 +368,8 @@ def forward_hidden(model: LM, tokens, dtype=torch.bfloat16,
     if remat and capture:
         raise ValueError("remat is for training; a prefill captures its "
                          "cache without it")
-    x = L.embed_tokens(tokens, model.embed, dtype, par)
+    x = L.embed_tokens(tokens, model.embed, dtype, par,
+                       sp=cfg.parallel_mode == "sp")
     if cfg.family == "vlm":
         s_loc = x.shape[1]
         gpos = P.axis_index(par.mp, par) * s_loc + torch.arange(
@@ -399,7 +397,8 @@ def forward_hidden(model: LM, tokens, dtype=torch.bfloat16,
     for blk in blocks[n_groups * p:]:
         x, cap = _block_fwd(x, blk, cfg, capture=capture, enc=enc, par=par)
         captured.append(cap)
-    x = L.apply_norm(x, model.final_norm, dtype, cfg.norm, par)
+    x = L.apply_norm(x, model.final_norm, dtype, cfg.norm, par,
+                     replicated=cfg.parallel_mode == "tp")
     out = (x, captured) if capture else (x,)
     if aux:
         auxes = [a for a in auxes if a is not None]
@@ -446,9 +445,8 @@ def loss_fn(model: LM, batch, dtype=torch.bfloat16, remat: bool = False):
                             frames=batch.get("frames"),
                             patches=batch.get("patches"), aux=True,
                             remat=remat)
-    ce = (functools.partial(L.ce_loss_sp, par=par)
-          if cfg.parallel_mode == "sp" else L.ce_loss_tp)
-    nll_sum, count = ce(h, batch["labels"], model.embed, cfg)
+    ce = L.ce_loss_sp if cfg.parallel_mode == "sp" else L.ce_loss_tp
+    nll_sum, count = ce(h, batch["labels"], model.embed, cfg, par)
     if par.dp:
         nll_sum = P.psum(nll_sum, par.dp, par)
         count *= par.dp_size

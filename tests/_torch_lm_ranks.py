@@ -135,6 +135,27 @@ def train(group, job):
             "kept": kept, "margin": min(margins, default=None)}
 
 
+def grads(group, job):
+    """One forward and backward of ``transformer.loss_fn`` on mesh
+    ``job["mesh"]`` from ``job["params"]`` (float32, ``job["remat"]``),
+    then ``par.sync_grads``: the loss and, on mesh rank 0, the logical
+    gradient of every weight (None on the other ranks). A rank past the
+    mesh returns None."""
+    from repro_torch.launch.steps import batch_slice
+
+    mesh = make_mesh(*job["mesh"])
+    if mesh.rank is None:
+        return None
+    _, model, _ = _setup(job, mesh)
+    with torch.enable_grad():
+        loss, _ = T.loss_fn(model, batch_slice(batch_of(job), model.par),
+                            torch.float32, job.get("remat", False))
+        loss.backward()
+    g = P.sync_grads({n: p.grad for n, p in model.named_parameters()},
+                     model.specs, model.par)
+    return {"loss": float(loss), "grads": logical(model, g)}
+
+
 def resume(group, job):
     """On mesh (2, 2): 4 steps from the seed with the state saved after
     step 2 (``job["ckpt"]``); a model of another seed restored from that

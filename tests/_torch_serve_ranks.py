@@ -57,8 +57,9 @@ def serve(group, job):
     logical hidden and cache after the prefill, each step's logical
     logits and next tokens, the final logical cache, the decode-attention
     kernel's launches a step, the collectives of the last step by kind
-    (this rank's), the rank's first layer's cache shapes and the least
-    routing margin of its MoE calls (``margin``)."""
+    (this rank's), the rank's cache shapes (its first layer's, and every
+    layer's) and the least routing margin of its MoE calls
+    (``margin``)."""
     from _torch_lm_ranks import _route_margins
 
     margins = []
@@ -117,9 +118,12 @@ def _serve(job):
         out["tokens"].append(
             P.gather_logical(nxt, specs["tokens"], par).cpu().numpy())
     out["cache"] = gathered_cache(cache, specs["cache"], par)
-    out["ring_local"] = tuple(cache["layers"][0]["k"].shape)
+    out["ring_local"] = next((tuple(c["k"].shape) for c in cache["layers"]
+                              if "k" in c), None)  # the first ring's
     out["shapes_local"] = {n: tuple(v.shape)
                            for n, v in cache["layers"][0].items()}
+    out["layer_shapes"] = [{n: tuple(v.shape) for n, v in c.items()}
+                           for c in cache["layers"]]
     return out
 
 

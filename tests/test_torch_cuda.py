@@ -2195,3 +2195,118 @@ def test_decode_attention_cross_blocks_merge_on_card(dev, blocks):
     plain = decode_attention_ref(q, k, v, whole_pos, SV.CROSS_T)[0]
     assert float((got - whole).abs().max()) <= 1e-6
     assert float((got - plain).abs().max()) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# The TP-mode archs' sharded paths: the four kernels at a (2, 2) rank's
+# shapes, and one reduced sharded step per arch on 4 gloo ranks
+# ---------------------------------------------------------------------------
+
+
+def test_tp_shard_rglru_scan_at_the_rank_width(dev):
+    """recurrentgemma-9b's RG-LRU at r/mp = 2,048 channels (a data rank's
+    training row of 2,048 steps): the forward and the backward kernel
+    against their plain versions, each one launch."""
+    la, bx, _, gh, gl = _rglru_inputs(1, 2048, 2048, -5.0, dev, seed=31)
+    before = rops.launch_count
+    y, hf = rops.rglru_scan(la, bx, None)
+    y_ref, hf_ref = rglru_ref(la, bx, None)
+    torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hf, hf_ref, rtol=1e-5, atol=1e-5)
+    got = rops.rglru_scan_backward(la, y, None, gh, gl)
+    want = rglru_bwd_ref(la, y, None, gh, gl)
+    assert rops.launch_count == before + 2 and got[2] is None
+    for a, w in zip(got[:2], want[:2]):
+        _close_to_largest(a, w, 1e-5)
+
+
+def test_tp_shard_rwkv6_scan_at_the_rank_heads(dev):
+    """rwkv6-7b's WKV at H/mp = 32 heads over one 512-step time chunk of a
+    data rank's row: the forward and the two-pass backward against their
+    plain versions."""
+    r, k, v, lw, u, s0, dy, ds = _rwkv6_grad_inputs(1, 32, 512, 64, None,
+                                                    dev, seed=31)
+    y, st = wops.rwkv6_scan(r, k, v, lw, u, s0)
+    y_ref, st_ref = rwkv6_chunked_ref(r, k, v, lw, u, s0, chunk=64)
+    _close_to_largest(y, y_ref, 1e-5)
+    _close_to_largest(st, st_ref, 1e-5)
+    _, _, states = wops._launch(r, k, v, lw, u, s0, 64, save_states=True)
+    before = wops.bwd_launch_count
+    got = wops.rwkv6_scan_backward(r, k, v, lw, u, states, dy, ds)
+    assert wops.bwd_launch_count == before + 2
+    want = rwkv6_bwd_ref(r, k, v, lw, u, states, dy, ds, chunk=64)
+    for a, w in zip(got, want):
+        _close_to_largest(a, w)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-7b"])
+def test_tp_shard_fused_ce_on_the_rank_vocab_block(dev, arch):
+    """``fused_ce`` on a model rank's vocabulary block of the published
+    head (V/mp = 128,000 and 32,768 columns, D = 4,096) at a data rank's
+    2,048 rows, bf16 logits, against its plain version."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    x, w, lab = _shard_inputs(dev, t=2048, d=cfg.d_model,
+                              v=cfg.padded_vocab(), seed=31)
+    vb = w.shape[1] // 2
+    ws, ls = w[:, vb:].contiguous(), lab - vb
+    del w
+    lse, tgt = cops.lse_and_target(x, ws, ls, round_logits=True)
+    lse_ref, tgt_ref = fused_ce_ref(x, ws, ls, round_logits=True)
+    top = float((x.float() @ ws.float()).abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    for a, ref in ((lse, lse_ref), (tgt, tgt_ref)):
+        err = (a - ref).abs()
+        assert float((err > 1e-4).float().mean()) <= 0.01
+        assert float(err.max()) <= 1e-4 + ulp
+
+
+def test_tp_shard_decode_attention_on_the_whole_mqa_ring(dev):
+    """recurrentgemma-9b's local attention at a model rank: 8 query heads
+    against the whole MQA ring (Hk = 1, W = 2,048, D = 256, window 2,048,
+    bf16) after the ring wrapped, against the plain version."""
+    g = torch.Generator().manual_seed(31)
+    b, h, d, w, t = 2, 8, 256, 2048, 2051
+    q = torch.randn(b, h, d, generator=g).to(dev)
+    k = torch.randn(b, w, 1, d, generator=g).to(torch.bfloat16).to(dev)
+    v = torch.randn(b, w, 1, d, generator=g).to(torch.bfloat16).to(dev)
+    slots = torch.arange(w)
+    pos = (slots + ((t - slots) // w) * w).to(torch.int32).to(dev)
+    before = aops.launch_count
+    got = aops.decode_attention(q, k, v, pos, t, w)
+    assert aops.launch_count == before + 1
+    for a, r in zip(got, decode_attention_ref(q, k, v, pos, t, w)):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-7b"])
+def test_tp_sharded_step_on_four_gloo_ranks(dev, arch):
+    """The reduced twin's sharded loss and gradient on 4 gloo ranks over
+    CUDA tensors, mesh (2, 2), against the single device's (float32): the
+    loss to 1e-5 relative, every weight's gradient to 1e-4 of its largest
+    entry (``tests/test_torch_train_sharded_tp.py``'s rwkv6 bound; rwkv6's
+    ``wa`` has a zero gradient at the init, whose ``wb`` is zero: there
+    both are 0)."""
+    import _torch_lm_ranks as ranks
+    from repro_torch.distributed.launch import run_ranks
+
+    cfg = get_reduced(arch)
+    gen = np.random.default_rng(31)
+    batch = {k: gen.integers(0, cfg.vocab_size, (8, 64), dtype=np.int64)
+             for k in ("tokens", "labels")}
+    model = T.init_model(cfg, 0, dev).requires_grad_(True)
+    loss, _ = T.loss_fn(model, {k: torch.as_tensor(v, device=dev)
+                                for k, v in batch.items()},
+                        torch.float32, remat=True)
+    loss.backward()
+    outs = run_ranks(ranks.many, 4, backend="gloo", device="cuda", args=(
+        [("grads", dict(arch=arch, device="cuda", batch=batch, remat=True,
+                        mesh=((2, 2), ("data", "model"))))],))
+    got = outs[0][0]
+    np.testing.assert_allclose(got["loss"], float(loss), rtol=1e-5)
+    for n, p in model.named_parameters():
+        want = p.grad.cpu().numpy()
+        gap = (np.abs(got["grads"][n] - want).max()
+               / max(np.abs(want).max(), 1e-30))
+        assert gap <= 1e-4, (n, gap)

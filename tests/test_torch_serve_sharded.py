@@ -45,10 +45,11 @@ and with every block empty (``MERGE_ATOL``, measured ≤ 2.4e-7);
 across shards; the serving-resident placement and ``cache_pspecs`` equal
 the reference's; a decode started from the reference's own prefill cache
 (``convert.lm_cache``) matches it as one from the port's prefill; the
-step functions refuse the TP-mode archs, whose sharded paths are a later
-ROADMAP step, naming the step, and build the MoE, encoder-decoder and VLM
-archs' steps, whose rank caches make up the single-device cache (their
-runs against the reference: ``tests/test_torch_serve_sharded_families.py``).
+step functions build the MoE, encoder-decoder and VLM archs' steps and
+the TP-mode archs' (recurrentgemma, rwkv6), whose rank caches make up the
+single-device cache (their runs against the reference:
+``tests/test_torch_serve_sharded_families.py`` and
+``tests/test_torch_serve_sharded_tp.py``).
 """
 
 import dataclasses
@@ -547,19 +548,15 @@ def test_cache_pspecs_match_reference(mesh, seq, serve_tp):
     ("llava-next-mistral-7b", "step 2"), ("recurrentgemma-9b", "step 3"),
     ("rwkv6-7b", "step 3")])
 def test_serving_steps_refuse_later_steps(arch, step):
-    """The TP-mode archs (ROADMAP item 9f step 3) are refused, naming the
-    step. Step 2's (MoE, encoder-decoder, VLM) build both steps, and each
-    rank's cache shard in either layout, times the mesh axes its specs
-    split it over, is the single-device cache (whisper's ``ck``/``cv``
-    included)."""
+    """The archs of ROADMAP item 9f's steps 2 (MoE, encoder-decoder, VLM)
+    and 3 (the TP-mode recurrentgemma and rwkv6), once refused, build both
+    steps, and each rank's cache shard in either layout, times the mesh
+    axes its specs split it over, is the single-device cache (whisper's
+    ``ck``/``cv``, the RG-LRU states' r/mp channels and the WKV states'
+    H/mp heads included; a tp ring's logical K/V heads are
+    ``serve_kv_heads`` times mp: an MQA head is held once a rank)."""
     cfg = get_reduced(arch)
     mesh = Mesh(AXES, (2, 2))
-    if step == "step 3":
-        for build, kind in ((make_sharded_prefill, "prefill"),
-                            (make_sharded_decode, "decode")):
-            with pytest.raises(NotImplementedError, match=step):
-                build(cfg, mesh, ShapeConfig("s", 32, 4, kind))
-        return
     make_sharded_prefill(cfg, mesh, ShapeConfig("s", 32, 4, "prefill"))
     par = make_par(mesh)
     whole = SV.init_cache(cfg, 4, 32, torch.bfloat16, "meta")["layers"]
@@ -573,7 +570,10 @@ def test_serving_steps_refuse_later_steps(arch, step):
             for n, t in c.items():
                 logical = tuple(d * mesh.size_of(a)
                                 for d, a in zip(t.shape, sp[n].dims))
-                assert logical == tuple(w[n].shape), (layout, n)
+                want = list(w[n].shape)
+                if layout == "tp" and n in ("k", "v"):
+                    want[2] = SV.serve_kv_heads(cfg, 2) * 2
+                assert logical == tuple(want), (layout, n)
 
 
 def test_tp_layout_needs_divisible_heads():
